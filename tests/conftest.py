@@ -27,6 +27,10 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute integration tests (skip with "
         "TPULSAR_FAST_TESTS=1 or -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (tpulsar_torch's kernels); skips "
+        "without one")
 
 
 def pytest_collection_modifyitems(config, items):
