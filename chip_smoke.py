@@ -24,6 +24,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -97,25 +98,67 @@ def mock_spec(nsamp: int) -> synth.BeamSpec:
                           nsblk=64, backend="pdev", seed=20261016)
 
 
-def kernel_phase(freqs: np.ndarray) -> list[dict]:
-    """Each kernel against its plain version at the main path's
-    shapes, exact; times and bounds."""
+def ptxas_report(build_log: str) -> dict:
+    """Registers a thread and spill bytes of every kernel, from nvcc's
+    -Xptxas -v report, printed one line each; returns name ->
+    registers (form_subbands<u8|f32>, dedisperse_subbands<R rows>)."""
+    names = {"form_subbands_kernelIhE": "form_subbands<u8>",
+             "form_subbands_kernelIfE": "form_subbands<f32>"}
+    out, name, spill = {}, None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            r = re.search(r"dedisperse_kernelILi(\d+)EE", m.group(1))
+            name = (f"dedisperse_subbands<{r.group(1)} rows>" if r else
+                    next((v for k, v in names.items() if k in m.group(1)),
+                         m.group(1)))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            n = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[name] = n
+            log(f"  ptxas: {name}: {n} registers; {spill}")
+            name = None
+    return out
+
+
+def plan_shapes(plan, nsamp: int, params) -> tuple[dict, dict]:
+    """Launches per beam at each shape: stage 1 by downsample, stage 2
+    by (DM rows, downsample), one stage-2 launch per DM chunk."""
+    s1: dict = {}
+    s2: dict = {}
+    for step in plan:
+        ds = step.downsamp
+        nfft = ddplan.choose_n(nsamp // ds)
+        for ppass in step.passes():
+            s1[ds] = s1.get(ds, 0) + 1
+            ndms = len(ppass.dms)
+            chunk = executor.pass_chunk_size(ndms, nfft, params)
+            for lo in range(0, ndms, chunk):
+                key = (min(chunk, ndms - lo), ds)
+                s2[key] = s2.get(key, 0) + 1
+    return s1, s2
+
+
+def kernel_phase(freqs: np.ndarray, regs: dict) -> list[dict]:
+    """Each kernel against its plain version at every shape the Mock
+    plan launches, exact; per shape the time, bound and share of the
+    bound, and per beam the sums over the plan's launches."""
     plan = ddplan.survey_plan("pdev")
+    n1, n2 = plan_shapes(plan, NSAMP, executor.SearchParams.slice_defaults())
     gen = torch.Generator(device=DEV)
     gen.manual_seed(7)
     data = torch.randint(0, 256, (NCHAN, NSAMP), generator=gen,
                          device=DEV, dtype=torch.uint8)
-    rows = []
-
-    # stage 1 at downsample 1 and 10, with the widest shifts of each
-    # step (shifts > 0 reach the edge clamp at the series' end)
-    s1 = {}
-    for step in (plan[0], plan[-1]):
-        ppass = step.passes()[-1]
-        ch_sh, _ = dd.plan_pass_shifts(freqs, 96, ppass.subdm,
-                                       np.asarray(ppass.dms), TSAMP,
-                                       step.downsamp)
+    s1, s2 = [], []
+    for step in plan:
+        # the step's last pass: its widest shifts (shifts > 0 reach the
+        # edge clamp at the series' end)
         ds = step.downsamp
+        ppass = step.passes()[-1]
+        dms = np.asarray(ppass.dms)
+        ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, ppass.subdm, dms,
+                                            TSAMP, ds)
         got = cuda_dd.form_subbands(data, ch_sh, 96, ds)
         want = cuda_dd.form_subbands_plain(data, ch_sh, 96, ds)
         torch.cuda.synchronize()
@@ -123,61 +166,83 @@ def kernel_phase(freqs: np.ndarray) -> list[dict]:
         if not torch.equal(got, want):
             raise AssertionError(f"stage-1 kernel differs from its plain "
                                  f"version at ds={ds}: max |err| {err}")
+        del want
         ms = time_ms(lambda: cuda_dd.form_subbands(data, ch_sh, 96, ds))
         plain = time_ms(lambda: cuda_dd.form_subbands_plain(
-            data, ch_sh, 96, ds), runs=5)
+            data, ch_sh, 96, ds), runs=3)
         nbytes = NCHAN * NSAMP + 96 * (NSAMP // ds) * 4 + NCHAN * 4
         b, by = bound_ms(nbytes, NCHAN * NSAMP)
+        occ, smem = cuda_dd.stage1_occupancy(NCHAN, 96, ds, torch.uint8)
         log(f"kernel form_subbands ds={ds}: exact (max|err| {err}), "
             f"max shift {int(ch_sh.max())}, {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {b:.4f} ms ({by})")
-        s1[ds] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                      bound_ms=b, bound_by=by)
-    del got, want
-    rows.append(dict(
-        name="form_subbands", route="cuda",
-        source="tpulsar_torch/csrc/dedisperse.cu",
-        replaces="tpulsar/kernels/pallas_dd.py:104 (_kernel_sb, "
-                 "pallas_call at :318)",
-        max_abs_err=max(v["max_abs_err"] for v in s1.values()),
-        library_ms=None, **{k: s1[1][k] for k in
-                            ("ms", "plain_ms", "bound_ms", "bound_by")},
-        ds10_ms=s1[10]["ms"], ds10_plain_ms=s1[10]["plain_ms"],
-        ds10_bound_ms=s1[10]["bound_ms"]))
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by}), share "
+            f"{b / ms:.3f}, {n1[ds]} launches a beam; "
+            f"{regs['form_subbands<u8>']} registers, {smem} B shared, "
+            f"{occ} blocks/SM")
+        s1.append(dict(ds=ds, launches=n1[ds], max_abs_err=err, ms=ms,
+                       plain_ms=plain, bound_ms=b, bound_by=by,
+                       registers=regs["form_subbands<u8>"],
+                       smem_bytes=smem, blocks_per_sm=occ))
 
-    # stage 2: nsub 96, 32 DM rows of the widest full-rate pass
-    step = plan[0]
-    ppass = step.passes()[-1]
-    _, sub_sh = dd.plan_pass_shifts(freqs, 96, ppass.subdm,
-                                    np.asarray(ppass.dms), TSAMP, 1)
-    sub_sh = sub_sh[-32:]
-    subb = cuda_dd.form_subbands(data, dd.plan_pass_shifts(
-        freqs, 96, ppass.subdm, np.asarray(ppass.dms), TSAMP, 1)[0],
-        96, 1)
+        # stage 2 on this pass's subbands: the pass's last DM chunk
+        (nrows, _), = [k for k in n2 if k[1] == ds]
+        rows_sh = sub_sh[-nrows:]
+        launch = cuda_dd.stage2_launch(rows_sh)
+        span = launch.span
+        occ, smem = cuda_dd.stage2_occupancy(rows_sh)
+        nreg = regs[f"dedisperse_subbands<{launch.rows} rows>"]
+        got2 = cuda_dd.dedisperse_subbands(got, rows_sh)
+        want2 = cuda_dd.dedisperse_subbands_plain(got, rows_sh)
+        torch.cuda.synchronize()
+        err = float((got2 - want2).abs().max())
+        if not torch.equal(got2, want2):
+            raise AssertionError(f"stage-2 kernel differs from its plain "
+                                 f"version at {nrows} rows, ds={ds}: "
+                                 f"max |err| {err}")
+        del got2, want2
+        ms = time_ms(lambda: cuda_dd.dedisperse_subbands(got, rows_sh))
+        plain = time_ms(lambda: cuda_dd.dedisperse_subbands_plain(
+            got, rows_sh), runs=3)
+        T = got.shape[1]
+        nbytes = (96 + nrows) * T * 4 + rows_sh.size * 4
+        b, by = bound_ms(nbytes, nrows * 96 * T)
+        log(f"kernel dedisperse_subbands {nrows} rows x {T} (ds={ds}): "
+            f"exact (max|err| {err}), span {span}, {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {b:.4f} ms ({by}), share "
+            f"{b / ms:.3f}, {n2[(nrows, ds)]} launches a beam; "
+            f"{launch.groups} groups of {launch.rows} rows, {nreg} "
+            f"registers, {smem} B shared, {occ} blocks/SM")
+        s2.append(dict(rows=nrows, ds=ds, span=span,
+                       launches=n2[(nrows, ds)], max_abs_err=err, ms=ms,
+                       plain_ms=plain, bound_ms=b, bound_by=by,
+                       groups=launch.groups, group_rows=launch.rows,
+                       registers=nreg, smem_bytes=smem, blocks_per_sm=occ))
+        del got
     del data
-    got = cuda_dd.dedisperse_subbands(subb, sub_sh)
-    want = cuda_dd.dedisperse_subbands_plain(subb, sub_sh)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"stage-2 kernel differs from its plain "
-                             f"version: max |err| {err}")
-    ms = time_ms(lambda: cuda_dd.dedisperse_subbands(subb, sub_sh))
-    plain = time_ms(lambda: cuda_dd.dedisperse_subbands_plain(
-        subb, sub_sh), runs=5)
-    T = subb.shape[1]
-    nbytes = (96 + 32) * T * 4 + sub_sh.size * 4
-    b, by = bound_ms(nbytes, 32 * 96 * T)
-    log(f"kernel dedisperse_subbands 32 rows x {T}: exact (max|err| "
-        f"{err}), shifts {int(sub_sh.min())}..{int(sub_sh.max())}, "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
-    rows.append(dict(
-        name="dedisperse_subbands", route="cuda",
-        source="tpulsar_torch/csrc/dedisperse.cu",
-        replaces="tpulsar/kernels/pallas_dd.py:68 (_kernel_roll, "
-                 "pallas_call at :205)",
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-        bound_by=by, library_ms=None))
+
+    rows = []
+    for name, shapes, replaces in (
+            ("form_subbands", s1,
+             "tpulsar/kernels/pallas_dd.py:104 (_kernel_sb, pallas_call "
+             "at :318)"),
+            ("dedisperse_subbands", s2,
+             "tpulsar/kernels/pallas_dd.py:68 (_kernel_roll, pallas_call "
+             "at :205)")):
+        # per beam: sum over the plan's launches of each shape
+        tot = {k: sum(x["launches"] * x[k] for x in shapes)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        by = {x["bound_by"] for x in shapes}
+        log(f"per beam {name}: {tot['ms']:.3f} ms, plain "
+            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms, "
+            f"share {tot['bound_ms'] / tot['ms']:.3f}")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="tpulsar_torch/csrc/dedisperse.cu", replaces=replaces,
+            max_abs_err=max(x["max_abs_err"] for x in shapes),
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=tot["bound_ms"],
+            bound_by=by.pop() if len(by) == 1 else "bytes",
+            library_ms=None, per="beam", shapes=shapes))
     return rows
 
 
@@ -217,19 +282,6 @@ def small_parity_phase() -> None:
         f"SP events")
 
 
-def expected_launches(plan, nsamp: int, params) -> tuple[int, int]:
-    npass = sum(s.numpasses for s in plan)
-    n2 = 0
-    for step in plan:
-        nfft = ddplan.choose_n(nsamp // step.downsamp)
-        for ppass in step.passes():
-            ndms = len(ppass.dms)
-            chunk = executor.pass_chunk_size(ndms, nfft, params)
-            for lo in range(0, ndms, chunk):
-                n2 += -(-min(chunk, ndms - lo) // cuda_dd.DM_ROWS)
-    return npass, n2
-
-
 def slice_phase(nsamp: int) -> dict:
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
@@ -247,7 +299,8 @@ def slice_phase(nsamp: int) -> dict:
             f"{t_write:.1f} s")
         params = executor.SearchParams.slice_defaults()
         plan = ddplan.survey_plan("pdev")
-        exp1, exp2 = expected_launches(plan, nsamp, params)
+        n1, n2 = plan_shapes(plan, nsamp, params)
+        exp1, exp2 = sum(n1.values()), sum(n2.values())
         torch.cuda.reset_peak_memory_stats()
         cuda_dd.reset_counts()
         t0 = time.time()
@@ -304,12 +357,10 @@ def main() -> None:
     t0 = time.time()
     path = cuda_dd.build(verbose_ptxas=True)
     log(f"built {os.path.relpath(path)} in {time.time() - t0:.2f} s")
-    for line in cuda_dd.BUILD_LOG.splitlines():
-        if "Used" in line or "spill" in line:
-            log("  ptxas: " + line.split("info    :")[-1].strip())
+    regs = ptxas_report(cuda_dd.BUILD_LOG)
 
     freqs = synth.channel_freqs(mock_spec(NSAMP))
-    rows = kernel_phase(freqs)
+    rows = kernel_phase(freqs, regs)
     small_parity_phase()
 
     nsamp = int(os.environ.get("TPULSAR_SMOKE_NSAMP", NSAMP))

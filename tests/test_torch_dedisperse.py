@@ -9,10 +9,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax.numpy as jnp  # noqa: E402
+try:
+    import jax.numpy as jnp
 
-from tpulsar.kernels import dedisperse as jdd  # noqa: E402
-from tpulsar.kernels import pallas_dd  # noqa: E402
+    from tpulsar.kernels import dedisperse as jdd
+    from tpulsar.kernels import pallas_dd
+except ImportError:
+    # a machine with the card but without JAX runs only the `cuda`
+    # tests: python -m pytest --noconftest -m cuda <this file>
+    jnp = jdd = pallas_dd = None
+
 from tpulsar_torch.kernels import cuda_dd  # noqa: E402
 from tpulsar_torch.kernels import dedisperse as tdd  # noqa: E402
 
@@ -222,5 +228,197 @@ def test_cuda_kernels_match_plain_versions(cuda_device, ds):
     out = cuda_dd.dedisperse_subbands(got, sub_sh)
     assert torch.equal(out, cuda_dd.dedisperse_subbands_plain(got, sub_sh))
     assert cuda_dd.LAUNCHES["form_subbands"] == before["form_subbands"] + 1
+    # 40 rows are one launch (two groups of 20)
     assert cuda_dd.LAUNCHES["dedisperse_subbands"] == \
-        before["dedisperse_subbands"] + 2
+        before["dedisperse_subbands"] + 1
+
+
+def _mock_chunks():
+    """Every stage-2 DM chunk of the full Mock survey plan (960
+    channels, nsub 96, 3,932,160 samples), as the executor cuts them."""
+    from tpulsar_torch.plan import ddplan
+    from tpulsar_torch.search import executor
+
+    freqs = 1214.289 + np.arange(960) * (322.617 / 960)
+    params = executor.SearchParams.slice_defaults()
+    for step in ddplan.survey_plan("pdev"):
+        nfft = ddplan.choose_n(3_932_160 // step.downsamp)
+        for ppass in step.passes():
+            _, sub = tdd.plan_pass_shifts(freqs, 96, ppass.subdm,
+                                          np.asarray(ppass.dms),
+                                          65.476e-6, step.downsamp)
+            chunk = executor.pass_chunk_size(len(sub), nfft, params)
+            for lo in range(0, len(sub), chunk):
+                yield step.downsamp, sub[lo: lo + chunk]
+
+
+def test_stage2_launch_covers_every_mock_chunk_in_one_launch():
+    """Each of the Mock plan's 85 chunks (38, 64 and 76 rows, spans up
+    to 151 samples) is one launch that fits a block's shared memory."""
+    shapes = {}
+    for ds, sh in _mock_chunks():
+        plan = cuda_dd.stage2_launch(sh)
+        assert plan.smem_bytes <= cuda_dd.MAX_SMEM
+        assert plan.span <= 151
+        assert plan.rows <= cuda_dd.DD_GROUP_ROWS
+        assert (plan.groups - 1) * plan.rows < len(sh) <= \
+            plan.groups * plan.rows
+        shapes[(len(sh), ds)] = shapes.get((len(sh), ds), 0) + 1
+    assert sum(shapes.values()) == 85
+    assert shapes[(38, 1)] == 56 and shapes[(64, 2)] == 12
+    assert sum(v for (n, _), v in shapes.items() if n == 76) == 17
+    # two blocks of the widest Mock chunk fit one SM's shared memory
+    assert 2 * (cuda_dd.stage2_smem_bytes(96, 151) + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("ndms", list(range(1, 41)) + [64, 76, 100, 257])
+def test_stage2_row_groups_are_even(ndms):
+    """The fewest groups of at most DD_GROUP_ROWS rows, all of one
+    size but the last, which is at most groups-1 rows shorter."""
+    sh = np.zeros((ndms, 4), np.int32)
+    plan = cuda_dd.stage2_launch(sh)
+    assert plan.groups == -(-ndms // cuda_dd.DD_GROUP_ROWS)
+    last = ndms - (plan.groups - 1) * plan.rows
+    assert 1 <= plan.rows - last + 1 <= plan.groups
+    expect = {38: (2, 19), 64: (4, 16), 76: (4, 19), 100: (5, 20)}
+    if ndms in expect:
+        assert (plan.groups, plan.rows) == expect[ndms]
+
+
+def test_stage2_launch_tables_rebuild_the_shifts():
+    """Each group's table holds its rows' shifts less the group's
+    smallest shift per subband, [s][row], then those smallest shifts;
+    the span is the largest such difference."""
+    rng = np.random.default_rng(17)
+    sh = rng.integers(0, 500, size=(45, 7)).astype(np.int32)
+    plan = cuda_dd.stage2_launch(sh)
+    R = cuda_dd.DD_GROUP_ROWS
+    assert plan.tables.dtype == np.int32 and plan.tables.shape[1] % 4 == 0
+    span = 0
+    for g in range(plan.groups):
+        rows = sh[g * plan.rows: (g + 1) * plan.rows]
+        rel = plan.tables[g, :7 * R].reshape(7, R)
+        lo = plan.tables[g, 7 * R: 7 * R + 7]
+        np.testing.assert_array_equal(lo, rows.min(axis=0))
+        np.testing.assert_array_equal(rel[:, :len(rows)].T + lo, rows)
+        assert not rel[:, len(rows):].any()
+        span = max(span, int(rel.max()))
+    assert plan.span == span
+
+
+def _largest_span(nsub):
+    span = 0
+    while cuda_dd.stage2_smem_bytes(nsub, span + 1) <= cuda_dd.MAX_SMEM:
+        span += 1
+    return span
+
+
+def test_stage2_refuses_a_span_beyond_shared_memory():
+    """The largest span that fits MAX_SMEM is taken; one more sample
+    is refused (there is no other path)."""
+    nsub = 96
+    span = _largest_span(nsub)
+    sh = np.zeros((38, nsub), np.int32)
+    sh[5, 3] = span
+    assert cuda_dd.stage2_launch(sh).span == span
+    sh[5, 3] = span + 4
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_dd.stage2_launch(sh)
+    with pytest.raises(ValueError):
+        cuda_dd.stage2_launch(np.zeros((0, nsub), np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndms", [1, 6, 19, 32, 33, 38, 64, 76, 100])
+def test_cuda_stage2_rows(cuda_device, ndms):
+    """On the card, one launch per call at every row count, exact; T
+    is not a multiple of the tile and the widest rows reach the T-1
+    clamp."""
+    rng = np.random.default_rng(ndms)
+    nsub, T = 96, 30_011
+    subb = torch.from_numpy(rng.standard_normal((nsub, T)).astype(
+        np.float32)).to(cuda_device)
+    sh = (rng.integers(0, 20, nsub)[None, :] * np.arange(ndms)[:, None]
+          // 8 + rng.integers(0, 3, (ndms, nsub))).astype(np.int32)
+    sh[:, :4] += T - 200
+    before = cuda_dd.LAUNCHES["dedisperse_subbands"]
+    got = cuda_dd.dedisperse_subbands(subb, sh)
+    assert cuda_dd.LAUNCHES["dedisperse_subbands"] == before + 1
+    assert torch.equal(got, cuda_dd.dedisperse_subbands_plain(subb, sh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", ["zero", 151, "largest"])
+def test_cuda_stage2_spans(cuda_device, span):
+    """Spans of 0, 151 (the Mock plan's widest) and the largest that
+    fits a block's shared memory, exact."""
+    rng = np.random.default_rng(3)
+    nsub, T, ndms = 96, 20_000, 38
+    span = {"zero": 0, "largest": _largest_span(nsub)}.get(span, span)
+    subb = torch.from_numpy(rng.standard_normal((nsub, T)).astype(
+        np.float32)).to(cuda_device)
+    base = rng.integers(0, 5000, nsub)
+    # rows alternate between two shifts `span` apart, in every group
+    sh = (base[None, :] + span * (np.arange(ndms)[:, None] % 2)).astype(
+        np.int32)
+    assert cuda_dd.stage2_launch(sh).span == span
+    got = cuda_dd.dedisperse_subbands(subb, sh)
+    assert torch.equal(got, cuda_dd.dedisperse_subbands_plain(subb, sh))
+
+
+@pytest.mark.cuda
+def test_cuda_stage2_unaligned_rows_and_clamp(cuda_device):
+    """A T that leaves rows off 16-byte boundaries, a view that starts
+    off one, and shifts past the end of the series: exact."""
+    rng = np.random.default_rng(9)
+    nsub, T = 13, 5_003
+    full = torch.from_numpy(rng.standard_normal(nsub * T + 1).astype(
+        np.float32)).to(cuda_device)
+    subb = full[1:].view(nsub, T)
+    sh = rng.integers(0, 150, (27, nsub)).astype(np.int32)
+    sh[:, 5:] += T - 100
+    got = cuda_dd.dedisperse_subbands(subb, sh)
+    assert torch.equal(got, cuda_dd.dedisperse_subbands_plain(subb, sh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [1, 3, 10])
+def test_cuda_stage1_float32_exact(cuda_device, ds):
+    """float32 stage 1 keeps c order then r order from 0.0f, so it
+    equals the plain version exactly; T and the shifts leave windows
+    off 16-byte boundaries and reach the T-1 clamp."""
+    rng = np.random.default_rng(40 + ds)
+    nchan, T, nsub = 960, 40_009, 96
+    data = torch.from_numpy(rng.standard_normal((nchan, T)).astype(
+        np.float32)).to(cuda_device)
+    sh = rng.integers(0, 220, nchan).astype(np.int32)
+    sh[::7] = 0
+    got = cuda_dd.form_subbands(data, sh, nsub, ds)
+    assert torch.equal(got, cuda_dd.form_subbands_plain(data, sh, nsub, ds))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [1, 2, 3, 5, 6, 10])
+def test_cuda_stage1_uint8_mock_downsamples(cuda_device, ds):
+    """uint8 stage 1 at every downsample of the Mock plan, 10 channels
+    a subband, rows off 16-byte boundaries, exact."""
+    rng = np.random.default_rng(ds)
+    nchan, T, nsub = 960, 60_013, 96
+    data = torch.from_numpy(rng.integers(0, 256, (nchan, T),
+                                         dtype=np.uint8)).to(cuda_device)
+    sh = rng.integers(0, 220, nchan).astype(np.int32)
+    sh[::10] = 0
+    got = cuda_dd.form_subbands(data, sh, nsub, ds)
+    assert torch.equal(got, cuda_dd.form_subbands_plain(data, sh, nsub, ds))
+
+
+@pytest.mark.cuda
+def test_cuda_stage1_many_channels_per_subband(cuda_device):
+    """uint8 with 600 channels in one subband (the 16-bit lanes are
+    flushed every 255 channels), exact."""
+    rng = np.random.default_rng(5)
+    data = torch.from_numpy(rng.integers(200, 256, (600, 9_001),
+                                         dtype=np.uint8)).to(cuda_device)
+    sh = rng.integers(0, 50, 600).astype(np.int32)
+    got = cuda_dd.form_subbands(data, sh, 1, 2)
+    assert torch.equal(got, cuda_dd.form_subbands_plain(data, sh, 1, 2))

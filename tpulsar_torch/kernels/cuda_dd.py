@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,8 +35,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-#: DM rows per stage-2 launch (the kernel's register accumulators)
-DM_ROWS = 32
+#: stage-2 geometry, as in dedisperse.cu (held against the library
+#: when it is loaded): DM rows a block owns at most, time samples per
+#: tile, ring stages and subbands per stage
+DD_GROUP_ROWS = 20
+DD_TILE = 1024
+DD_STAGES = 2
+DD_SUB_PER_STAGE = 8
 #: shared memory one block may use on Hopper (bytes)
 MAX_SMEM = 232_448
 
@@ -43,6 +49,7 @@ MAX_SMEM = 232_448
 LAUNCHES = {"form_subbands": 0, "dedisperse_subbands": 0}
 
 _lib = None
+_prepared: set[int] = set()
 BUILD_LOG = ""
 
 
@@ -100,15 +107,62 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = [P, I, L, P, I, I, P, P]
             fn.restype = I
-        lib.dd_dedisperse.argtypes = [P, I, L, P, P, I, I, P, P]
+        lib.dd_dedisperse.argtypes = [P, I, L, P, I, I, I, I, P, P]
         lib.dd_dedisperse.restype = I
         lib.dd_dedisperse_smem_bytes.argtypes = [I, I]
         lib.dd_dedisperse_smem_bytes.restype = L
-        lib.dd_max_rows.restype = I
-        if lib.dd_max_rows() != DM_ROWS:
-            raise RuntimeError("kernel library disagrees on DM_ROWS")
+        lib.dd_group_rows.argtypes = []
+        lib.dd_group_rows.restype = I
+        lib.dd_prepare.argtypes = []
+        lib.dd_prepare.restype = I
+        lib.dd_form_subbands_smem_bytes.argtypes = [I, I, I]
+        lib.dd_form_subbands_smem_bytes.restype = L
+        lib.dd_blocks_per_sm.argtypes = [I, I, L]
+        lib.dd_blocks_per_sm.restype = I
+        if lib.dd_group_rows() != DD_GROUP_ROWS or any(
+                lib.dd_dedisperse_smem_bytes(nsub, span)
+                != stage2_smem_bytes(nsub, span)
+                for nsub in (1, 7, 96) for span in (0, 151, 1001)):
+            raise RuntimeError("kernel library disagrees with "
+                               "stage2_launch's geometry")
         _lib = lib
     return _lib
+
+
+def _prepare(dev: torch.device) -> None:
+    """Raise the kernels' shared-memory limit, once per device."""
+    idx = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _prepared:
+        with torch.cuda.device(idx):
+            _check(_load().dd_prepare(), "dd_prepare")
+        _prepared.add(idx)
+
+
+def _blocks_per_sm(kernel: int, rows: int, smem: int) -> int:
+    lib = _load()
+    _prepare(torch.device("cuda"))
+    n = lib.dd_blocks_per_sm(kernel, rows, smem)
+    if n < 0:
+        raise RuntimeError(f"dd_blocks_per_sm: CUDA error {-n}")
+    return n
+
+
+def stage1_occupancy(nchan: int, nsub: int, downsamp: int,
+                     dtype: torch.dtype) -> tuple[int, int]:
+    """(stage-1 blocks that fit one SM, shared bytes a block) at a
+    shape, as the CUDA runtime of the current device reports them."""
+    u8 = dtype == torch.uint8
+    smem = int(_load().dd_form_subbands_smem_bytes(nchan // nsub, downsamp,
+                                                   int(u8)))
+    return _blocks_per_sm(1 if u8 else 2, 0, smem), smem
+
+
+def stage2_occupancy(sub_shifts) -> tuple[int, int]:
+    """(stage-2 blocks that fit one SM, shared bytes a block) for a
+    shift table, as the CUDA runtime of the current device reports."""
+    plan = stage2_launch(sub_shifts)
+    return _blocks_per_sm(0, plan.rows, plan.smem_bytes), plan.smem_bytes
 
 
 def _check(rc: int, what: str) -> None:
@@ -166,6 +220,7 @@ def form_subbands(data: torch.Tensor, chan_shifts, nsub: int,
         raise ValueError("form_subbands: shift out of range")
     lib = _load()
     dev = data.device
+    _prepare(dev)
     shifts_dev = torch.from_numpy(sh.astype(np.int32)).to(dev)
     out = torch.empty((nsub, T // downsamp), dtype=torch.float32,
                       device=dev)
@@ -213,9 +268,69 @@ def form_subbands_plain(data: torch.Tensor, chan_shifts, nsub: int,
 
 # ------------------------------------------------------------ stage 2
 
+def stage2_smem_bytes(nsub: int, span: int) -> int:
+    """Shared memory of one stage-2 block (dd_dedisperse_smem_bytes):
+    two mbarriers, the group's shift table and smallest shifts, then
+    DD_STAGES stages of DD_SUB_PER_STAGE segments of tile + span (+ up
+    to 3 samples of misalignment) floats, each a whole number of
+    16-byte vectors."""
+    table_ints = -(-(nsub * (DD_GROUP_ROWS + 1)) // 4) * 4
+    seg_floats = -(-(DD_TILE + span + 3) // 4) * 4
+    return (16 + 4 * table_ints
+            + 4 * DD_STAGES * DD_SUB_PER_STAGE * seg_floats)
+
+
+class Stage2Launch(NamedTuple):
+    """The one launch that stage 2 makes for a (ndms, nsub) shift
+    table: `groups` row groups of `rows` rows (the last may hold
+    fewer), the largest span of shifts within one group and subband,
+    the shared bytes a block needs, and the (groups, table_ints) int32
+    tables the kernel reads: per group, rows' shifts minus the group's
+    smallest shift for each subband laid out [s][row] (DD_GROUP_ROWS
+    wide), then those smallest shifts, then zeros to a 16-byte
+    multiple."""
+    groups: int
+    rows: int
+    span: int
+    smem_bytes: int
+    tables: np.ndarray
+
+
+def stage2_launch(sub_shifts) -> Stage2Launch:
+    """Launch arithmetic of stage 2, on the host and without the
+    library.  Rows are cut into the fewest groups of at most
+    DD_GROUP_ROWS, of equal size (38 -> 2 x 19, 64 -> 4 x 16, 76 ->
+    4 x 19).  Raises ValueError when the span needs more shared memory
+    than a block has: there is no other path."""
+    sh = _host_shifts(sub_shifts, 2, "dedisperse_subbands")
+    ndms, nsub = sh.shape
+    if ndms == 0:
+        raise ValueError("dedisperse_subbands: no DM rows")
+    groups = -(-ndms // DD_GROUP_ROWS)
+    rows = -(-ndms // groups)
+    table_ints = -(-(nsub * (DD_GROUP_ROWS + 1)) // 4) * 4
+    tables = np.zeros((groups, table_ints), np.int32)
+    span = 0
+    for g in range(groups):
+        grp = sh[g * rows: (g + 1) * rows]
+        smin = grp.min(axis=0)
+        rel = np.zeros((nsub, DD_GROUP_ROWS), np.int64)
+        rel[:, :len(grp)] = (grp - smin).T
+        tables[g, :nsub * DD_GROUP_ROWS] = rel.reshape(-1)
+        tables[g, nsub * DD_GROUP_ROWS: nsub * (DD_GROUP_ROWS + 1)] = smin
+        span = max(span, int(rel.max()))
+    smem = stage2_smem_bytes(nsub, span)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"dedisperse_subbands: a span of {span} shift samples within "
+            f"one row group and subband needs {smem} B of shared memory "
+            f"(> {MAX_SMEM})")
+    return Stage2Launch(groups, rows, span, smem, tables)
+
+
 def dedisperse_subbands(subb: torch.Tensor, sub_shifts) -> torch.Tensor:
     """Stage 2: (nsub, T) float32 + (ndms, nsub) shifts -> (ndms, T)
-    float32 DM series, one kernel launch per DM_ROWS rows (see
+    float32 DM series, in one kernel launch (see stage2_launch and
     dedisperse_subbands_plain)."""
     if not isinstance(subb, torch.Tensor) or subb.dim() != 2:
         raise ValueError("dedisperse_subbands: subb must be a 2-d tensor")
@@ -233,43 +348,22 @@ def dedisperse_subbands(subb: torch.Tensor, sub_shifts) -> torch.Tensor:
         raise ValueError("dedisperse_subbands: subb must be contiguous")
     if sh.size and sh.max() > np.iinfo(np.int32).max - T:
         raise ValueError("dedisperse_subbands: shift out of range")
-    lib = _load()
     dev = subb.device
     ndms = sh.shape[0]
     out = torch.empty((ndms, T), dtype=torch.float32, device=dev)
     if ndms == 0:
         return out
-    groups = range(0, ndms, DM_ROWS)
-    # every launch's (rows, nsub) table and (nsub,) smallest shifts,
-    # uploaded in one copy
-    host = np.zeros((len(groups), DM_ROWS + 1, nsub), np.int32)
-    spans = []
-    for gi, g0 in enumerate(groups):
-        grp = sh[g0: g0 + DM_ROWS]
-        smin = grp.min(axis=0)
-        host[gi, :len(grp)] = grp
-        host[gi, DM_ROWS] = smin
-        span = int((grp - smin).max())
-        smem = int(lib.dd_dedisperse_smem_bytes(nsub, span))
-        if smem > MAX_SMEM:
-            raise ValueError(
-                f"dedisperse_subbands: rows {g0}..{g0 + len(grp) - 1} "
-                f"span {span} shift samples in one subband, which needs "
-                f"{smem} B of shared memory (> {MAX_SMEM})")
-        spans.append(span)
-    tables = torch.from_numpy(host).to(dev)
-    row_bytes = (DM_ROWS + 1) * nsub * 4
+    plan = stage2_launch(sh)
+    lib = _load()
+    _prepare(dev)
+    tables = torch.from_numpy(plan.tables).to(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for gi, g0 in enumerate(groups):
-            nrows = min(DM_ROWS, ndms - g0)
-            base = tables.data_ptr() + gi * row_bytes
-            _check(lib.dd_dedisperse(
-                subb.data_ptr(), nsub, T, base,
-                base + DM_ROWS * nsub * 4, nrows, spans[gi],
-                out.data_ptr() + g0 * T * 4, stream),
-                "dedisperse_subbands")
-            LAUNCHES["dedisperse_subbands"] += 1
+        _check(lib.dd_dedisperse(
+            subb.data_ptr(), nsub, T, tables.data_ptr(), ndms, plan.groups,
+            plan.rows, plan.span, out.data_ptr(), stream),
+            "dedisperse_subbands")
+    LAUNCHES["dedisperse_subbands"] += 1
     return out
 
 
