@@ -3,20 +3,35 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from tpulsar_torch/csrc, holds each kernel
-against its plain PyTorch version on the card at the shapes of the
-main path, then searches one full-geometry PALFA Mock beam (960
-channels, 65.476 us, 3,932,160 samples, 4-bit, the full 57-pass Mock
-survey plan) written to a temporary directory with one injected
-pulsar, through tpulsar_torch.search.executor.search_beam.  It checks
-that the pulsar is recovered and that every kernel of the path was
-launched as often as the plan requires.
+Builds the CUDA kernels from tpulsar_torch/csrc and runs four phases:
 
-Output: progress lines, then the card's name and power limit, one
-JSON line with every kernel's numbers, and as the last line
-{"ok": true, "device": {...}}.  Any failure raises (non-zero exit,
-no result line).  It needs a CUDA device and the rest of the
-repository; it imports nothing of the JAX package.
+  1. kernels: each kernel against its plain PyTorch version on the
+     card, exact, at every shape of the main path (stage 1 at each
+     downsample, stage 2 at each DM chunk and at the one row that
+     refinement dedisperses), with times and bounds;
+  2. hi stage: the FDAS stage on one full-width ds-1 DM chunk of
+     whitened spectra (dedispersed noise with a drifting pulse train):
+     the bf16 plane against the f32 plane on the card, the card against
+     the CPU's plain f32 on one row, the time a DM row (correlation and
+     harmonic sums split) against its bound, and peak memory;
+  3. small parity: the zero-accel configuration and the default
+     configuration (with an accelerated pulsar) on a small block, on
+     the card and on the CPU;
+  4. the main path: one full-geometry PALFA Mock beam (960 channels,
+     65.476 us, 3,932,160 samples, 4-bit, the 57-pass Mock survey
+     plan) with one injected pulsar, written to a temporary directory
+     and searched by search_beam at the JAX package's default
+     configuration (SearchParams(make_plots=False): hi-accel stage,
+     refinement and folding on).  It checks that the pulsar is
+     recovered and folded, that every trial went through the hi stage,
+     and that every kernel was launched as often as the plan and the
+     outcome require.
+
+Output: progress lines, then the card's name and power limit, one JSON
+line with every kernel's numbers, and as the last line
+{"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
+result line).  It needs a CUDA device and the rest of the repository;
+it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tarfile
 import tempfile
 import time
 
@@ -42,10 +58,13 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpulsar_torch.io import accelcands, synth  # noqa: E402
+from tpulsar_torch.kernels import accel  # noqa: E402
 from tpulsar_torch.kernels import cuda_dd  # noqa: E402
 from tpulsar_torch.kernels import dedisperse as dd  # noqa: E402
+from tpulsar_torch.kernels import fold_batch  # noqa: E402
+from tpulsar_torch.kernels import fourier as fr  # noqa: E402
 from tpulsar_torch.plan import ddplan  # noqa: E402
-from tpulsar_torch.search import executor  # noqa: E402
+from tpulsar_torch.search import degraded, executor  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -54,6 +73,8 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32, outside tensor cores
 #: the full Mock beam (bench.py geometry)
 NCHAN, TSAMP, NSAMP = 960, 65.476e-6, 3_932_160
 PSR_PERIOD, PSR_DM = 0.25, 50.0
+#: the configuration of the main path: the JAX package's default search
+PARAMS = executor.SearchParams(make_plots=False)
 
 
 def log(msg: str) -> None:
@@ -68,7 +89,7 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, runs: int = 7) -> float:
+def time_ms(fn, runs: int = 5) -> float:
     """Median of `runs` single-call CUDA-event timings, after one
     warm-up call."""
     fn()
@@ -123,8 +144,9 @@ def ptxas_report(build_log: str) -> dict:
 
 
 def plan_shapes(plan, nsamp: int, params) -> tuple[dict, dict]:
-    """Launches per beam at each shape: stage 1 by downsample, stage 2
-    by (DM rows, downsample), one stage-2 launch per DM chunk."""
+    """Launches per beam at each search shape: stage 1 by downsample,
+    stage 2 by (DM rows, downsample), one stage-2 launch per DM
+    chunk."""
     s1: dict = {}
     s2: dict = {}
     for step in plan:
@@ -140,16 +162,52 @@ def plan_shapes(plan, nsamp: int, params) -> tuple[dict, dict]:
     return s1, s2
 
 
-def kernel_phase(freqs: np.ndarray, regs: dict) -> list[dict]:
+def _check_stage2(subb, rows_sh, what: str) -> tuple[torch.Tensor, float]:
+    got = cuda_dd.dedisperse_subbands(subb, rows_sh)
+    want = cuda_dd.dedisperse_subbands_plain(subb, rows_sh)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"stage-2 kernel differs from its plain "
+                             f"version at {what}: max |err| {err}")
+    return got, err
+
+
+def _stage2_entry(subb, rows_sh, regs, ds: int, launches: int | None,
+                  role: str) -> dict:
+    """Stage 2 at one shift table: exact check, time, bound."""
+    nrows = rows_sh.shape[0]
+    launch = cuda_dd.stage2_launch(rows_sh)
+    occ, smem = cuda_dd.stage2_occupancy(rows_sh)
+    nreg = regs[f"dedisperse_subbands<{launch.rows} rows>"]
+    got2, err = _check_stage2(subb, rows_sh, f"{nrows} rows, ds={ds}")
+    del got2
+    ms = time_ms(lambda: cuda_dd.dedisperse_subbands(subb, rows_sh))
+    plain = time_ms(lambda: cuda_dd.dedisperse_subbands_plain(
+        subb, rows_sh), runs=3)
+    T = subb.shape[1]
+    nbytes = (96 + nrows) * T * 4 + rows_sh.size * 4
+    b, by = bound_ms(nbytes, nrows * 96 * T)
+    log(f"kernel dedisperse_subbands {nrows} rows x {T} (ds={ds}, "
+        f"{role}): exact (max|err| {err}), span {launch.span}, {ms:.4f} "
+        f"ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}), share "
+        f"{b / ms:.3f}; {launch.groups} groups of {launch.rows} rows, "
+        f"{nreg} registers, {smem} B shared, {occ} blocks/SM")
+    return dict(rows=nrows, ds=ds, role=role, span=launch.span,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, groups=launch.groups,
+                group_rows=launch.rows, registers=nreg, smem_bytes=smem,
+                blocks_per_sm=occ)
+
+
+def kernel_phase(data, freqs: np.ndarray, regs: dict):
     """Each kernel against its plain version at every shape the Mock
-    plan launches, exact; per shape the time, bound and share of the
-    bound, and per beam the sums over the plan's launches."""
+    plan launches, and stage 2 at the one row refinement dedisperses
+    (ds 1, the pulsar's DM), exact; per shape the time, bound and
+    share of the bound.  Returns the per-shape lists; their per-beam
+    launch counts are completed from the main path's outcome."""
     plan = ddplan.survey_plan("pdev")
-    n1, n2 = plan_shapes(plan, NSAMP, executor.SearchParams.slice_defaults())
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(7)
-    data = torch.randint(0, 256, (NCHAN, NSAMP), generator=gen,
-                         device=DEV, dtype=torch.uint8)
+    n1, n2 = plan_shapes(plan, NSAMP, PARAMS)
     s1, s2 = [], []
     for step in plan:
         # the step's last pass: its widest shifts (shifts > 0 reach the
@@ -176,95 +234,224 @@ def kernel_phase(freqs: np.ndarray, regs: dict) -> list[dict]:
         log(f"kernel form_subbands ds={ds}: exact (max|err| {err}), "
             f"max shift {int(ch_sh.max())}, {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {b:.4f} ms ({by}), share "
-            f"{b / ms:.3f}, {n1[ds]} launches a beam; "
+            f"{b / ms:.3f}, {n1[ds]} search launches a beam; "
             f"{regs['form_subbands<u8>']} registers, {smem} B shared, "
             f"{occ} blocks/SM")
         s1.append(dict(ds=ds, launches=n1[ds], max_abs_err=err, ms=ms,
                        plain_ms=plain, bound_ms=b, bound_by=by,
                        registers=regs["form_subbands<u8>"],
                        smem_bytes=smem, blocks_per_sm=occ))
-
         # stage 2 on this pass's subbands: the pass's last DM chunk
         (nrows, _), = [k for k in n2 if k[1] == ds]
-        rows_sh = sub_sh[-nrows:]
-        launch = cuda_dd.stage2_launch(rows_sh)
-        span = launch.span
-        occ, smem = cuda_dd.stage2_occupancy(rows_sh)
-        nreg = regs[f"dedisperse_subbands<{launch.rows} rows>"]
-        got2 = cuda_dd.dedisperse_subbands(got, rows_sh)
-        want2 = cuda_dd.dedisperse_subbands_plain(got, rows_sh)
-        torch.cuda.synchronize()
-        err = float((got2 - want2).abs().max())
-        if not torch.equal(got2, want2):
-            raise AssertionError(f"stage-2 kernel differs from its plain "
-                                 f"version at {nrows} rows, ds={ds}: "
-                                 f"max |err| {err}")
-        del got2, want2
-        ms = time_ms(lambda: cuda_dd.dedisperse_subbands(got, rows_sh))
-        plain = time_ms(lambda: cuda_dd.dedisperse_subbands_plain(
-            got, rows_sh), runs=3)
-        T = got.shape[1]
-        nbytes = (96 + nrows) * T * 4 + rows_sh.size * 4
-        b, by = bound_ms(nbytes, nrows * 96 * T)
-        log(f"kernel dedisperse_subbands {nrows} rows x {T} (ds={ds}): "
-            f"exact (max|err| {err}), span {span}, {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {b:.4f} ms ({by}), share "
-            f"{b / ms:.3f}, {n2[(nrows, ds)]} launches a beam; "
-            f"{launch.groups} groups of {launch.rows} rows, {nreg} "
-            f"registers, {smem} B shared, {occ} blocks/SM")
-        s2.append(dict(rows=nrows, ds=ds, span=span,
-                       launches=n2[(nrows, ds)], max_abs_err=err, ms=ms,
-                       plain_ms=plain, bound_ms=b, bound_by=by,
-                       groups=launch.groups, group_rows=launch.rows,
-                       registers=nreg, smem_bytes=smem, blocks_per_sm=occ))
+        s2.append(_stage2_entry(got, sub_sh[-nrows:], regs, ds,
+                                n2[(nrows, ds)], "search chunk"))
         del got
-    del data
 
-    rows = []
-    for name, shapes, replaces in (
-            ("form_subbands", s1,
-             "tpulsar/kernels/pallas_dd.py:104 (_kernel_sb, pallas_call "
-             "at :318)"),
-            ("dedisperse_subbands", s2,
-             "tpulsar/kernels/pallas_dd.py:68 (_kernel_roll, pallas_call "
-             "at :205)")):
-        # per beam: sum over the plan's launches of each shape
-        tot = {k: sum(x["launches"] * x[k] for x in shapes)
-               for k in ("ms", "plain_ms", "bound_ms")}
-        by = {x["bound_by"] for x in shapes}
-        log(f"per beam {name}: {tot['ms']:.3f} ms, plain "
-            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms, "
-            f"share {tot['bound_ms'] / tot['ms']:.3f}")
-        rows.append(dict(
-            name=name, route="cuda",
-            source="tpulsar_torch/csrc/dedisperse.cu", replaces=replaces,
-            max_abs_err=max(x["max_abs_err"] for x in shapes),
-            ms=tot["ms"], plain_ms=tot["plain_ms"],
-            bound_ms=tot["bound_ms"],
-            bound_by=by.pop() if len(by) == 1 else "bytes",
-            library_ms=None, per="beam", shapes=shapes))
-    return rows
+    # refinement's shape: stage 1 at ds 1 (the per-step shape above),
+    # then stage 2 at ONE row of one DM's shifts (span 0)
+    ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, PSR_DM, [PSR_DM],
+                                        TSAMP, 1)
+    subb = cuda_dd.form_subbands(data, ch_sh, 96, 1)
+    s2.append(_stage2_entry(subb, sub_sh, regs, 1, None,
+                            "refinement, one row"))
+    del subb
+    return s1, s2
 
 
-def small_parity_phase() -> None:
-    """The whole slice on a small block, on the card and through the
-    plain versions on the CPU: same trials, same top candidate."""
-    rng = np.random.default_rng(2024)
+def _inject_drifting_train(series: torch.Tensor, nfft: int, r0: int,
+                           z: float, amp: float, nharm: int) -> None:
+    """Add a drifting pulse train (harmonic h of amplitude amp/h) whose
+    fundamental's MEAN frequency sits on spectrum bin r0 and whose
+    drift is z bins over the padded length: on a grid cell of the hi
+    stage's (r, z) plane, the fundamental the top cell of every
+    stage."""
+    T_s = nfft * TSAMP
+    f0 = (r0 - z / 2) / T_s
+    fdot = z / T_s ** 2
+    t = torch.arange(series.shape[1], device=series.device,
+                     dtype=torch.float64) * TSAMP
+    phase = f0 * t + 0.5 * fdot * t * t
+    sig = sum(torch.cos(2 * math.pi * h * phase) / h
+              for h in range(1, nharm + 1))
+    series += (amp * sig).to(series.dtype)[None, :]
+
+
+def hi_phase(data, freqs: np.ndarray) -> dict:
+    """The hi-accel stage on one full-width ds-1 DM chunk (38 trials of
+    the plan's first pass), whitened spectra of dedispersed noise with
+    a drifting pulse train added: bf16 plane vs f32 plane on the card,
+    the card's f32 vs the CPU's plain f32 on one row, and times."""
+    step = ddplan.survey_plan("pdev")[0]
+    ppass = step.passes()[0]
+    ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, ppass.subdm,
+                                        np.asarray(ppass.dms), TSAMP, 1)
+    nrows = executor.pass_chunk_size(len(ppass.dms), ddplan.choose_n(
+        NSAMP), PARAMS)
+    subb = cuda_dd.form_subbands(data, ch_sh, 96, 1)
+    series = cuda_dd.dedisperse_subbands(subb, sub_sh[:nrows])
+    del subb
+    nfft = ddplan.choose_n(NSAMP)
+    noise = float(series[0].std())
+    # ~300 in whitened power a harmonic: A^2 T / (4 sigma^2)
+    amp = noise * math.sqrt(1200.0 / NSAMP)
+    r0, z_inj = 20000, 14.0
+    _inject_drifting_train(series, nfft, r0, z_inj, amp, nharm=2)
+    wspec = fr.whitened_spectrum(series, nfft=nfft)
+    del series
+    nbins = wspec.shape[1]
+    bank = executor._get_bank(PARAMS.hi_accel_zmax)
+    nz = len(bank.zs)
+    mh, topk = PARAMS.hi_accel_numharm, PARAMS.topk_per_stage
+
+    def search(specs):
+        return accel.accel_search_batch(specs, bank, max_numharm=mh,
+                                        topk=topk)
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res_bf = search(wspec)
+    peak = torch.cuda.max_memory_allocated()
+    os.environ["TPULSAR_ACCEL_PLANE_DTYPE"] = "f32"
+    try:
+        res_f32 = search(wspec)
+        res_f32_row = search(wspec[:1])
+    finally:
+        del os.environ["TPULSAR_ACCEL_PLANE_DTYPE"]
+    res_cpu = search(wspec[:1].cpu())
+
+    # bf16 vs f32 on the card: the same top (r bin, z) per stage and
+    # row, powers within 1%
+    worst = 0.0
+    for h in res_f32:
+        vf, rf, zf = res_f32[h]
+        vb, rb, zb = res_bf[h]
+        for d in range(nrows):
+            i, j = int(np.argmax(vf[d])), int(np.argmax(vb[d]))
+            if (rf[d, i], zf[d, i]) != (rb[d, j], zb[d, j]):
+                raise AssertionError(
+                    f"hi stage bf16 vs f32: stage {h} row {d} top cell "
+                    f"({rb[d, j]}, {zb[d, j]}) vs ({rf[d, i]}, "
+                    f"{zf[d, i]})")
+            rel = abs(vb[d, j] / vf[d, i] - 1.0)
+            worst = max(worst, rel)
+            if rel > 0.01:
+                raise AssertionError(f"hi stage bf16 vs f32: stage {h} "
+                                     f"row {d} power off by {rel:.4f}")
+    top_r, top_z = res_f32[1][1][0, 0], res_f32[1][2][0, 0]
+    if abs(0.5 * top_r - r0) > 0.5 or top_z != z_inj:
+        raise AssertionError(f"hi stage: the injected train (bin {r0}, "
+                             f"z {z_inj}) is not the top cell: "
+                             f"({0.5 * top_r}, {top_z})")
+    log(f"hi stage bf16 vs f32 ({nrows} rows x {nbins} bins, nz {nz}): "
+        f"the same top (r, z) in every stage and row, top powers within "
+        f"{worst:.5f} (limit 0.01); injected train at bin {r0}, z "
+        f"{z_inj} is the top cell")
+
+    # the card's f32 against the CPU's plain f32, one row: the same
+    # (r bin, z) cells, powers at the tests' rtol 2e-4
+    worst = 0.0
+    for h in res_cpu:
+        a = sorted(zip(res_f32_row[h][1][0], res_f32_row[h][2][0],
+                       res_f32_row[h][0][0]))
+        b = sorted(zip(res_cpu[h][1][0], res_cpu[h][2][0],
+                       res_cpu[h][0][0]))
+        for (ra, za, va), (rb_, zb_, vb_) in zip(a, b):
+            if (ra, za) != (rb_, zb_):
+                raise AssertionError(f"hi stage card vs CPU: stage {h} "
+                                     f"cells differ: {(ra, za)} vs "
+                                     f"{(rb_, zb_)}")
+            worst = max(worst, abs(va / vb_ - 1.0))
+    if worst > 2e-4:
+        raise AssertionError(f"hi stage card vs CPU: powers off by "
+                             f"{worst}")
+    log(f"hi stage card f32 vs CPU plain f32 (1 row): the same {topk} "
+        f"cells in every stage, powers within {worst:.2e} (limit 2e-4)")
+
+    # time a DM row: the whole stage, then its two halves on one batch
+    t_chunk = time_ms(lambda: search(wspec), runs=3)
+    b = accel.plane_dm_chunk(nbins, nz, device=DEV)
+    bank_fft = torch.from_numpy(bank.bank_fft).to(DEV)
+    block = wspec[:b]
+
+    def corr():
+        return accel._correlate_block(block, bank_fft, bank.seg,
+                                      bank.step, bank.width, nz)
+
+    plane = corr()
+    stages = tuple(fr.harmonic_stages(mh))
+    t_corr = time_ms(corr, runs=3)
+    t_harm = time_ms(lambda: accel._stage_topk(
+        accel._harmonic_stage_maxes(plane, stages, nz), stages, topk),
+        runs=3)
+    del plane
+    row_ms = t_chunk / nrows
+    bnd, by = hi_row_bound_ms(nbins, nz, bank)
+    log(f"hi stage time: {t_chunk:.3f} ms a {nrows}-row chunk, "
+        f"{row_ms:.4f} ms a DM row (median of 3); batch of {b} rows: "
+        f"correlation {t_corr / b:.4f} ms a row, harmonic sums + top-k "
+        f"{t_harm / b:.4f} ms a row; bound {bnd:.4f} ms a row ({by}), "
+        f"share {bnd / row_ms:.4f}; peak memory {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} "
+        f"GiB held before the call)")
+    return dict(row_ms=row_ms, corr_row_ms=t_corr / b,
+                harm_row_ms=t_harm / b, bound_row_ms=bnd, bound_by=by,
+                batch_rows=b, peak_bytes=peak, peak_above_bytes=peak - base)
+
+
+def hi_row_bound_ms(nbins: int, nz: int, bank) -> tuple[float, str]:
+    """The least time the card could take for one DM row of the hi
+    stage: read the spectrum (8 B a bin), write the bf16 plane once
+    and read it once; operations: the forward FFT of every segment and
+    the inverse FFT of every (segment, z) pair, 5 N log2 N each for
+    N = 2*seg points."""
+    nsegs = -(-nbins // bank.step)
+    n = 2 * bank.seg
+    nbytes = nbins * 8 + 2 * nz * 2 * nbins * 2
+    nops = (nsegs + nsegs * nz) * 5 * n * math.log2(n)
+    return bound_ms(nbytes, nops)
+
+
+def hi_beam_bound_ms(plan, nsamp: int) -> float:
+    """hi_row_bound_ms summed over every trial of the plan."""
+    bank = executor._get_bank(PARAMS.hi_accel_zmax)
+    total = 0.0
+    for step in plan:
+        nbins = ddplan.choose_n(nsamp // step.downsamp) // 2 + 1
+        total += (step.dms_per_pass * step.numpasses
+                  * hi_row_bound_ms(nbins, len(bank.zs), bank)[0])
+    return total
+
+
+def _small_pulsar_block(seed: int, period: float, dm: float, amp: float,
+                        width: float, z: float = 0.0):
+    """32 channels x 32768 samples at 0.5 ms with one dispersed pulse
+    train whose frequency drifts z bins over the observation."""
+    rng = np.random.default_rng(seed)
     nchan, T, dt = 32, 1 << 15, 5e-4
     freqs = np.linspace(1214.0, 1536.0, nchan)
     data = rng.standard_normal((nchan, T)).astype(np.float32)
     t = np.arange(T) * dt
-    delays = 4148.808 * 60.0 * (freqs ** -2.0 - freqs[-1] ** -2.0)
+    f0, fdot = 1.0 / period, z / (T * dt) ** 2
+    delays = 4148.808 * dm * (freqs ** -2.0 - freqs[-1] ** -2.0)
     for c in range(nchan):
-        data[c] += ((((t - delays[c]) / 0.25) % 1.0) < 0.1) * 1.2
+        tc = t - delays[c]
+        data[c] += (((f0 * tc + 0.5 * fdot * tc * tc) % 1.0)
+                    < width) * amp
+    return data, freqs, dt
+
+
+def small_parity_phase() -> None:
+    """The search on a small block, on the card and through the plain
+    versions on the CPU: the zero-accel configuration, then the
+    default configuration with an accelerated pulsar (z = 15)."""
+    data, freqs, dt = _small_pulsar_block(2024, 0.25, 60.0, 1.2, 0.1)
     plan = [ddplan.DedispStep(10.0, 5.0, 12, 1, 16, 1),
             ddplan.DedispStep(70.0, 10.0, 6, 1, 16, 2)]
     params = executor.SearchParams.slice_defaults(
         nsub=16, lo_accel_numharm=8, topk_per_stage=16)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        out[dev] = executor.search_block(data, freqs, dt, plan, params,
-                                         device=dev)
+    out = {dev: executor.search_block(data, freqs, dt, plan, params,
+                                      device=dev)
+           for dev in ("cuda", "cpu")}
     g, c = out["cuda"], out["cpu"]
     if g[3] != c[3] or not g[0] or not c[0]:
         raise AssertionError(f"small parity: trials {g[3]} vs {c[3]}, "
@@ -276,10 +463,80 @@ def small_parity_phase() -> None:
         raise AssertionError(f"small parity: top candidate {a} vs {b}")
     if abs(a.freq_hz - 4.0) > 0.01:
         raise AssertionError(f"small parity: pulsar not recovered: {a}")
-    log(f"small parity (cuda vs cpu plain): {len(g[0])} vs {len(c[0])} "
-        f"candidates, top {a.freq_hz:.6f} Hz DM {a.dm} sigma "
-        f"{a.sigma:.3f} vs {b.sigma:.3f}; {len(g[2])} vs {len(c[2])} "
-        f"SP events")
+    log(f"small parity, zero-accel (cuda vs cpu plain): {len(g[0])} vs "
+        f"{len(c[0])} candidates, top {a.freq_hz:.6f} Hz DM {a.dm} "
+        f"sigma {a.sigma:.3f} vs {b.sigma:.3f}; {len(g[2])} vs "
+        f"{len(c[2])} SP events")
+
+    z_inj, p_inj = 15.0, 0.05
+    data, freqs, dt = _small_pulsar_block(2025, p_inj, 40.0, 0.9, 0.2,
+                                          z=z_inj)
+    plan = [ddplan.DedispStep(20.0, 5.0, 10, 1, 16, 1)]
+    out = {dev: executor.search_block(data, freqs, dt, plan, PARAMS,
+                                      device=dev)
+           for dev in ("cuda", "cpu")}
+    g, c = out["cuda"], out["cpu"]
+    if g[3] != c[3] or not g[1] or not c[1]:
+        raise AssertionError(f"small accel parity: trials {g[3]} vs "
+                             f"{c[3]}, {len(g[1])} vs {len(c[1])} folds")
+    a, b = g[0][0], c[0][0]
+    if (a.dm != b.dm or a.numharm != b.numharm
+            or not math.isclose(a.freq_hz, b.freq_hz, rel_tol=1e-4)
+            or abs(a.z - b.z) > 0.1
+            or not math.isclose(a.sigma, b.sigma, rel_tol=1e-2)):
+        raise AssertionError(f"small accel parity: top candidate {a} vs "
+                             f"{b}")
+    f_mean = 1.0 / p_inj + z_inj / (2 * (1 << 15) * dt)
+    if abs(a.z - z_inj) > accel.DZ or abs(a.freq_hz / f_mean - 1) > 1e-3:
+        raise AssertionError(f"small accel parity: the accelerated "
+                             f"pulsar (z {z_inj}, mean f {f_mean:.5f} Hz) "
+                             f"is not the top candidate: {a}")
+    fa, fb = g[1][0], c[1][0]
+    if abs(fa.period_s / fb.period_s - 1) > 1e-3 or \
+            abs(fa.period_s / a.period_s - 1) > 1e-2 or \
+            min(fa.reduced_chi2, fb.reduced_chi2) < 5:
+        raise AssertionError(f"small accel parity: top fold {fa} vs {fb}")
+    log(f"small parity, default configuration (cuda vs cpu plain): "
+        f"{len(g[0])} vs {len(c[0])} candidates, top {a.freq_hz:.6f} vs "
+        f"{b.freq_hz:.6f} Hz, z {a.z:.4f} vs {b.z:.4f} (injected "
+        f"{z_inj}), sigma {a.sigma:.3f} vs {b.sigma:.3f}; top fold P "
+        f"{fa.period_s:.9f} vs {fb.period_s:.9f} s, chi2 "
+        f"{fa.reduced_chi2:.3f} vs {fb.reduced_chi2:.3f}; {len(g[1])} "
+        f"vs {len(c[1])} folds")
+
+
+def expected_launches(plan, nsamp: int, out) -> tuple[dict, dict]:
+    """Stage-1 launches by downsample and stage-2 launches by shape
+    that the main path must make: the search's (plan_shapes), one
+    stage 1 at ds 1 and one stage 2 at one row per DM group refined,
+    and one stage 1 per originating pass of the folded candidates
+    (folded[k] is the fold of candidates[k])."""
+    n1, n2 = plan_shapes(plan, nsamp, PARAMS)
+    n1 = dict(n1)
+    nref = len(out.refined_dms)
+    n1[1] = n1.get(1, 0) + nref
+    n2 = dict(n2)
+    n2[(1, 1)] = n2.get((1, 1), 0) + nref
+    passes = {fold_batch.pass_of(plan, c.dm)
+              for c in out.candidates[:len(out.folded)]}
+    for si, _pi in passes:
+        ds = plan[si].downsamp
+        n1[ds] = n1.get(ds, 0) + 1
+    return n1, n2
+
+
+def _bestprof_hits(path: str) -> list[tuple[str, float, float]]:
+    """(member, period s, reduced chi2) of every .bestprof in a
+    _bestprof.tgz."""
+    hits = []
+    with tarfile.open(path) as tf:
+        for m in tf.getmembers():
+            text = tf.extractfile(m).read().decode()
+            p = float(re.search(r"P_topo \(ms\) = (\S+)", text).group(1))
+            chi = float(re.search(r"Reduced chi-sqr = (\S+)",
+                                  text).group(1))
+            hits.append((m.name, p * 1e-3, chi))
+    return hits
 
 
 def slice_phase(nsamp: int) -> dict:
@@ -297,30 +554,33 @@ def slice_phase(nsamp: int) -> dict:
         log(f"wrote {os.path.basename(fns[0])}: {NCHAN} ch x {nsamp} "
             f"samples, 4-bit, {os.path.getsize(fns[0]) / 1e9:.3f} GB in "
             f"{t_write:.1f} s")
-        params = executor.SearchParams.slice_defaults()
         plan = ddplan.survey_plan("pdev")
-        n1, n2 = plan_shapes(plan, nsamp, params)
-        exp1, exp2 = sum(n1.values()), sum(n2.values())
         torch.cuda.reset_peak_memory_stats()
         cuda_dd.reset_counts()
         t0 = time.time()
         out = executor.search_beam(
             fns, os.path.join(tmp, "work"), os.path.join(tmp, "results"),
-            params, device="cuda")
+            PARAMS, device="cuda")
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = dict(cuda_dd.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        log(f"search_beam wall {wall:.3f} s; {out.num_dm_trials} DM "
-            f"trials over {exp1} passes; peak device memory "
-            f"{peak / 2**30:.3f} GiB; masked fraction "
+        log(f"search_beam (SearchParams(make_plots=False)) wall "
+            f"{wall:.3f} s; {out.num_dm_trials} DM trials; peak device "
+            f"memory {peak / 2**30:.3f} GiB; masked fraction "
             f"{out.masked_fraction:.4f}")
         stages = dict(out.timers.times)
         stages["other"] = wall - sum(stages.values())
         log("stage seconds: " + json.dumps(
             {k: round(v, 3) for k, v in stages.items()}))
-        log(f"launches: {launches} (expected form_subbands {exp1}, "
-            f"dedisperse_subbands {exp2})")
+
+        n1, n2 = expected_launches(plan, nsamp, out)
+        exp1, exp2 = sum(n1.values()), sum(n2.values())
+        log(f"launches: {launches} (expected form_subbands {exp1} = 57 "
+            f"search + {len(out.refined_dms)} refinement + "
+            f"{exp1 - 57 - len(out.refined_dms)} fold passes; "
+            f"dedisperse_subbands {exp2} = 85 search chunks + "
+            f"{len(out.refined_dms)} refinement rows)")
         if launches["form_subbands"] != exp1 or \
                 launches["dedisperse_subbands"] != exp2:
             raise AssertionError(f"launch counts {launches} != expected "
@@ -328,8 +588,20 @@ def slice_phase(nsamp: int) -> dict:
         if not 0.0 <= out.masked_fraction < 0.2:
             raise AssertionError(f"masked fraction {out.masked_fraction} "
                                  f"on a beam of clean noise")
-        if out.num_dm_trials != ddplan.total_dm_trials(plan):
+        ntrials = ddplan.total_dm_trials(plan)
+        if out.num_dm_trials != ntrials:
             raise AssertionError("DM trial count differs from the plan")
+        hi = degraded.counts().get("accel_hi_chunk_skipped")
+        if hi is None or hi[:2] != (0, ntrials):
+            raise AssertionError(f"hi stage: (skipped, searched, calls) "
+                                 f"{hi}, expected (0, {ntrials}, ...)")
+        if degraded.snapshot() or degraded.provenance_snapshot():
+            raise AssertionError(f"degraded flags raised: "
+                                 f"{degraded.snapshot()} "
+                                 f"{degraded.provenance_snapshot()}")
+        log(f"hi stage: all {hi[1]} trials searched in {hi[2]} DM "
+            f"chunks, none skipped; no degraded flag")
+
         cands = accelcands.parse_candlist(os.path.join(
             out.resultsdir, f"{out.basenm}.accelcands"))
         hits = [c for c in cands
@@ -341,12 +613,71 @@ def slice_phase(nsamp: int) -> dict:
                 f"the {len(cands)} .accelcands rows: "
                 f"{[(c.period_s, c.dm, c.sigma) for c in cands[:5]]}")
         best = max(hits, key=lambda c: c.sigma)
-        log(f"recovered the pulsar: P={best.period_s:.6f} s DM "
-            f"{best.dm} sigma {best.sigma:.2f} numharm {best.numharm} "
-            f"({len(cands)} candidates, {len(out.sp_events)} SP events)")
-        return dict(launches=launches, wall_s=wall, peak_bytes=peak)
+        log(f"recovered the pulsar: P={best.period_s:.9f} s DM "
+            f"{best.dm} z {best.z} sigma {best.sigma:.2f} numharm "
+            f"{best.numharm} ({len(cands)} candidates, "
+            f"{len(out.folded)} folded, {len(out.refined_dms)} DM groups "
+            f"refined, {len(out.sp_events)} SP events)")
+        folds = [h for h in _bestprof_hits(os.path.join(
+            out.resultsdir, f"{out.basenm}_bestprof.tgz"))
+            if abs(h[1] - PSR_PERIOD) / PSR_PERIOD < 1e-3 and h[2] > 5]
+        if not folds:
+            raise AssertionError("no .bestprof folds the pulsar within "
+                                 "1e-3 in period with reduced chi2 > 5")
+        name, p, chi = max(folds, key=lambda h: h[2])
+        log(f"folded the pulsar: {name} P={p:.12f} s reduced chi2 "
+            f"{chi:.3f} ({len(folds)} .bestprof files fold it)")
+        hi_bound = hi_beam_bound_ms(plan, nsamp)
+        hi_s = stages["hi-accelsearch"]
+        log(f"hi stage a beam: {hi_s:.3f} s for {ntrials} trials, bound "
+            f"{hi_bound / 1e3:.4f} s, share {hi_bound / 1e3 / hi_s:.4f}")
+        # the fold's host part: float64 phase bins of one candidate at
+        # full resolution (fold_batch.fold_subbands_batch's loop body)
+        t64 = np.arange(nsamp, dtype=np.float64) * TSAMP
+        t0 = time.perf_counter()
+        np.minimum((np.mod(t64 / PSR_PERIOD, 1.0) * 100).astype(np.int32),
+                   99)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        log(f"folding: {stages['folding']:.3f} s for {len(out.folded)} "
+            f"candidates; the host's float64 phase bins take {host_ms:.2f} "
+            f"ms a full-resolution candidate (x {len(out.folded)} = "
+            f"{host_ms * len(out.folded) / 1e3:.3f} s)")
+        return dict(launches=launches, n1=n1, n2=n2, wall_s=wall,
+                    peak_bytes=peak)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def kernel_rows(s1, s2, n1: dict, n2: dict) -> list[dict]:
+    """The kernels line: per shape the main path's launches at that
+    shape, per beam the sums over those launches of each time."""
+    for x in s1:
+        x["launches"] = n1.get(x["ds"], 0)
+    for x in s2:
+        x["launches"] = n2.get((x["rows"], x["ds"]), 0)
+    rows = []
+    for name, shapes, replaces in (
+            ("form_subbands", s1,
+             "tpulsar/kernels/pallas_dd.py:104 (_kernel_sb, pallas_call "
+             "at :318)"),
+            ("dedisperse_subbands", s2,
+             "tpulsar/kernels/pallas_dd.py:68 (_kernel_roll, pallas_call "
+             "at :205)")):
+        tot = {k: sum(x["launches"] * x[k] for x in shapes)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        by = {x["bound_by"] for x in shapes}
+        log(f"per beam {name}: {tot['ms']:.3f} ms, plain "
+            f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms, "
+            f"share {tot['bound_ms'] / tot['ms']:.3f}")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="tpulsar_torch/csrc/dedisperse.cu", replaces=replaces,
+            max_abs_err=max(x["max_abs_err"] for x in shapes),
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=tot["bound_ms"],
+            bound_by=by.pop() if len(by) == 1 else "bytes",
+            library_ms=None, per="beam", shapes=shapes))
+    return rows
 
 
 def main() -> None:
@@ -360,7 +691,13 @@ def main() -> None:
     regs = ptxas_report(cuda_dd.BUILD_LOG)
 
     freqs = synth.channel_freqs(mock_spec(NSAMP))
-    rows = kernel_phase(freqs, regs)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    data = torch.randint(0, 256, (NCHAN, NSAMP), generator=gen,
+                         device=DEV, dtype=torch.uint8)
+    s1, s2 = kernel_phase(data, freqs, regs)
+    hi_phase(data, freqs)
+    del data
     small_parity_phase()
 
     nsamp = int(os.environ.get("TPULSAR_SMOKE_NSAMP", NSAMP))
@@ -368,6 +705,7 @@ def main() -> None:
         log(f"NSAMP CUT: {nsamp} samples instead of {NSAMP} "
             f"(TPULSAR_SMOKE_NSAMP); channels, nsub and plan unchanged")
     res = slice_phase(nsamp)
+    rows = kernel_rows(s1, s2, res["n1"], res["n2"])
     for r in rows:
         r["launches"] = res["launches"][r["name"]]
         if r["launches"] < 1:

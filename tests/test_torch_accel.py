@@ -1,0 +1,243 @@
+"""tpulsar_torch.kernels.accel (the hi-accel FDAS stage) against the
+JAX package's tpulsar.kernels.accel, on the same NumPy-seeded inputs.
+
+Tolerances: the correlation runs through pocketfft (torch) and XLA's
+FFT (JAX), which differ in float order: planes at rtol 1e-4, top-k
+powers at rtol 2e-4 (tests/test_accel.py's batched-vs-per-DM
+tolerance), r bins and z exactly.  The harmonic stage sums add float32
+terms in the same order, so on the same f32 plane they are
+bit-identical."""
+
+from dataclasses import astuple
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from tpulsar.kernels import accel as ja  # noqa: E402
+from tpulsar.kernels import accel_batch as jab  # noqa: E402
+from tpulsar.kernels.fourier import harmonic_stages  # noqa: E402
+from tpulsar_torch.kernels import accel as ta  # noqa: E402
+from tpulsar_torch.kernels import accel_batch as tab  # noqa: E402
+from test_torch_slice import one_torch_thread  # noqa: E402, F401 (autouse)
+
+PLANE_RTOL = 1e-4
+POWER_RTOL = 2e-4
+
+
+def _specs(nd=3, nbins=6000, seed=7, tones=((1500.0, 6.0),)):
+    """Seeded complex noise spectra with drifting tones (bin, z) added
+    through the reference's own z-response."""
+    rng = np.random.default_rng(seed)
+    s = (rng.normal(size=(nd, nbins))
+         + 1j * rng.normal(size=(nd, nbins))).astype(np.complex64)
+    for i in range(nd):
+        for r0, z in tones:
+            resp = ja.gen_z_response(z, 64)
+            lo = int(r0) + 40 * i - 32
+            s[i, lo: lo + 64] += 12.0 * resp
+    return s
+
+
+def _bank(zmax=8.0, seg=1 << 11):
+    return ja.build_template_bank(zmax, seg=seg), \
+        ta.build_template_bank(zmax, seg=seg)
+
+
+@pytest.mark.parametrize("zmax, seg", [(8.0, 1 << 11), (16.0, 1 << 11),
+                                       (50.0, 1 << 13)])
+def test_template_bank_is_equal(zmax, seg):
+    jb, tb = _bank(zmax, seg)
+    assert tb.zs == jb.zs and tb.width == jb.width
+    assert (tb.seg, tb.step) == (jb.seg, jb.step)
+    np.testing.assert_array_equal(tb.bank_fft, jb.bank_fft)
+    np.testing.assert_array_equal(ta.z_grid(zmax), ja.z_grid(zmax))
+
+
+def test_correlate_block_and_segments_match():
+    specs = _specs()
+    jb, tb = _bank()
+    nz = len(jb.zs)
+    want = np.asarray(ja._correlate_block(
+        jnp.asarray(specs), jnp.asarray(jb.bank_fft), jb.seg, jb.step,
+        jb.width, nz))
+    got = ta._correlate_block(torch.from_numpy(specs),
+                              torch.from_numpy(tb.bank_fft), tb.seg,
+                              tb.step, tb.width, nz)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=PLANE_RTOL,
+                               atol=PLANE_RTOL)
+    one = np.asarray(ja._correlate_segments(
+        jnp.asarray(specs[1]), jnp.asarray(jb.bank_fft), jb.seg, jb.step,
+        jb.width))
+    got1 = ta._correlate_segments(torch.from_numpy(specs[1]),
+                                  torch.from_numpy(tb.bank_fft), tb.seg,
+                                  tb.step, tb.width)
+    np.testing.assert_allclose(got1.numpy(), one, rtol=PLANE_RTOL,
+                               atol=PLANE_RTOL)
+    # the segment-at-a-time path is the batched path, row for row
+    np.testing.assert_array_equal(got1.numpy(), got[1].numpy())
+
+
+@pytest.mark.parametrize("nz, nr, mh", [(51, 4096, 16), (9, 1000, 8),
+                                        (201, 2048, 16), (51, 777, 4)])
+def test_harmonic_stage_maxes_bit_identical_to_jax(nz, nr, mh):
+    """The same f32 plane gives the same stage maxima and argmaxes, bit
+    for bit, and both equal the from-scratch per-stage sums."""
+    rng = np.random.default_rng(5)
+    plane = rng.normal(size=(nz, nr)).astype(np.float32) ** 2
+    stages = tuple(harmonic_stages(mh))
+    want = ja._harmonic_stage_maxes(jnp.asarray(plane), stages, nz)
+    got = ta._harmonic_stage_maxes(torch.from_numpy(plane), stages, nz)
+    assert set(got) == set(want)
+    for h in stages:
+        np.testing.assert_array_equal(got[h][0].numpy(),
+                                      np.asarray(want[h][0]))
+        np.testing.assert_array_equal(got[h][1].numpy(),
+                                      np.asarray(want[h][1]))
+        old = ta._harmonic_sum_plane(torch.from_numpy(plane), h,
+                                     nz).numpy()
+        np.testing.assert_array_equal(got[h][0].numpy(), old.max(axis=0))
+        np.testing.assert_array_equal(got[h][1].numpy(),
+                                      old.argmax(axis=0))
+
+
+def test_accel_search_batch_matches_jax():
+    specs = _specs(nd=5, seed=11, tones=((900.0, 4.0), (2300.0, -6.0)))
+    jb, tb = _bank()
+    want = ja.accel_search_batch(jnp.asarray(specs), jb, max_numharm=4,
+                                 topk=8)
+    got = ta.accel_search_batch(torch.from_numpy(specs), tb,
+                                max_numharm=4, topk=8)
+    assert set(got) == set(want) == {1, 2, 4}
+    for h in want:
+        np.testing.assert_array_equal(got[h][1], np.asarray(want[h][1]))
+        np.testing.assert_array_equal(got[h][2], np.asarray(want[h][2]))
+        np.testing.assert_allclose(got[h][0], np.asarray(want[h][0]),
+                                   rtol=POWER_RTOL)
+
+
+def test_batched_equals_per_dm_and_any_batch_size():
+    specs = _specs(nd=3, seed=3)
+    _jb, tb = _bank()
+    nz = len(tb.zs)
+    bf = torch.from_numpy(tb.bank_fft)
+    bv, br, bz = ta._accel_block_topk(torch.from_numpy(specs), bf, tb.seg,
+                                      tb.step, tb.width, nz, 2, 8)
+    for i in range(3):
+        sv, sr, sz = ta._accel_plane_topk(torch.from_numpy(specs[i]), bf,
+                                          tb.seg, tb.step, tb.width, nz,
+                                          2, 8)
+        np.testing.assert_allclose(bv[i].numpy(), sv.numpy(),
+                                   rtol=POWER_RTOL)
+        np.testing.assert_array_equal(br[i].numpy(), sr.numpy())
+        np.testing.assert_array_equal(bz[i].numpy(), sz.numpy())
+    full = ta.accel_search_batch(torch.from_numpy(specs), tb,
+                                 max_numharm=2, topk=8)
+    for b in (1, 2):
+        part = ta.accel_search_batch(torch.from_numpy(specs), tb,
+                                     max_numharm=2, topk=8, dm_chunk=b)
+        for h in full:
+            for k in range(3):
+                np.testing.assert_array_equal(part[h][k], full[h][k])
+
+
+@pytest.mark.parametrize("nbins", [1_966_081, 983_041, 196_609, 5000])
+def test_plane_dm_chunk_and_plans_match_jax(nbins, monkeypatch):
+    """The batch sizing and schedule: on the CPU (f32 plane, z chunk
+    16) as the JAX package on its CPU backend, and on CUDA (bf16, z
+    chunk 4) as the JAX package on an accelerator."""
+    nz = 51
+    assert ta.plane_dm_chunk(nbins, nz) == ja.plane_dm_chunk(nbins, nz)
+    for ndms in (1, 38, 76):
+        assert astuple(tab.plan_batches(
+            ndms, ta.plane_dm_chunk(nbins, nz))) == astuple(
+            jab.plan_batches(ndms, ja.plane_dm_chunk(nbins, nz)))
+        assert tab.batch_rows(ndms, nbins, nz) == \
+            jab.batch_rows(ndms, nbins, nz)
+    for b in (1, 3, 7):
+        assert astuple(tab.plan_batches_explicit(38, b)) == \
+            astuple(jab.plan_batches_explicit(38, b))
+    monkeypatch.setattr(ja, "_PLANE_DTYPE_RESOLVED", jnp.bfloat16)
+    monkeypatch.setattr(ja, "_Z_CHUNK_RESOLVED", 4)
+    assert ta.plane_dm_chunk(nbins, nz, device="cuda") == \
+        ja.plane_dm_chunk(nbins, nz)
+    assert tab.BATCH_QUANTA == jab.BATCH_QUANTA
+
+
+def test_plane_dtype_is_bf16_on_cuda_and_f32_on_the_cpu(monkeypatch):
+    """The plane-dtype rule: 'auto' is bf16 on CUDA, f32 on the CPU;
+    f32/bf16 pin either; an unknown value raises."""
+    monkeypatch.delenv("TPULSAR_ACCEL_PLANE_DTYPE", raising=False)
+    assert ta.plane_dtype("cuda") == torch.bfloat16
+    assert ta.plane_dtype("cpu") == torch.float32
+    assert ta.z_chunk("cuda") == 4 and ta.z_chunk("cpu") == 16
+    monkeypatch.setenv("TPULSAR_ACCEL_PLANE_DTYPE", "f32")
+    assert ta.plane_dtype("cuda") == torch.float32
+    monkeypatch.setenv("TPULSAR_ACCEL_PLANE_DTYPE", "bf16")
+    assert ta.plane_dtype("cpu") == torch.bfloat16
+
+
+@pytest.mark.parametrize("value", ["fp16", "float32", "bfloat16"])
+def test_bad_setting_raises(value, monkeypatch):
+    """An unknown TPULSAR_ACCEL_PLANE_DTYPE raises (the JAX package
+    raises at import; the port when the plane dtype is read)."""
+    monkeypatch.setenv("TPULSAR_ACCEL_PLANE_DTYPE", value)
+    _jb, tb = _bank()
+    with pytest.raises(ValueError, match="TPULSAR_ACCEL_PLANE_DTYPE"):
+        ta.accel_search_batch(torch.from_numpy(_specs(nd=1)), tb,
+                              max_numharm=1, topk=4)
+
+
+def _chirp_spectrum(z_true=12.0, T=1 << 15, dt=1e-3, f0=40.0, amp=0.8):
+    """A drifting tone in noise (tests/test_accel.py's construction),
+    normalized by each package's normalize_spectrum."""
+    rng = np.random.default_rng(3)
+    T_s = T * dt
+    t = np.arange(T) * dt
+    fdot = z_true / T_s ** 2
+    x = rng.standard_normal(T).astype(np.float32) + amp * np.sin(
+        2 * np.pi * (f0 * t + 0.5 * fdot * t * t))
+    x = (x - x.mean()).astype(np.float32)
+    return x, T_s
+
+
+def test_drifting_tone_found_at_its_z_like_jax():
+    x, T_s = _chirp_spectrum()
+    jspec = ja.normalize_spectrum(jnp.fft.rfft(jnp.asarray(x)))
+    tspec = ta.normalize_spectrum(torch.fft.rfft(torch.from_numpy(x)))
+    np.testing.assert_allclose(tspec.numpy(), np.asarray(jspec),
+                               rtol=1e-3, atol=1e-4)
+    jb, tb = _bank(24.0)
+    want = ja.accel_search_one(jspec, jb, max_numharm=1, topk=8)[1]
+    got = ta.accel_search_one(tspec, tb, max_numharm=1, topk=8)[1]
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2], np.asarray(want[2]))
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), rtol=POWER_RTOL)
+    best = int(np.argmax(got[0]))
+    assert abs(got[2][best] - 12.0) <= ta.DZ
+    assert abs(0.5 * got[1][best] - (40.0 * T_s + 6.0)) <= 2
+
+
+def test_bf16_plane_picks_the_same_cell_within_one_percent(monkeypatch):
+    """The bf16 plane (CUDA's default) against the f32 plane on a
+    drifting tone: the same winning (r, z) cell, power within 1%."""
+    x, _T_s = _chirp_spectrum()
+    spec = ta.normalize_spectrum(torch.fft.rfft(torch.from_numpy(x)))
+    _jb, tb = _bank(24.0)
+    monkeypatch.setenv("TPULSAR_ACCEL_PLANE_DTYPE", "f32")
+    f32 = ta.accel_search_one(spec, tb, max_numharm=2, topk=8)
+    monkeypatch.setenv("TPULSAR_ACCEL_PLANE_DTYPE", "bf16")
+    plane = ta._correlate_segments(spec.to(torch.complex64),
+                                   torch.from_numpy(tb.bank_fft), tb.seg,
+                                   tb.step, tb.width)
+    assert plane.dtype == torch.bfloat16
+    bf16 = ta.accel_search_one(spec, tb, max_numharm=2, topk=8)
+    for h in (1, 2):
+        i, j = int(np.argmax(f32[h][0])), int(np.argmax(bf16[h][0]))
+        assert (f32[h][1][i], f32[h][2][i]) == (bf16[h][1][j],
+                                                bf16[h][2][j])
+        assert bf16[h][0][j] == pytest.approx(f32[h][0][i], rel=0.01)

@@ -1,7 +1,7 @@
 """tpulsar_torch as a package: it stands alone (no JAX, nothing of
 tpulsar), its entry points default to CUDA and refuse to move to the
-CPU by themselves, and it refuses, by name, what the later slices of
-the port will add."""
+CPU by themselves, it refuses, by name, what the later slices of the
+port will add, and it runs what the earlier slices added."""
 
 import os
 import pathlib
@@ -18,6 +18,7 @@ from tpulsar.search import executor as jex  # noqa: E402
 from tpulsar_torch import resolve_device, state  # noqa: E402
 from tpulsar_torch.plan import ddplan  # noqa: E402
 from tpulsar_torch.search import executor as tex  # noqa: E402
+from test_torch_slice import one_torch_thread  # noqa: E402, F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "tpulsar_torch"
@@ -27,6 +28,8 @@ import sys
 import tpulsar_torch
 import tpulsar_torch.state, tpulsar_torch.search.executor
 import tpulsar_torch.kernels.cuda_dd, tpulsar_torch.io.synth
+import tpulsar_torch.kernels.accel, tpulsar_torch.kernels.fold_batch
+import tpulsar_torch.search.refine
 import tpulsar_torch.io.datafile, tpulsar_torch.astro.barycenter
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -78,9 +81,6 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path,
 
 
 @pytest.mark.parametrize("change, word", [
-    (dict(run_hi_accel=True, hi_accel_zmax=50), "hi-accel"),
-    (dict(refine_cands=True), "refinement"),
-    (dict(max_cands_to_fold=3), "folding"),
     (dict(make_plots=True), "plots"),
     ("checkpoint", "checkpoint"),
     ("mesh", "mesh"),
@@ -102,6 +102,61 @@ def test_later_slices_are_refused_by_name(change, word, monkeypatch):
                          np.linspace(1200, 1500, 4), 1e-3,
                          [ddplan.DedispStep(0.0, 1.0, 2, 1, 2, 1)],
                          params, device="cpu", **kw)
+
+
+def _tiny_pulsar_block():
+    """16 channels x 8192 samples with a strong dispersed pulse train
+    (P = 0.1 s, DM 20), seeded."""
+    rng = np.random.default_rng(4)
+    nchan, T, dt = 16, 1 << 13, 1e-3
+    freqs = np.linspace(1214.0, 1536.0, nchan)
+    data = rng.standard_normal((nchan, T)).astype(np.float32)
+    t = np.arange(T) * dt
+    delays = 4148.808 * 20.0 * (freqs ** -2.0 - freqs[-1] ** -2.0)
+    for c in range(nchan):
+        data[c] += ((((t - delays[c]) / 0.1) % 1.0) < 0.1) * 2.0
+    return data, freqs, dt
+
+
+@pytest.mark.parametrize("change, stage", [
+    (dict(run_hi_accel=True, hi_accel_zmax=8), "hi-accel"),
+    (dict(refine_cands=True, max_cands_to_fold=3), "refinement"),
+    (dict(max_cands_to_fold=3), "folding"),
+])
+def test_earlier_refused_options_now_run(change, stage):
+    """The hi-accel stage, refinement and folding are ported: each is
+    accepted and a tiny search_block runs it on the CPU."""
+    from tpulsar_torch.search import degraded
+
+    params = tex.SearchParams.slice_defaults(nsub=8, lo_accel_numharm=4,
+                                             topk_per_stage=8, **change)
+    tex.check_supported(params)
+    data, freqs, dt = _tiny_pulsar_block()
+    plan = [ddplan.DedispStep(16.0, 2.0, 4, 1, 8, 1)]
+    timers = tex.StageTimers()
+    final, folded, _sp, ntr = tex.search_block(
+        data, freqs, dt, plan, params, timers=timers, device="cpu")
+    assert ntr == 4 and final
+    assert abs(final[0].freq_hz - 10.0) < 0.05
+    assert stage + ("search" if stage == "hi-accel" else "") \
+        in timers.times
+    if stage == "hi-accel":
+        # all four trials went through the hi stage, none skipped
+        assert degraded.counts()["accel_hi_chunk_skipped"] == (0, 4, 1)
+    # refined r leaves the half-bin grid; unrefined r stays on it
+    on_grid = 2 * final[0].r == round(2 * final[0].r)
+    assert on_grid == (stage != "refinement")
+    if stage == "hi-accel":
+        assert folded == []
+    else:
+        assert 1 <= len(folded) <= 3
+        assert abs(folded[0].period_s - 0.1) < 1e-3
+
+
+def test_default_configuration_is_accepted():
+    """SearchParams() with plots off — the JAX package's default search
+    — is what the port runs now."""
+    tex.check_supported(tex.SearchParams(make_plots=False))
 
 
 def test_hi_accel_without_templates_is_not_refused():

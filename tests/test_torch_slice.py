@@ -42,6 +42,19 @@ def _direct_family(monkeypatch):
     monkeypatch.setenv("TPULSAR_DD_FAMILY", "direct")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's CPU tests (other test files
+    import this fixture): the suite runs in several pytest-xdist
+    processes at once, and a torch thread pool as wide as the machine
+    in each of them oversubscribes the cores — the default-search
+    files ran 6x slower that way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_cands_match(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):

@@ -3,11 +3,16 @@
 The JAX package ``tpulsar`` is the reference; this package mirrors its
 layout module for module (``tpulsar_torch.kernels.dedisperse`` is the
 counterpart of ``tpulsar.kernels.dedisperse``) and imports nothing of
-it.  Plain tensor code is PyTorch; the two Pallas kernels of the
+it.  It runs the reference's default single-beam search on one
+device: dedispersion, single-pulse search, the zero-accel and hi-accel
+(FDAS) periodicity searches, sifting, harmpolish refinement and
+candidate folding.  Plain tensor code is PyTorch (FFTs through
+``torch.fft``, cuFFT on the GPU); the two Pallas kernels of the
 reference (stage-1 subband formation and stage-2 shift-and-sum
 dedispersion) are CUDA kernels written for Hopper
 (``tpulsar_torch/csrc/dedisperse.cu``, bound in
-``tpulsar_torch/kernels/cuda_dd.py``).
+``tpulsar_torch/kernels/cuda_dd.py``), which the search, refinement
+and folding all call.
 
 Every public entry point takes ``device=`` and defaults to ``"cuda"``.
 Without a GPU the caller must pass ``device="cpu"`` explicitly: the

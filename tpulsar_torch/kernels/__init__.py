@@ -6,5 +6,9 @@
   cuda_dd.py      <- the stage-1 and stage-2 CUDA kernels that replace
                      tpulsar/kernels/pallas_dd.py
   fourier.py      <- realfft, zapbirds, rednoise + zero-accel periodicity
+  accel.py        <- accelsearch -zmax (FDAS hi-accel stage)
+  accel_batch.py  <- the hi stage's host-side batch planner
+  fold.py         <- prepfold (per-candidate fold + p/pdot/DM search)
+  fold_batch.py   <- prepfold, tier-batched (the default fold path)
   singlepulse.py  <- single_pulse_search (boxcar matched filter)
 """

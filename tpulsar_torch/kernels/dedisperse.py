@@ -53,6 +53,18 @@ def _edge_pad(data: torch.Tensor, pad: int) -> torch.Tensor:
     return torch.cat([data, tail], dim=1)
 
 
+def shift_rows(data: torch.Tensor, shifts) -> torch.Tensor:
+    """out[i, t] = data[i, min(t + shifts[i], T-1)]: row i of (nrows, T)
+    shifted left by shifts[i] >= 0, clamped at the end (the reference's
+    _shift_gather, with its power-of-two pad bucket)."""
+    sh = np.asarray(shifts, dtype=np.int64)
+    T = data.shape[1]
+    pad = _pad_bucket(int(sh.max(initial=0)))
+    padded = _edge_pad(data, pad)
+    return torch.stack([padded[i, s: s + T] for i, s in
+                        enumerate(np.minimum(sh, pad).tolist())])
+
+
 def downsample(x: torch.Tensor, factor: int, axis: int = -1) -> torch.Tensor:
     """Sum-downsample along an axis; lengths not divisible by the
     factor are truncated."""
@@ -116,3 +128,30 @@ def plan_pass_shifts(freqs_mhz: np.ndarray, nsub: int, subdm: float,
     sub_shifts = np.stack([
         shift_samples(dm, subrefs, band_ref, dt_down) for dm in dms])
     return chan_shifts.astype(np.int32), sub_shifts.astype(np.int32)
+
+
+def dedisperse_exact(data: np.ndarray, freqs_mhz: np.ndarray,
+                     dms: np.ndarray, dt: float,
+                     downsamp: int = 1) -> np.ndarray:
+    """Single-stage exact dedispersion (NumPy oracle, copied from the
+    reference): per-channel shift at each target DM, no subband
+    approximation, float64 sums."""
+    data = np.asarray(data)
+    nchan, T = data.shape
+    band_ref = float(np.asarray(freqs_mhz)[-1])
+    out = []
+    for dm in np.atleast_1d(dms):
+        shifts = shift_samples(float(dm), freqs_mhz, band_ref, dt)
+        ts = np.zeros(T, dtype=np.float64)
+        for c in range(nchan):
+            s = min(int(shifts[c]), T)
+            if s < T:
+                ts[: T - s] += data[c, s:]
+            if s:
+                ts[T - s:] += data[c, -1]  # clamp, matching the kernel
+        out.append(ts)
+    arr = np.stack(out)
+    if downsamp > 1:
+        arr = arr[:, : (T // downsamp) * downsamp]
+        arr = arr.reshape(arr.shape[0], -1, downsamp).sum(-1)
+    return arr

@@ -76,6 +76,13 @@ def snapshot() -> dict[str, str]:
     return dict(_FLAGS)
 
 
+def counts() -> dict[str, tuple[int, int, int]]:
+    """Running (n, of, calls) of every counted flag, clean calls
+    included (the denominators: e.g. how many DM trials went through
+    the hi-accel stage)."""
+    return {k: tuple(v) for k, v in _COUNTS.items()}
+
+
 def provenance_snapshot() -> dict[str, str]:
     return dict(_PROV_FLAGS)
 

@@ -10,13 +10,18 @@ Stage sequence (reference: lib/python/PALFA2_presto_search.py):
   realfft/zapbirds/
   rednoise/accelsearch(z=0) -> kernels.fourier.whitened_spectrum +
                                lo_stage_candidates
+  accelsearch(zmax>0)-> kernels.accel.accel_search_batch (cuFFT + torch)
   sifting            -> search.sifting
+  harmpolish         -> search.refine.refine_candidates (stage 1 + stage
+                        2 at one DM row, then a host simplex)
+  prepfold           -> kernels.fold_batch.fold_candidates_by_pass (stage
+                        1 per originating pass, batched folds per tier)
 
-This package runs the zero-acceleration configuration (BASELINE.json
-config 2: the full survey DDplan, dedispersion and the realfft
-zero-accel periodicity search), with the direct stage-2 family on one
-device.  The hi-accel stage, harmpolish refinement, candidate
-folding, plots, checkpointing, the multi-chip mesh and the tree
+This package runs the JAX package's default search (SearchParams()
+with make_plots=False: the full survey DDplan, dedispersion, the
+zero-accel and the zmax-50 hi-accel periodicity searches, sifting,
+refinement and folding), with the direct stage-2 family on one
+device.  Plots, checkpointing, the multi-chip mesh and the tree
 stage-2 family are not ported yet: search_beam and search_block raise
 NotImplementedError when asked for any of them.
 
@@ -24,6 +29,8 @@ Artifacts written to the results directory have the JAX package's
 names and formats:
   <base>_rfifind.npz             RFI mask
   <base>.accelcands              sifted candidate list
+  <base>_cand{k}.pfd.npz         folded candidate k (tarred)
+  <base>_cand{k}.bestprof        its prepfold-style summary (tarred)
   <base>_DM*.singlepulse         per-DM single-pulse events (tarred)
   <base>_DM*.inf                 per-DM series metadata (tarred)
   <base>_sp.npz                  all single-pulse events
@@ -40,13 +47,16 @@ from __future__ import annotations
 import dataclasses
 import os
 import tarfile
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tpulsar_torch import resolve_device
 from tpulsar_torch.io import accelcands, datafile
+from tpulsar_torch.kernels import accel as accel_k
 from tpulsar_torch.kernels import dedisperse as dd
+from tpulsar_torch.kernels import fold as fold_k
 from tpulsar_torch.kernels import fourier as fr
 from tpulsar_torch.kernels import rfi as rfi_k
 from tpulsar_torch.kernels import singlepulse as sp_k
@@ -107,9 +117,10 @@ class SearchParams:
 
     @classmethod
     def slice_defaults(cls, **kw) -> "SearchParams":
-        """The configuration this package runs: the defaults with the
-        hi-accel stage, refinement, folding and plots switched off
-        (what `tpulsar search --no-accel` runs, minus the folds)."""
+        """The zero-acceleration configuration (BASELINE config 2): the
+        defaults with the hi-accel stage, refinement, folding and plots
+        switched off (what `tpulsar search --no-accel` runs, minus the
+        folds)."""
         base = dict(run_hi_accel=False, refine_cands=False,
                     max_cands_to_fold=0, make_plots=False)
         base.update(kw)
@@ -130,6 +141,7 @@ class SearchOutcome:
     masked_fraction: float
     num_dm_trials: int
     timers: StageTimers
+    refined_dms: list[float] = dataclasses.field(default_factory=list)
 
 
 def check_supported(params: SearchParams, checkpoint_dir=None,
@@ -137,15 +149,6 @@ def check_supported(params: SearchParams, checkpoint_dir=None,
     """Refuse, by name, every option that belongs to a later slice of
     the port."""
     later = []
-    if params.run_hi_accel and params.hi_accel_zmax > 0:
-        later.append("the hi-accel stage (run_hi_accel with "
-                     "hi_accel_zmax > 0; kernels/accel.py)")
-    if params.refine_cands:
-        later.append("harmpolish refinement (refine_cands; "
-                     "search/refine.py)")
-    if params.max_cands_to_fold > 0:
-        later.append("candidate folding (max_cands_to_fold > 0; "
-                     "kernels/fold.py, kernels/fold_batch.py)")
     if params.make_plots:
         later.append("plots (make_plots)")
     if checkpoint_dir:
@@ -187,12 +190,11 @@ def search_beam(fns: list[str], workdir: str, resultsdir: str,
     timers = StageTimers()
     data, mask = _read_and_mask(si, params, basenm, resultsdir, timers,
                                 dev)
-    final, folded, sp_events, num_trials = search_block(
-        data, si.freqs, si.dt, plan, params, zaplist=zaplist,
-        baryv=baryv, nsub=nsub, timers=timers, device=dev)
+    res = _search_block(data, si.freqs, si.dt, plan, params, zaplist,
+                        baryv, nsub, timers, dev)
     return _finalize_results(
         resultsdir, basenm, obj, si, plan, params, zaplist, baryv,
-        data, mask, final, folded, sp_events, num_trials, timers)
+        data, mask, res, timers)
 
 
 def _beam_geometry(fns, params, plan, baryv):
@@ -260,10 +262,11 @@ def _read_and_mask(si, params, basenm, resultsdir, timers, dev):
 
 
 def _finalize_results(resultsdir, basenm, obj, si, plan, params,
-                      zaplist, baryv, data, mask, final, folded,
-                      sp_events, num_trials, timers) -> SearchOutcome:
+                      zaplist, baryv, data, mask, res: "_BlockResult",
+                      timers) -> SearchOutcome:
     """Write the per-beam results directory (artifacts, provenance,
     report, tarballs) and build the SearchOutcome."""
+    final, folded, sp_events, num_trials = res[:4]
     accelcands.write_candlist(
         final, os.path.join(resultsdir, f"{basenm}.accelcands"),
         baryv=baryv)
@@ -279,6 +282,15 @@ def _finalize_results(resultsdir, basenm, obj, si, plan, params,
             _write_inf_files(resultsdir, basenm, si,
                              np.asarray(ppass.dms), si.dt * step.downsamp,
                              data.shape[1] // step.downsamp)
+    for i, fres in enumerate(folded):
+        stem = os.path.join(resultsdir, f"{basenm}_cand{i+1}")
+        np.savez_compressed(
+            stem + ".pfd.npz", profile=fres.profile,
+            subints=fres.subints, period_s=fres.period_s,
+            pdot=fres.pdot, dm=fres.dm,
+            reduced_chi2=fres.reduced_chi2)
+        with open(stem + ".bestprof", "w") as fh:
+            fh.write(fres.bestprof_text(si.source))
     _write_header_json(resultsdir, obj)
     deg = degraded.snapshot()
     resc = degraded.provenance_snapshot()
@@ -292,7 +304,8 @@ def _finalize_results(resultsdir, basenm, obj, si, plan, params,
                          candidates=final, folded=folded,
                          sp_events=sp_events,
                          masked_fraction=mask.masked_fraction,
-                         num_dm_trials=num_trials, timers=timers)
+                         num_dm_trials=num_trials, timers=timers,
+                         refined_dms=res.refined_dms)
 
 
 def _budget_dm_chunk(nfft: int, hi: bool, budget: int) -> int:
@@ -326,14 +339,30 @@ def search_block(data, freqs: np.ndarray, dt: float,
                  timers: StageTimers | None = None,
                  checkpoint_dir: str | None = None,
                  mesh=None, device=None):
-    """Run the plan loop + sifting on an in-memory (nchan, T) block
-    (uint8 or float32; a numpy array or a tensor, moved to `device`).
+    """Run the plan loop, sifting, refinement and folding on an
+    in-memory (nchan, T) block (uint8 or float32; a numpy array or a
+    tensor, moved to `device`).
 
-    Returns (candidates, folded, sp_events, num_dm_trials); `folded`
-    is always empty in this slice."""
+    Returns (candidates, folded, sp_events, num_dm_trials): folded[k]
+    is the fold of candidates[k]."""
     params = params or SearchParams()
     check_supported(params, checkpoint_dir, mesh)
-    dev = resolve_device(device)
+    res = _search_block(data, freqs, dt, plan, params, zaplist, baryv,
+                        nsub, timers, resolve_device(device))
+    return res.final, res.folded, res.sp_events, res.num_trials
+
+
+class _BlockResult(NamedTuple):
+    final: list
+    folded: list
+    sp_events: np.ndarray
+    num_trials: int
+    refined_dms: list[float]     # the DM groups refinement dedispersed
+
+
+def _search_block(data, freqs, dt, plan, params, zaplist, baryv, nsub,
+                  timers, dev) -> _BlockResult:
+    """search_block's body, on a checked configuration and device."""
     timers = timers or StageTimers()
     degraded.reset()
     if not isinstance(data, torch.Tensor):
@@ -394,18 +423,25 @@ def search_block(data, freqs: np.ndarray, dt: float,
                     # indices are half-bin units, hence bin_scale=0.5
                     res = fr.lo_stage_candidates(
                         wspec, stages, params.topk_per_stage)
-                    del wspec
                     _fence(dev)
-                pending.append((dm_chunk, T_s, nbins, sp_pair, res))
+                hi_cands: list = []
+                if params.run_hi_accel and params.hi_accel_zmax > 0:
+                    with timers.timing("hi-accelsearch"):
+                        # ends in its own host transfer: no fence
+                        hi_cands = _hi_accel_pass(wspec, dm_chunk, T_s,
+                                                  params)
+                del wspec
+                pending.append((dm_chunk, T_s, nbins, sp_pair, res,
+                                hi_cands))
 
             with timers.timing("pipeline-drain"):
                 sp_host = [(s.cpu().numpy(), i.cpu().numpy())
-                           for _c, _t, _n, (s, i), _r in pending]
+                           for _c, _t, _n, (s, i), _r, _h in pending]
                 lo_host = [{h: (v.cpu().numpy(), b.cpu().numpy())
                             for h, (v, b) in p[4].items()}
                            for p in pending]
-            for (dm_chunk, T_s, nbins, _sp, _res), (snrs, idx), res_h \
-                    in zip(pending, sp_host, lo_host):
+            for (dm_chunk, T_s, nbins, _sp, _res, hi_cands), \
+                    (snrs, idx), res_h in zip(pending, sp_host, lo_host):
                 with timers.timing("single-pulse"):
                     ev = sp_k.events_from_topk(
                         snrs, idx, dm_chunk, dt_ds,
@@ -418,24 +454,186 @@ def search_block(data, freqs: np.ndarray, dt: float,
                         res_h, dm_chunk, T_s, _lo_sigma_fn(nbins),
                         sigma_min=params.sifting.sigma_threshold,
                         bin_scale=0.5))
+                all_cands.extend(hi_cands)
             del pending, subb
 
-    return _sift_finish(data, dt, params, timers, all_cands, sp_chunks,
-                        num_trials)
+    return _sift_fold_finish(data, freqs, dt, params, zaplist, baryv,
+                             nsub, timers, all_cands, sp_chunks,
+                             num_trials, plan)
 
 
-def _sift_finish(data, dt, params, timers, all_cands, sp_chunks,
-                 num_trials):
-    """Everything after the plan loop in this slice: sift, and report
-    every candidate's r on the full-resolution padded bin scale."""
+def _sift_fold_finish(data, freqs, dt, params, zaplist, baryv, nsub,
+                      timers, all_cands, sp_chunks, num_trials,
+                      plan) -> _BlockResult:
+    """Everything after the plan loop: sift, refine, fold."""
     nfft_full = ddplan.choose_n(data.shape[1])
     T_s_full = nfft_full * dt
+    _series_for = _BoundedCache(
+        lambda dm: _dedisperse_single(data, freqs, nsub, dm, dt))
     with timers.timing("sifting"):
         final = sifting.sift(all_cands, params.sifting)
     sp_events = (np.concatenate(sp_chunks) if sp_chunks else _EMPTY_SP)
+    # one bin scale for the reported r column: candidates of different
+    # passes carry pass-local (downsampled, padded) bin units
     for c in final:
         c.r = c.freq_hz * T_s_full
-    return final, [], sp_events, num_trials
+
+    # sub-bin refinement of the fold-worthy candidates (PRESTO's
+    # harmpolish): each (r, z) optimized on a full-resolution series
+    # for its DM, its sigma recomputed from the refined power
+    to_refine = [c for c in final
+                 if c.sigma >= params.to_prepfold_sigma]
+    to_refine = to_refine[: params.max_cands_to_fold]
+    by_dm: dict[float, list] = {}
+    if params.refine_cands and to_refine:
+        from tpulsar_torch.search import refine
+
+        with timers.timing("refinement"):
+            # lo/hi identity by DETECTION z: refinement perturbs z off
+            # exact zero, which must not move a lo candidate onto the
+            # hi search's nz-times-larger trial count
+            was_hi = {id(c): abs(c.z) >= accel_k.DZ / 2
+                      for c in to_refine}
+            keep_full = fr.zap_mask(nfft_full // 2 + 1, T_s_full,
+                                    zaplist, baryv) \
+                if zaplist is not None else None
+            for c in to_refine:
+                by_dm.setdefault(c.dm, []).append(c)
+            for dm, group in by_dm.items():
+                refine.refine_candidates(
+                    group, {dm: _series_for(dm)}, dt, nfft_full,
+                    keep_mask=keep_full)
+            nz_hi = (len(_get_bank(params.hi_accel_zmax).zs)
+                     if params.run_hi_accel and params.hi_accel_zmax > 0
+                     else 1)
+            nbins_full = nfft_full // 2 + 1
+            for c in to_refine:
+                # trial count approximated with the full-resolution bin
+                # count (pass-local counts differ by <= the downsample)
+                nind = max(1, (nbins_full
+                               * (nz_hi if was_hi[id(c)] else 1))
+                           // c.numharm)
+                c.sigma = float(fr.sigma_from_power(
+                    c.power, c.numharm, numindep=nind))
+            final.sort(key=lambda c: -c.sigma)
+
+    # fold the top of the (re-ranked) list: final is sigma-descending
+    # and the fold set is its >= threshold prefix, so folded[k] is the
+    # fold of final[k] (the _cand{k+1} files and the .accelcands rows
+    # stay in one-to-one order)
+    to_fold = [c for c in final if c.sigma >= params.to_prepfold_sigma]
+    to_fold = to_fold[: params.max_cands_to_fold]
+    with timers.timing("folding"):
+        folded = _fold(data, freqs, dt, params, nsub, plan, to_fold,
+                       _series_for)
+    return _BlockResult(final, folded, sp_events, num_trials,
+                        list(by_dm))
+
+
+def _fold(data, freqs, dt, params, nsub, plan, to_fold,
+          series_for) -> list:
+    """Fold each candidate of to_fold, in order: by default from its
+    originating pass's subbands, one batch per period tier
+    (fold_by_rules and fold_batched); else per DM from subbands formed
+    at that DM (fold_by_rules) or from its full-resolution series."""
+    if not to_fold:
+        return []
+    if params.fold_by_rules and params.fold_batched:
+        from tpulsar_torch.kernels import fold_batch as fbk
+
+        by_k = fbk.fold_candidates_by_pass(
+            data, freqs, dt, plan,
+            [(k, c.period_s, c.dm) for k, c in enumerate(to_fold)],
+            nsub, dd.form_subbands)
+        return [by_k[k] for k in range(len(to_fold))]
+
+    folded: dict[int, fold_k.FoldResult] = {}
+    # group by DM so each DM's subband block is formed once even when
+    # same-DM candidates interleave in the sigma ordering
+    groups: dict[float, list[int]] = {}
+    for k, c in enumerate(to_fold):
+        groups.setdefault(c.dm, []).append(k)
+    for dm, idxs in groups.items():
+        if params.fold_by_rules:
+            # fold from subbands so the DM axis is a per-subband phase
+            # rotation (PALFA2_presto_search.py:168-175)
+            ch_sh, sub_sh = dd.plan_pass_shifts(freqs, nsub, dm, [dm],
+                                                dt, 1)
+            subb = dd.form_subbands(data, ch_sh, nsub, 1)
+            subrefs = dd.subband_reference_freqs(freqs, nsub)
+            for k in idxs:
+                c = to_fold[k]
+                folded[k] = fold_k.fold_subbands_and_optimize(
+                    subb, subrefs, dt, c.period_s, dm=dm,
+                    rules=fold_k.fold_rules(c.period_s),
+                    sub_shifts_dm0=sub_sh[0])
+            del subb
+        else:
+            for k in idxs:
+                c = to_fold[k]
+                folded[k] = fold_k.fold_and_optimize(
+                    series_for(c.dm), dt, c.period_s, dm=c.dm,
+                    nbin=params.fold_nbin, npart=params.fold_npart)
+    return [folded[k] for k in range(len(to_fold))]
+
+
+class _BoundedCache:
+    """LRU-bounded memo for per-DM device tensors (a long beam's
+    full-resolution series is too big to keep one per candidate DM).
+    A hit re-inserts the key, so the first key is always the least
+    recently used."""
+
+    def __init__(self, fn, capacity: int = 4):
+        self._fn = fn
+        self._cap = capacity
+        self._d: dict = {}
+
+    def __call__(self, key):
+        if key in self._d:
+            self._d[key] = self._d.pop(key)     # touch: move to MRU
+        else:
+            while len(self._d) >= self._cap:
+                self._d.pop(next(iter(self._d)))
+            self._d[key] = self._fn(key)
+        return self._d[key]
+
+
+def _dedisperse_single(data, freqs, nsub, dm, dt) -> torch.Tensor:
+    """One full-resolution DM series (T,) on the data's device: stage 1
+    at downsample 1, then stage 2 at one row."""
+    chan_shifts, sub_shifts = dd.plan_pass_shifts(freqs, nsub, dm, [dm],
+                                                  dt, 1)
+    subb = dd.form_subbands(data, chan_shifts, nsub, 1)
+    return dd.dedisperse_subbands(subb, sub_shifts)[0]
+
+
+def _hi_accel_pass(wspec, dm_chunk, T_s, params: SearchParams
+                   ) -> list[sifting.Candidate]:
+    """accelsearch zmax > 0 over a DM chunk of already-whitened complex
+    spectra (the spectrum is shared with the lo stage)."""
+    bank = _get_bank(params.hi_accel_zmax)
+    res = accel_k.accel_search_batch(
+        wspec, bank, max_numharm=params.hi_accel_numharm,
+        topk=params.topk_per_stage)
+    # the chunk's trials feed the denominator: the count of DM trials
+    # that went through the hi stage (n stays 0: nothing is skipped)
+    degraded.count("accel_hi_chunk_skipped", 0, len(dm_chunk))
+    # z~0 rows are the lo search's (z_min_abs); the plane is on the
+    # half-bin grid (bin_scale)
+    return sifting.make_candidates(
+        res, dm_chunk, T_s,
+        _hi_sigma_fn(wspec.shape[-1], len(bank.zs)),
+        sigma_min=params.sifting.sigma_threshold,
+        z_min_abs=accel_k.DZ / 2, bin_scale=0.5)
+
+
+_BANK_CACHE: dict[int, accel_k.TemplateBank] = {}
+
+
+def _get_bank(zmax: int) -> accel_k.TemplateBank:
+    if zmax not in _BANK_CACHE:
+        _BANK_CACHE[zmax] = accel_k.build_template_bank(float(zmax))
+    return _BANK_CACHE[zmax]
 
 
 def _lo_sigma_fn(nbins: int):
@@ -443,6 +641,13 @@ def _lo_sigma_fn(nbins: int):
     independent summed powers per DM per stage."""
     return lambda p, h: fr.sigma_from_power(
         p, h, numindep=max(1, nbins // h))
+
+
+def _hi_sigma_fn(nbins: int, nz: int):
+    """Stage sigma with the accelerated search's (r, z) plane trial
+    count."""
+    return lambda p, h: fr.sigma_from_power(
+        p, h, numindep=max(1, (nbins * nz) // h))
 
 
 _EMPTY_SP = np.empty(0, dtype=sp_k.SP_EVENT_DTYPE)
