@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from tpulsar_torch/csrc and runs four phases:
+Builds the CUDA kernels from tpulsar_torch/csrc and runs five phases:
 
   1. kernels: each kernel against its plain PyTorch version on the
      card, exact, at every shape of the main path (stage 1 at each
@@ -22,10 +22,21 @@ Builds the CUDA kernels from tpulsar_torch/csrc and runs four phases:
      plan) with one injected pulsar, written to a temporary directory
      and searched by search_beam at the JAX package's default
      configuration (SearchParams(make_plots=False): hi-accel stage,
-     refinement and folding on).  It checks that the pulsar is
-     recovered and folded, that every trial went through the hi stage,
-     and that every kernel was launched as often as the plan and the
-     outcome require.
+     refinement and folding on) with a checkpoint directory.  It
+     checks that the pulsar is recovered and folded, that every trial
+     went through the hi stage, and that every kernel was launched as
+     often as the plan and the outcome require, and reports what the
+     checkpoint cost (artifacts, bytes, seconds in store.save,
+     manifest size);
+  5. resume: phase 4's checkpoint cut back to the state a kill after
+     pass K_RESUME - 1 leaves (pass artifacts >= K_RESUME, the sifted
+     list and the folds dropped) in a new output directory, and the
+     same beam searched again through the job's run_search.  It checks
+     that only passes K_RESUME..56 were computed (metrics.json and the
+     kernels' launch counts), that every results file equals phase 4's
+     (tools/torch_results_diff.py: timing-bearing files by presence,
+     .npz by arrays, tarballs by members), that the pulsar is
+     recovered and folded, and that the checkpoint is gone.
 
 Output: progress lines, then the card's name and power limit, one JSON
 line with every kernel's numbers, and as the last line
@@ -57,6 +68,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from tpulsar_torch import checkpoint as ckpt  # noqa: E402
+from tpulsar_torch.cli import search_job  # noqa: E402
 from tpulsar_torch.io import accelcands, synth  # noqa: E402
 from tpulsar_torch.kernels import accel  # noqa: E402
 from tpulsar_torch.kernels import cuda_dd  # noqa: E402
@@ -75,6 +88,8 @@ NCHAN, TSAMP, NSAMP = 960, 65.476e-6, 3_932_160
 PSR_PERIOD, PSR_DM = 0.25, 50.0
 #: the configuration of the main path: the JAX package's default search
 PARAMS = executor.SearchParams(make_plots=False)
+#: phase 5 resumes the beam at this pass of the 57-pass plan
+K_RESUME = 40
 
 
 def log(msg: str) -> None:
@@ -143,16 +158,21 @@ def ptxas_report(build_log: str) -> dict:
     return out
 
 
-def plan_shapes(plan, nsamp: int, params) -> tuple[dict, dict]:
-    """Launches per beam at each search shape: stage 1 by downsample,
-    stage 2 by (DM rows, downsample), one stage-2 launch per DM
-    chunk."""
+def plan_shapes(plan, nsamp: int, params,
+                first_pass: int = 0) -> tuple[dict, dict]:
+    """Launches per beam at each search shape of the passes from
+    first_pass on: stage 1 by downsample, stage 2 by (DM rows,
+    downsample), one stage-2 launch per DM chunk."""
     s1: dict = {}
     s2: dict = {}
+    pass_idx = -1
     for step in plan:
         ds = step.downsamp
         nfft = ddplan.choose_n(nsamp // ds)
         for ppass in step.passes():
+            pass_idx += 1
+            if pass_idx < first_pass:
+                continue
             s1[ds] = s1.get(ds, 0) + 1
             ndms = len(ppass.dms)
             chunk = executor.pass_chunk_size(ndms, nfft, params)
@@ -505,13 +525,15 @@ def small_parity_phase() -> None:
         f"vs {len(c[1])} folds")
 
 
-def expected_launches(plan, nsamp: int, out) -> tuple[dict, dict]:
+def expected_launches(plan, nsamp: int, out,
+                      first_pass: int = 0) -> tuple[dict, dict]:
     """Stage-1 launches by downsample and stage-2 launches by shape
-    that the main path must make: the search's (plan_shapes), one
-    stage 1 at ds 1 and one stage 2 at one row per DM group refined,
-    and one stage 1 per originating pass of the folded candidates
-    (folded[k] is the fold of candidates[k])."""
-    n1, n2 = plan_shapes(plan, nsamp, PARAMS)
+    that a search computing the passes from first_pass on must make:
+    the search's (plan_shapes), one stage 1 at ds 1 and one stage 2 at
+    one row per DM group refined, and one stage 1 per originating pass
+    of the folded candidates (folded[k] is the fold of
+    candidates[k])."""
+    n1, n2 = plan_shapes(plan, nsamp, PARAMS, first_pass)
     n1 = dict(n1)
     nref = len(out.refined_dms)
     n1[1] = n1.get(1, 0) + nref
@@ -539,7 +561,285 @@ def _bestprof_hits(path: str) -> list[tuple[str, float, float]]:
     return hits
 
 
+def check_pulsar(resultsdir: str, basenm: str, what: str) -> None:
+    """The injected pulsar is in the .accelcands rows and folded by a
+    .bestprof (period within 1e-3, reduced chi2 > 5)."""
+    cands = accelcands.parse_candlist(os.path.join(
+        resultsdir, f"{basenm}.accelcands"))
+    hits = [c for c in cands
+            if abs(c.period_s - PSR_PERIOD) / PSR_PERIOD < 1e-3
+            and abs(c.dm - PSR_DM) < 5.0]
+    if not hits:
+        raise AssertionError(
+            f"{what}: injected pulsar (P={PSR_PERIOD} s, DM={PSR_DM}) "
+            f"not in the {len(cands)} .accelcands rows: "
+            f"{[(c.period_s, c.dm, c.sigma) for c in cands[:5]]}")
+    best = max(hits, key=lambda c: c.sigma)
+    log(f"{what}: recovered the pulsar: P={best.period_s:.9f} s DM "
+        f"{best.dm} z {best.z} sigma {best.sigma:.2f} numharm "
+        f"{best.numharm} ({len(cands)} candidates)")
+    folds = [h for h in _bestprof_hits(os.path.join(
+        resultsdir, f"{basenm}_bestprof.tgz"))
+        if abs(h[1] - PSR_PERIOD) / PSR_PERIOD < 1e-3 and h[2] > 5]
+    if not folds:
+        raise AssertionError(f"{what}: no .bestprof folds the pulsar "
+                             f"within 1e-3 in period with reduced chi2 "
+                             f"> 5")
+    name, p, chi = max(folds, key=lambda h: h[2])
+    log(f"{what}: folded the pulsar: {name} P={p:.12f} s reduced chi2 "
+        f"{chi:.3f} ({len(folds)} .bestprof files fold it)")
+
+
+class CallClock:
+    """Seconds and calls spent in owner.name while active (a checkpoint
+    step's cost on the search's wall clock)."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name = owner, name
+
+    def __enter__(self):
+        self.seconds, self.calls = 0.0, 0
+        self._orig = orig = getattr(self.owner, self.name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self._orig)
+        return False
+
+
+def checkpoint_cost(ckdir: str, clock: CallClock) -> dict:
+    """Artifacts and bytes the manifest records, by kind, and the
+    manifest's own size."""
+    doc = ckpt.read_manifest(ckdir)
+    if doc is None:
+        raise AssertionError(f"no readable checkpoint manifest in {ckdir}")
+    kinds: dict = {}
+    for entry in doc["entries"].values():
+        n, b = kinds.get(entry["kind"], (0, 0))
+        kinds[entry["kind"]] = (n + 1, b + entry["bytes"])
+    cost = dict(artifacts=len(doc["entries"]),
+                bytes=sum(b for _n, b in kinds.values()),
+                by_kind={k: dict(artifacts=n, bytes=b)
+                         for k, (n, b) in sorted(kinds.items())},
+                manifest_bytes=os.path.getsize(ckpt.manifest_path(ckdir)),
+                save_s=clock.seconds, save_calls=clock.calls)
+    if not ckpt.verify_root(ckdir)["ok"]:
+        raise AssertionError("phase 4's checkpoint does not verify")
+    return cost
+
+
+def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan) -> dict:
+    """Phase 4: search_beam at the default configuration with a
+    checkpoint directory."""
+    ck4 = os.path.join(tmp, "ck4")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_dd.reset_counts()
+    t0 = time.time()
+    with CallClock(ckpt.CheckpointStore, "save") as clock:
+        out = executor.search_beam(
+            fns, os.path.join(tmp, "work"), os.path.join(tmp, "results"),
+            PARAMS, checkpoint_dir=ck4, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(cuda_dd.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"search_beam (SearchParams(make_plots=False), checkpoint_dir "
+        f"set) wall {wall:.3f} s; {out.num_dm_trials} DM trials; peak "
+        f"device memory {peak / 2**30:.3f} GiB; masked fraction "
+        f"{out.masked_fraction:.4f}")
+    stages = dict(out.timers.times)
+    stages["other"] = wall - sum(stages.values())
+    log("stage seconds: " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}))
+    cost = checkpoint_cost(ck4, clock)
+    log(f"checkpoint: {cost['artifacts']} artifacts, {cost['bytes']} "
+        f"bytes ({json.dumps(cost['by_kind'])}); {cost['save_s']:.3f} s "
+        f"in store.save over {cost['save_calls']} calls "
+        f"({100 * cost['save_s'] / wall:.2f}% of the wall time); "
+        f"manifest {cost['manifest_bytes']} bytes")
+
+    n1, n2 = expected_launches(plan, nsamp, out)
+    exp1, exp2 = sum(n1.values()), sum(n2.values())
+    s1, s2 = (sum(n.values()) for n in plan_shapes(plan, nsamp, PARAMS))
+    log(f"launches: {launches} (expected form_subbands {exp1} = {s1} "
+        f"search + {len(out.refined_dms)} refinement + "
+        f"{exp1 - s1 - len(out.refined_dms)} fold passes; "
+        f"dedisperse_subbands {exp2} = {s2} search chunks + "
+        f"{len(out.refined_dms)} refinement rows)")
+    if launches["form_subbands"] != exp1 or \
+            launches["dedisperse_subbands"] != exp2:
+        raise AssertionError(f"launch counts {launches} != expected "
+                             f"({exp1}, {exp2})")
+    if not 0.0 <= out.masked_fraction < 0.2:
+        raise AssertionError(f"masked fraction {out.masked_fraction} "
+                             f"on a beam of clean noise")
+    ntrials = ddplan.total_dm_trials(plan)
+    if out.num_dm_trials != ntrials:
+        raise AssertionError("DM trial count differs from the plan")
+    check_hi_stage(ntrials)
+    check_pulsar(out.resultsdir, out.basenm, "phase 4")
+    log(f"phase 4: {len(out.folded)} folded, {len(out.refined_dms)} DM "
+        f"groups refined, {len(out.sp_events)} SP events")
+    hi_bound = hi_beam_bound_ms(plan, nsamp)
+    hi_s = stages["hi-accelsearch"]
+    log(f"hi stage a beam: {hi_s:.3f} s for {ntrials} trials, bound "
+        f"{hi_bound / 1e3:.4f} s, share {hi_bound / 1e3 / hi_s:.4f}")
+    # the fold's host part: float64 phase bins of one candidate at
+    # full resolution (fold_batch.fold_subbands_batch's loop body)
+    t64 = np.arange(nsamp, dtype=np.float64) * TSAMP
+    t0 = time.perf_counter()
+    np.minimum((np.mod(t64 / PSR_PERIOD, 1.0) * 100).astype(np.int32),
+               99)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    log(f"folding: {stages['folding']:.3f} s for {len(out.folded)} "
+        f"candidates; the host's float64 phase bins take {host_ms:.2f} "
+        f"ms a full-resolution candidate (x {len(out.folded)} = "
+        f"{host_ms * len(out.folded) / 1e3:.3f} s)")
+    return dict(launches=launches, n1=n1, n2=n2, wall_s=wall,
+                peak_bytes=peak, stages=stages, checkpoint=cost,
+                resultsdir=out.resultsdir, ckdir=ck4)
+
+
+def check_hi_stage(ntrials: int) -> None:
+    """Every trial the search computed went through the hi stage, and
+    no degraded flag was raised."""
+    hi = degraded.counts().get("accel_hi_chunk_skipped")
+    if hi is None or hi[:2] != (0, ntrials):
+        raise AssertionError(f"hi stage: (skipped, searched, calls) "
+                             f"{hi}, expected (0, {ntrials}, ...)")
+    if degraded.snapshot() or degraded.provenance_snapshot():
+        raise AssertionError(f"degraded flags raised: "
+                             f"{degraded.snapshot()} "
+                             f"{degraded.provenance_snapshot()}")
+    log(f"hi stage: all {hi[1]} trials searched in {hi[2]} DM chunks, "
+        f"none skipped; no degraded flag")
+
+
+def truncate_checkpoint(ckdir: str, keep_passes: int) -> list[str]:
+    """Cut a checkpoint back to the state a kill after pass
+    keep_passes - 1 leaves: every later pass artifact, the sifted list
+    and the folds dropped from the manifest and the disk.  Returns the
+    dropped keys."""
+    path = ckpt.manifest_path(ckdir)
+    with open(path) as fh:
+        doc = json.load(fh)
+    dropped = sorted(
+        k for k in doc["entries"]
+        if k == "sifted" or k.startswith("fold_")
+        or (k.startswith("pass_") and int(k[5:]) >= keep_passes))
+    for k in dropped:
+        os.unlink(os.path.join(ckdir, doc["entries"].pop(k)["file"]))
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    return dropped
+
+
+def results_diff():
+    """tools/torch_results_diff.py of this checkout, loaded by path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", "torch_results_diff.py")
+    spec = importlib.util.spec_from_file_location("torch_results_diff",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
+                 p4: dict) -> dict:
+    """Phase 5: phase 4's checkpoint cut back to pass K_RESUME in a new
+    output directory, the beam searched again through the job's
+    run_search on the card."""
+    out5 = os.path.join(tmp, "out5")
+    ck5 = ckpt.default_root(out5)
+    shutil.copytree(p4["ckdir"], ck5)
+    dropped = truncate_checkpoint(ck5, K_RESUME)
+    kept = ckpt.read_manifest(ck5)["entries"]
+    log(f"phase 5: checkpoint cut back to passes 0..{K_RESUME - 1} "
+        f"({len(kept)} artifacts kept, {len(dropped)} dropped)")
+    cuda_dd.reset_counts()
+    t0 = time.time()
+    with CallClock(executor, "_load_decoded") as loads, \
+            CallClock(ckpt.CheckpointStore, "save") as saves:
+        out = search_job.run_search(fns, os.path.join(tmp, "work5"),
+                                    out5, PARAMS, None, log=log,
+                                    device="cuda")
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(cuda_dd.LAUNCHES)
+    log(f"phase 5 checkpoint: {loads.seconds:.3f} s loading and "
+        f"decoding {loads.calls} pass/sifted artifacts, "
+        f"{saves.seconds:.3f} s in store.save over {saves.calls} calls")
+    if out is None:
+        raise AssertionError("phase 5: run_search skipped the beam")
+    npass = sum(s.numpasses for s in plan)
+    with open(os.path.join(out5, "metrics.json")) as fh:
+        metrics = json.load(fh)
+    passes = metrics["tpulsar_passes_total"]["series"][""]
+    if passes != npass - K_RESUME:
+        raise AssertionError(f"phase 5 computed {passes} passes, "
+                             f"expected {npass - K_RESUME}")
+    trials = sum(len(pp.dms) for pp in _passes(plan)[K_RESUME:])
+    if metrics["tpulsar_dm_trials_total"]["series"][""] != trials:
+        raise AssertionError("phase 5 searched another trial count")
+    check_hi_stage(trials)
+    n1, n2 = expected_launches(plan, nsamp, out, K_RESUME)
+    exp1, exp2 = sum(n1.values()), sum(n2.values())
+    s1, s2 = (sum(n.values())
+              for n in plan_shapes(plan, nsamp, PARAMS, K_RESUME))
+    log(f"phase 5 launches: {launches} (expected form_subbands {exp1} = "
+        f"{s1} passes >= {K_RESUME} + {len(out.refined_dms)} refinement "
+        f"+ {exp1 - s1 - len(out.refined_dms)} fold passes; "
+        f"dedisperse_subbands {exp2} = {s2} search chunks + "
+        f"{len(out.refined_dms)} refinement rows)")
+    if launches["form_subbands"] != exp1 or \
+            launches["dedisperse_subbands"] != exp2:
+        raise AssertionError(f"phase 5 launch counts {launches} != "
+                             f"expected ({exp1}, {exp2})")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase 5: a kernel never launched: "
+                             f"{launches}")
+    problems = results_diff().diff_results(p4["resultsdir"], out5)
+    if problems:
+        raise AssertionError("phase 5 results differ from phase 4's: "
+                             + "; ".join(problems[:10]))
+    log(f"phase 5: all {len(os.listdir(out5))} results files equal "
+        f"phase 4's (timing-bearing files by presence, .npz by arrays, "
+        f"tarballs by members)")
+    check_pulsar(out5, out.basenm, "phase 5")
+    if os.path.exists(ck5):
+        raise AssertionError("phase 5: the checkpoint was not cleaned")
+    stages = dict(out.timers.times)
+    stages["other"] = wall - sum(stages.values())
+    log(f"phase 5 run_search wall {wall:.3f} s (phase 4 "
+        f"{p4['wall_s']:.3f} s); stage seconds, phase 5 vs phase 4: "
+        + json.dumps({k: [round(v, 3), round(p4["stages"].get(k, 0.0),
+                                             3)]
+                      for k, v in stages.items()}))
+    resumed = metrics["tpulsar_checkpoint_events_total"]["series"]
+    log(f"phase 5 checkpoint events: {resumed}")
+    return dict(launches=launches, n1=n1, n2=n2, wall_s=wall,
+                stages=stages, passes=passes, load_s=loads.seconds,
+                save_s=saves.seconds)
+
+
+def _passes(plan) -> list:
+    return [pp for s in plan for pp in s.passes()]
+
+
 def slice_phase(nsamp: int) -> dict:
+    """Phases 4 and 5 on one synthesized beam."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
         spec = mock_spec(nsamp)
@@ -555,95 +855,9 @@ def slice_phase(nsamp: int) -> dict:
             f"samples, 4-bit, {os.path.getsize(fns[0]) / 1e9:.3f} GB in "
             f"{t_write:.1f} s")
         plan = ddplan.survey_plan("pdev")
-        torch.cuda.reset_peak_memory_stats()
-        cuda_dd.reset_counts()
-        t0 = time.time()
-        out = executor.search_beam(
-            fns, os.path.join(tmp, "work"), os.path.join(tmp, "results"),
-            PARAMS, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = dict(cuda_dd.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        log(f"search_beam (SearchParams(make_plots=False)) wall "
-            f"{wall:.3f} s; {out.num_dm_trials} DM trials; peak device "
-            f"memory {peak / 2**30:.3f} GiB; masked fraction "
-            f"{out.masked_fraction:.4f}")
-        stages = dict(out.timers.times)
-        stages["other"] = wall - sum(stages.values())
-        log("stage seconds: " + json.dumps(
-            {k: round(v, 3) for k, v in stages.items()}))
-
-        n1, n2 = expected_launches(plan, nsamp, out)
-        exp1, exp2 = sum(n1.values()), sum(n2.values())
-        log(f"launches: {launches} (expected form_subbands {exp1} = 57 "
-            f"search + {len(out.refined_dms)} refinement + "
-            f"{exp1 - 57 - len(out.refined_dms)} fold passes; "
-            f"dedisperse_subbands {exp2} = 85 search chunks + "
-            f"{len(out.refined_dms)} refinement rows)")
-        if launches["form_subbands"] != exp1 or \
-                launches["dedisperse_subbands"] != exp2:
-            raise AssertionError(f"launch counts {launches} != expected "
-                                 f"({exp1}, {exp2})")
-        if not 0.0 <= out.masked_fraction < 0.2:
-            raise AssertionError(f"masked fraction {out.masked_fraction} "
-                                 f"on a beam of clean noise")
-        ntrials = ddplan.total_dm_trials(plan)
-        if out.num_dm_trials != ntrials:
-            raise AssertionError("DM trial count differs from the plan")
-        hi = degraded.counts().get("accel_hi_chunk_skipped")
-        if hi is None or hi[:2] != (0, ntrials):
-            raise AssertionError(f"hi stage: (skipped, searched, calls) "
-                                 f"{hi}, expected (0, {ntrials}, ...)")
-        if degraded.snapshot() or degraded.provenance_snapshot():
-            raise AssertionError(f"degraded flags raised: "
-                                 f"{degraded.snapshot()} "
-                                 f"{degraded.provenance_snapshot()}")
-        log(f"hi stage: all {hi[1]} trials searched in {hi[2]} DM "
-            f"chunks, none skipped; no degraded flag")
-
-        cands = accelcands.parse_candlist(os.path.join(
-            out.resultsdir, f"{out.basenm}.accelcands"))
-        hits = [c for c in cands
-                if abs(c.period_s - PSR_PERIOD) / PSR_PERIOD < 1e-3
-                and abs(c.dm - PSR_DM) < 5.0]
-        if not hits:
-            raise AssertionError(
-                f"injected pulsar (P={PSR_PERIOD} s, DM={PSR_DM}) not in "
-                f"the {len(cands)} .accelcands rows: "
-                f"{[(c.period_s, c.dm, c.sigma) for c in cands[:5]]}")
-        best = max(hits, key=lambda c: c.sigma)
-        log(f"recovered the pulsar: P={best.period_s:.9f} s DM "
-            f"{best.dm} z {best.z} sigma {best.sigma:.2f} numharm "
-            f"{best.numharm} ({len(cands)} candidates, "
-            f"{len(out.folded)} folded, {len(out.refined_dms)} DM groups "
-            f"refined, {len(out.sp_events)} SP events)")
-        folds = [h for h in _bestprof_hits(os.path.join(
-            out.resultsdir, f"{out.basenm}_bestprof.tgz"))
-            if abs(h[1] - PSR_PERIOD) / PSR_PERIOD < 1e-3 and h[2] > 5]
-        if not folds:
-            raise AssertionError("no .bestprof folds the pulsar within "
-                                 "1e-3 in period with reduced chi2 > 5")
-        name, p, chi = max(folds, key=lambda h: h[2])
-        log(f"folded the pulsar: {name} P={p:.12f} s reduced chi2 "
-            f"{chi:.3f} ({len(folds)} .bestprof files fold it)")
-        hi_bound = hi_beam_bound_ms(plan, nsamp)
-        hi_s = stages["hi-accelsearch"]
-        log(f"hi stage a beam: {hi_s:.3f} s for {ntrials} trials, bound "
-            f"{hi_bound / 1e3:.4f} s, share {hi_bound / 1e3 / hi_s:.4f}")
-        # the fold's host part: float64 phase bins of one candidate at
-        # full resolution (fold_batch.fold_subbands_batch's loop body)
-        t64 = np.arange(nsamp, dtype=np.float64) * TSAMP
-        t0 = time.perf_counter()
-        np.minimum((np.mod(t64 / PSR_PERIOD, 1.0) * 100).astype(np.int32),
-                   99)
-        host_ms = (time.perf_counter() - t0) * 1e3
-        log(f"folding: {stages['folding']:.3f} s for {len(out.folded)} "
-            f"candidates; the host's float64 phase bins take {host_ms:.2f} "
-            f"ms a full-resolution candidate (x {len(out.folded)} = "
-            f"{host_ms * len(out.folded) / 1e3:.3f} s)")
-        return dict(launches=launches, n1=n1, n2=n2, wall_s=wall,
-                    peak_bytes=peak)
+        p4 = main_path_phase(fns, tmp, nsamp, plan)
+        p4["resume"] = resume_phase(fns, tmp, nsamp, plan, p4)
+        return p4
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -681,6 +895,7 @@ def kernel_rows(s1, s2, n1: dict, n2: dict) -> list[dict]:
 
 
 def main() -> None:
+    t_smoke = time.time()
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -708,9 +923,12 @@ def main() -> None:
     rows = kernel_rows(s1, s2, res["n1"], res["n2"])
     for r in rows:
         r["launches"] = res["launches"][r["name"]]
-        if r["launches"] < 1:
+        # the resumed search's own run (phase 5), counted from 0 too
+        r["launches_resumed"] = res["resume"]["launches"][r["name"]]
+        if r["launches"] < 1 or r["launches_resumed"] < 1:
             raise AssertionError(f"{r['name']} never launched on the "
-                                 f"main path")
+                                 f"main path or the resumed path")
+    log(f"smoke wall {time.time() - t_smoke:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,191 @@
+"""The port's telemetry artifacts against the JAX package's: one
+traced search_beam on the same synthesized beam in both packages
+(TPULSAR_TRACE=1), then metrics.json (names, labels, pass and trial
+counts) and the trace file (span names; the JAX package's own
+summarize_file reproduces the port's .report stage totals within its
+5% contract); and the port's fence, a no-op on the CPU.
+
+The JAX package's metrics.json also holds the compile-cache families
+its runtime monitor records (tpulsar/aot/), which the port has no
+counterpart of yet (ROADMAP item 16); its trace holds their
+backend_compile spans.  The port times the file read as its own
+stage, "read"."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_slice import one_torch_thread  # noqa: E402, F401 (autouse)
+from tpulsar.io import synth  # noqa: E402
+from tpulsar.obs import trace as jtrace  # noqa: E402
+from tpulsar.plan import ddplan as jddplan  # noqa: E402
+from tpulsar.search import executor as jex  # noqa: E402
+from tpulsar_torch import state  # noqa: E402
+from tpulsar_torch.obs import metrics as tmetrics  # noqa: E402
+from tpulsar_torch.obs import trace as ttrace  # noqa: E402
+from tpulsar_torch.search import executor as tex  # noqa: E402
+from tpulsar_torch.search.report import StageTimers  # noqa: E402
+
+#: the JAX package's compile-cache instruments (its aot/ runtime
+#: monitor), and the spans they emit
+JAX_COMPILE_METRICS = {"tpulsar_compile_cache_hits_total",
+                       "tpulsar_compile_cache_misses_total",
+                       "tpulsar_backend_compile_seconds"}
+JAX_COMPILE_SPANS = {"backend_compile", "aot_compile"}
+
+
+@pytest.fixture(scope="module")
+def traced(tmp_path_factory):
+    """Both packages' traced search_beam on one beam (module-scoped:
+    the searches are the expensive part)."""
+    root = tmp_path_factory.mktemp("obs")
+    spec = synth.BeamSpec(nchan=32, nsamp=1 << 13, nbits=4,
+                          tsamp_s=5.24288e-4, seed=3)
+    psr = synth.PulsarSpec(period_s=0.2, dm=20.0, snr_per_sample=1.0)
+    fns = synth.synth_beam(str(root / "data"), spec, pulsars=[psr],
+                           merged=True)
+    plan = [jddplan.DedispStep(lodm=10.0, dmstep=2.0, dms_per_pass=8,
+                               numpasses=2, numsub=16, downsamp=1),
+            jddplan.DedispStep(42.0, 4.0, 8, 1, 16, 2)]
+    jp = jex.SearchParams(nsub=16, hi_accel_zmax=8, topk_per_stage=8,
+                          max_cands_to_fold=2, make_plots=False)
+    saved = {k: os.environ.get(k)
+             for k in ("TPULSAR_TRACE", "TPULSAR_DD_FAMILY")}
+    os.environ.update(TPULSAR_TRACE="1", TPULSAR_DD_FAMILY="direct")
+    try:
+        jo = jex.search_beam(fns, str(root / "jw"), str(root / "jr"),
+                             jp, plan=plan)
+        to = tex.search_beam(
+            fns, str(root / "tw"), str(root / "tr"),
+            state.search_params_from_jax(jp.provenance()),
+            plan=state.plan_from_jax([dataclasses.astuple(s)
+                                      for s in plan]),
+            device="cpu")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        jtrace.reset()
+        ttrace.reset()
+    return jo, to
+
+
+def _load(outcome, name):
+    with open(os.path.join(outcome.resultsdir, name)) as fh:
+        return json.load(fh)
+
+
+def test_metrics_json_names_labels_and_counts(traced):
+    jo, to = traced
+    jm, tm = _load(jo, "metrics.json"), _load(to, "metrics.json")
+    # a gauge is a point-in-time reading, kept whole in the delta, so
+    # the JAX file also carries gauges that other tests in this
+    # process set (the tree family's depth, the fleet's size); the port
+    # records no gauge
+    assert {r["type"] for r in tm.values()} <= {"counter", "histogram"}
+    assert set(tm) == {n for n, r in jm.items() if r["type"] != "gauge"} \
+        - JAX_COMPILE_METRICS
+    for name in tm:
+        for key in ("type", "help", "labelnames"):
+            assert tm[name][key] == jm[name][key], (name, key)
+        if tm[name]["type"] == "histogram":
+            assert tm[name]["buckets"] == jm[name]["buckets"], name
+    for name in ("tpulsar_passes_total", "tpulsar_dm_trials_total",
+                 "tpulsar_dedisp_trials_total",
+                 "tpulsar_accel_batch_trials_total",
+                 "tpulsar_checkpoint_events_total"):
+        assert tm.get(name, {}).get("series") == \
+            jm.get(name, {}).get("series"), name
+    assert tm["tpulsar_passes_total"]["series"] == {"": 3.0}
+    assert tm["tpulsar_dm_trials_total"]["series"] == {"": 24.0}
+    assert tm["tpulsar_dedisp_trials_total"]["series"] == {"direct": 24.0}
+    stages = tm["tpulsar_stage_seconds"]["series"]
+    assert set(stages) == set(jm["tpulsar_stage_seconds"]["series"]) \
+        | {"read"}
+    # one observation per timed scope
+    assert stages["subbanding"]["count"] == 3
+    assert stages["sifting"]["count"] == 1
+
+
+def test_trace_files_have_the_same_spans(traced):
+    jo, to = traced
+    jt = _load(jo, f"{jo.basenm}_trace.json")["traceEvents"]
+    tt = _load(to, f"{to.basenm}_trace.json")["traceEvents"]
+    jnames = {e["name"] for e in jt if e["ph"] == "X"}
+    tnames = {e["name"] for e in tt if e["ph"] == "X"}
+    assert tnames == (jnames - JAX_COMPILE_SPANS) | {"read"}
+    assert {"search_block", "dm_chunk", "hi-accelsearch",
+            "refinement", "folding"} <= tnames
+    # the chunk spans nest under the root span, and the stage scopes
+    # under the chunk spans
+    chunks = [e for e in tt if e["name"] == "dm_chunk"]
+    assert [(c["args"]["pass_idx"], c["args"]["n"]) for c in chunks] == \
+        [(0, 8), (1, 8), (2, 8)]
+    assert {c["args"]["parent"] for c in chunks} == {"search_block"}
+    assert {"dedispersing", "single-pulse", "FFT", "lo-accelsearch"} <= \
+        {e["name"] for e in tt if e["args"].get("parent") == "dm_chunk"}
+
+
+def test_jax_summarize_reproduces_the_port_report(traced):
+    """The JAX package's trace.summarize_file over the port's trace
+    file gives the port's stage totals within the JAX package's
+    contract (5%, or 0.05 s)."""
+    _jo, to = traced
+    summary = jtrace.summarize_file(
+        os.path.join(to.resultsdir, f"{to.basenm}_trace.json"))
+    for stage, secs in to.timers.times.items():
+        got = summary["rollup"].get(stage, {}).get("seconds", 0.0)
+        assert got == pytest.approx(secs, rel=0.05, abs=0.05), stage
+    assert summary["root_seconds"] > 0
+    report = open(os.path.join(to.resultsdir,
+                               f"{to.basenm}.report")).read()
+    assert "hi-accelsearch" in report and "read" in report
+
+
+def test_stage_timer_is_one_span_and_one_observation():
+    ttrace.start(clear=True)
+    try:
+        before = tmetrics.REGISTRY.snapshot()
+        timers = StageTimers()
+        for _ in range(2):
+            with timers.timing("sifting"):
+                pass
+        spans = [e for e in ttrace.events() if e["name"] == "sifting"]
+        delta = tmetrics.diff_snapshots(tmetrics.REGISTRY.snapshot(),
+                                        before)
+    finally:
+        ttrace.reset()
+    assert len(spans) == 2
+    assert delta["tpulsar_stage_seconds"]["series"]["sifting"][
+        "count"] == 2
+
+
+def test_fence_is_a_noop_on_the_cpu(monkeypatch):
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", calls.append)
+    monkeypatch.setenv("TPULSAR_TRACE_SYNC", "1")
+    ttrace.start(clear=True)
+    try:
+        ttrace.fence(torch.zeros(3), {"a": (torch.ones(2), [1.0])})
+        assert calls == [] and ttrace.events() == []
+
+        class _OnCard:             # what the fence reads of a tensor
+            is_cuda = True
+            device = "cuda:0"
+
+        ttrace.fence((torch.zeros(1), {"x": _OnCard()}))
+        assert calls == ["cuda:0"]
+        assert [e["name"] for e in ttrace.events()] == ["device_fence"]
+        monkeypatch.delenv("TPULSAR_TRACE_SYNC")
+        ttrace.fence(_OnCard())                  # opt-in only
+        assert calls == ["cuda:0"]
+    finally:
+        ttrace.reset()

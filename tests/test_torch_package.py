@@ -1,7 +1,8 @@
 """tpulsar_torch as a package: it stands alone (no JAX, nothing of
-tpulsar), its entry points default to CUDA and refuse to move to the
-CPU by themselves, it refuses, by name, what the later slices of the
-port will add, and it runs what the earlier slices added."""
+tpulsar — its job entry point included), its entry points default to
+CUDA and refuse to move to the CPU by themselves, it refuses, by name,
+what the later slices of the port will add, and it runs what the
+earlier slices added."""
 
 import os
 import pathlib
@@ -31,6 +32,9 @@ import tpulsar_torch.kernels.cuda_dd, tpulsar_torch.io.synth
 import tpulsar_torch.kernels.accel, tpulsar_torch.kernels.fold_batch
 import tpulsar_torch.search.refine
 import tpulsar_torch.io.datafile, tpulsar_torch.astro.barycenter
+import tpulsar_torch.checkpoint, tpulsar_torch.resilience.faults
+import tpulsar_torch.obs.telemetry, tpulsar_torch.search.plots
+import tpulsar_torch.config, tpulsar_torch.cli.search_job
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tpulsar" or m.startswith("tpulsar."))
@@ -51,12 +55,41 @@ def test_import_pulls_in_no_jax_and_nothing_of_tpulsar():
     assert line == "BAD:", line
 
 
+_HELP_PROBE = r"""
+import runpy, sys
+sys.argv = ["search_job", "--help"]
+try:
+    runpy.run_module("tpulsar_torch.cli.search_job", run_name="__main__")
+except SystemExit as e:
+    print("EXIT:%s" % e.code)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "tpulsar" or m.startswith("tpulsar."))
+print("BAD:" + ",".join(bad))
+"""
+
+
+def test_job_entry_point_pulls_in_no_jax_and_nothing_of_tpulsar():
+    """`python -m tpulsar_torch.cli.search_job --help` runs the job's
+    module as __main__ and leaves jax and tpulsar.* out of
+    sys.modules."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _HELP_PROBE],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(ROOT), timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert "EXIT:0" in lines and any("--device" in ln for ln in lines)
+    assert [ln for ln in lines if ln.startswith("BAD:")][-1] == "BAD:"
+
+
 def test_source_never_imports_jax_or_tpulsar():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
                      r"from\s+tpulsar(\.|\s+import)|import\s+tpulsar\b)",
                      re.M)
     hits = []
-    for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    for path in (list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                 + list((ROOT / "tools").glob("torch_*.py"))):
         for m in pat.finditer(path.read_text()):
             hits.append(f"{path.relative_to(ROOT)}: {m.group(0).strip()}")
     assert not hits, hits
@@ -81,19 +114,13 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path,
 
 
 @pytest.mark.parametrize("change, word", [
-    (dict(make_plots=True), "plots"),
-    ("checkpoint", "checkpoint"),
     ("mesh", "mesh"),
     ("tree", "tree"),
 ])
 def test_later_slices_are_refused_by_name(change, word, monkeypatch):
     params = tex.SearchParams.slice_defaults()
     kw = {}
-    if isinstance(change, dict):
-        params = tex.SearchParams.slice_defaults(**change)
-    elif change == "checkpoint":
-        kw["checkpoint_dir"] = "/nonexistent"
-    elif change == "mesh":
+    if change == "mesh":
         kw["mesh"] = object()
     else:
         monkeypatch.setenv("TPULSAR_DD_FAMILY", "tree")
@@ -122,30 +149,52 @@ def _tiny_pulsar_block():
     (dict(run_hi_accel=True, hi_accel_zmax=8), "hi-accel"),
     (dict(refine_cands=True, max_cands_to_fold=3), "refinement"),
     (dict(max_cands_to_fold=3), "folding"),
+    (dict(max_cands_to_fold=3, make_plots=True), "plotting"),
+    ("checkpoint", "checkpoint"),
 ])
-def test_earlier_refused_options_now_run(change, stage):
-    """The hi-accel stage, refinement and folding are ported: each is
-    accepted and a tiny search_block runs it on the CPU."""
+def test_earlier_refused_options_now_run(change, stage, tmp_path):
+    """The hi-accel stage, refinement, folding, plots and
+    checkpoint/resume are ported: each is accepted and a tiny search
+    runs it on the CPU (search_block; search_beam for the plots, which
+    it draws)."""
+    from tpulsar_torch import checkpoint as ckpt
     from tpulsar_torch.search import degraded
 
+    kw = {}
+    if change == "checkpoint":
+        kw["checkpoint_dir"] = str(tmp_path / "ck")
+        change = dict(max_cands_to_fold=3)
     params = tex.SearchParams.slice_defaults(nsub=8, lo_accel_numharm=4,
                                              topk_per_stage=8, **change)
     tex.check_supported(params)
     data, freqs, dt = _tiny_pulsar_block()
     plan = [ddplan.DedispStep(16.0, 2.0, 4, 1, 8, 1)]
-    timers = tex.StageTimers()
-    final, folded, _sp, ntr = tex.search_block(
-        data, freqs, dt, plan, params, timers=timers, device="cpu")
-    assert ntr == 4 and final
-    assert abs(final[0].freq_hz - 10.0) < 0.05
+    if stage == "plotting":
+        out = _tiny_beam_search(tmp_path, params, plan)
+        final, folded, timers = out.candidates, out.folded, out.timers
+        pngs = sorted(n for n in os.listdir(out.resultsdir)
+                      if n.endswith(".png"))
+        assert len(pngs) == len(folded) + 3
+        assert f"{out.basenm}_cand1.png" in pngs
+    else:
+        timers = tex.StageTimers()
+        final, folded, _sp, ntr = tex.search_block(
+            data, freqs, dt, plan, params, timers=timers, device="cpu",
+            **kw)
+        assert ntr == 4 and final
+        assert abs(final[0].freq_hz - 10.0) < 0.05
     assert stage + ("search" if stage == "hi-accel" else "") \
-        in timers.times
+        in timers.times or stage == "checkpoint"
+    if stage == "checkpoint":
+        entries = ckpt.read_manifest(kw["checkpoint_dir"])["entries"]
+        assert {"pass_0000", "sifted", "fold_0000"} <= set(entries)
     if stage == "hi-accel":
         # all four trials went through the hi stage, none skipped
         assert degraded.counts()["accel_hi_chunk_skipped"] == (0, 4, 1)
-    # refined r leaves the half-bin grid; unrefined r stays on it
-    on_grid = 2 * final[0].r == round(2 * final[0].r)
-    assert on_grid == (stage != "refinement")
+    if stage in ("hi-accel", "refinement", "folding", "checkpoint"):
+        # refined r leaves the half-bin grid; unrefined r stays on it
+        on_grid = 2 * final[0].r == round(2 * final[0].r)
+        assert on_grid == (stage != "refinement")
     if stage == "hi-accel":
         assert folded == []
     else:
@@ -153,10 +202,26 @@ def test_earlier_refused_options_now_run(change, stage):
         assert abs(folded[0].period_s - 0.1) < 1e-3
 
 
+def _tiny_beam_search(tmp_path, params, plan):
+    """search_beam on _tiny_pulsar_block written as a merged Mock file
+    (the port's own writer), on the CPU."""
+    from tpulsar_torch.io import synth as tsynth
+
+    data, freqs, dt = _tiny_pulsar_block()
+    spec = tsynth.BeamSpec(nchan=16, nsamp=data.shape[1], nbits=4,
+                           tsamp_s=dt, fctr_mhz=1375.0, bw_mhz=322.0,
+                           seed=4)
+    psr = tsynth.PulsarSpec(period_s=0.1, dm=20.0, width_frac=0.1,
+                            snr_per_sample=2.0)
+    fns = tsynth.synth_beam(str(tmp_path / "beam"), spec, pulsars=[psr])
+    return tex.search_beam(fns, str(tmp_path / "w"), str(tmp_path / "r"),
+                           params, plan=plan, device="cpu")
+
+
 def test_default_configuration_is_accepted():
-    """SearchParams() with plots off — the JAX package's default search
-    — is what the port runs now."""
-    tex.check_supported(tex.SearchParams(make_plots=False))
+    """SearchParams() — the JAX package's default search, plots
+    included — is what the port runs now."""
+    tex.check_supported(tex.SearchParams())
 
 
 def test_hi_accel_without_templates_is_not_refused():

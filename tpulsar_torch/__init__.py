@@ -5,8 +5,9 @@ layout module for module (``tpulsar_torch.kernels.dedisperse`` is the
 counterpart of ``tpulsar.kernels.dedisperse``) and imports nothing of
 it.  It runs the reference's default single-beam search on one
 device: dedispersion, single-pulse search, the zero-accel and hi-accel
-(FDAS) periodicity searches, sifting, harmpolish refinement and
-candidate folding.  Plain tensor code is PyTorch (FFTs through
+(FDAS) periodicity searches, sifting, harmpolish refinement, candidate
+folding and plots, with pass-level checkpoint/resume, and the
+per-beam job a queue runs (``python -m tpulsar_torch.cli.search_job``).  Plain tensor code is PyTorch (FFTs through
 ``torch.fft``, cuFFT on the GPU); the two Pallas kernels of the
 reference (stage-1 subband formation and stage-2 shift-and-sum
 dedispersion) are CUDA kernels written for Hopper
@@ -14,9 +15,10 @@ dedispersion) are CUDA kernels written for Hopper
 ``tpulsar_torch/kernels/cuda_dd.py``), which the search, refinement
 and folding all call.
 
-Every public entry point takes ``device=`` and defaults to ``"cuda"``.
-Without a GPU the caller must pass ``device="cpu"`` explicitly: the
-package never moves to the CPU on its own.
+Every public entry point takes ``device=`` (the job: ``--device``) and
+defaults to ``"cuda"``.  Without a GPU the caller must pass
+``device="cpu"`` explicitly: the package never moves to the CPU on its
+own.
 """
 
 from __future__ import annotations

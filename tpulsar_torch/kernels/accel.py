@@ -31,12 +31,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
 from tpulsar_torch.kernels import accel_batch as abp
 from tpulsar_torch.kernels import fourier as fr
+from tpulsar_torch.obs import telemetry
 
 DZ = 2.0  # z-plane step in bins (PRESTO's accelsearch grid spacing)
 
@@ -392,7 +394,9 @@ def accel_search_batch(spectra: torch.Tensor, bank: TemplateBank,
     size.  An explicit ``dm_chunk`` is a test control: the batch size
     is honoured exactly.  One host transfer per call.  Returns
     {stage: (powers[ndms, topk], rbins[ndms, topk], zvals[ndms, topk])}
-    as NumPy arrays."""
+    as NumPy arrays.  Records the call's trials and seconds under the
+    JAX package's path="batched" series."""
+    t_begin = time.perf_counter()
     nz = len(bank.zs)
     dev = spectra.device
     bank_fft = torch.from_numpy(bank.bank_fft).to(dev)
@@ -409,6 +413,9 @@ def accel_search_batch(spectra: torch.Tensor, bank: TemplateBank,
             for s0 in plan.starts]
     v_all, r_all, z_all = (torch.stack(t).cpu().numpy()
                            for t in zip(*outs))
+    telemetry.accel_batch_trials_total().inc(ndms, path="batched")
+    telemetry.accel_stage_seconds().observe(
+        time.perf_counter() - t_begin, path="batched")
     stages = fr.harmonic_stages(max_numharm)
     vals = np.empty((ndms, len(stages), topk), np.float32)
     rbins = np.empty((ndms, len(stages), topk), np.int32)

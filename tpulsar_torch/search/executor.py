@@ -17,13 +17,16 @@ Stage sequence (reference: lib/python/PALFA2_presto_search.py):
   prepfold           -> kernels.fold_batch.fold_candidates_by_pass (stage
                         1 per originating pass, batched folds per tier)
 
-This package runs the JAX package's default search (SearchParams()
-with make_plots=False: the full survey DDplan, dedispersion, the
-zero-accel and the zmax-50 hi-accel periodicity searches, sifting,
-refinement and folding), with the direct stage-2 family on one
-device.  Plots, checkpointing, the multi-chip mesh and the tree
-stage-2 family are not ported yet: search_beam and search_block raise
-NotImplementedError when asked for any of them.
+This package runs the JAX package's default search (SearchParams():
+the full survey DDplan, dedispersion, the zero-accel and the zmax-50
+hi-accel periodicity searches, sifting, refinement, folding and
+plots), with the direct stage-2 family on one device, and with
+pass-level checkpoint/resume (checkpoint/): the RFI mask, every
+DDplan pass's partials, the sifted list and each folded candidate
+are checksummed artifacts, and a re-entered search recomputes only
+what is missing or corrupt.  The multi-chip mesh and the tree stage-2
+family are not ported yet: search_beam and search_block raise
+NotImplementedError when asked for either.
 
 Artifacts written to the results directory have the JAX package's
 names and formats:
@@ -35,23 +38,31 @@ names and formats:
   <base>_DM*.inf                 per-DM series metadata (tarred)
   <base>_sp.npz                  all single-pulse events
   header.json                    beam header record
+  <base>_cand{k}.png             fold plot of candidate k (make_plots)
+  <base>_singlepulse_DMs*.png    single-pulse plots (make_plots)
   search_params.txt              config provenance (python-literal)
   <base>.report                  per-stage timing breakdown
+  metrics.json                   the metrics registry's delta over
+                                 this beam (obs/metrics.py)
+  <base>_trace.json              Chrome trace of the beam
+                                 (TPULSAR_TRACE=1; obs/trace.py)
   <base>_*.tgz                   result-class tarballs
-The JAX package's metrics.json and trace file belong to its
-observability layer and are not written here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
+import json
 import os
 import tarfile
+import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tpulsar_torch import checkpoint as ckpt_mod
 from tpulsar_torch import resolve_device
 from tpulsar_torch.io import accelcands, datafile
 from tpulsar_torch.kernels import accel as accel_k
@@ -60,6 +71,8 @@ from tpulsar_torch.kernels import fold as fold_k
 from tpulsar_torch.kernels import fourier as fr
 from tpulsar_torch.kernels import rfi as rfi_k
 from tpulsar_torch.kernels import singlepulse as sp_k
+from tpulsar_torch.obs import telemetry
+from tpulsar_torch.obs import trace as trace_mod
 from tpulsar_torch.plan import ddplan
 from tpulsar_torch.search import degraded, sifting
 from tpulsar_torch.search.report import StageTimers
@@ -126,6 +139,31 @@ class SearchParams:
         base.update(kw)
         return cls(**base)
 
+    @classmethod
+    def from_config(cls, searching) -> "SearchParams":
+        """Build from a SearchingConfig domain (config/), so a queued
+        beam job honours the operator's searching settings — the JAX
+        package's mapping, field for field."""
+        return cls(
+            nsub=searching.nsub,
+            lo_accel_numharm=searching.lo_accel_numharm,
+            lo_accel_zmax=searching.lo_accel_zmax,
+            hi_accel_numharm=searching.hi_accel_numharm,
+            hi_accel_zmax=searching.hi_accel_zmax,
+            run_hi_accel=searching.use_hi_accel
+            and searching.hi_accel_zmax > 0,
+            sp_threshold=searching.singlepulse_threshold,
+            sifting=sifting.SiftParams(
+                sigma_threshold=searching.sifting_sigma_threshold,
+                r_err=searching.sifting_r_err,
+                min_num_dms=searching.sifting_min_num_dms,
+                low_dm_cutoff=searching.sifting_low_dm_cutoff),
+            to_prepfold_sigma=searching.to_prepfold_sigma,
+            max_cands_to_fold=searching.max_cands_to_fold,
+            low_T_to_search_s=searching.low_T_to_search,
+            dm_min=searching.dm_min,
+            dm_max=searching.dm_max)
+
 
 class TooShortToSearchError(ValueError):
     """Observation below the low_T_to_search threshold."""
@@ -144,15 +182,10 @@ class SearchOutcome:
     refined_dms: list[float] = dataclasses.field(default_factory=list)
 
 
-def check_supported(params: SearchParams, checkpoint_dir=None,
-                    mesh=None) -> None:
+def check_supported(params: SearchParams, mesh=None) -> None:
     """Refuse, by name, every option that belongs to a later slice of
     the port."""
     later = []
-    if params.make_plots:
-        later.append("plots (make_plots)")
-    if checkpoint_dir:
-        later.append("checkpoint/resume (checkpoint_dir)")
     if mesh is not None:
         later.append("the multi-device mesh (mesh)")
     if ddplan.dedisp_family_override() == "tree":
@@ -170,6 +203,7 @@ def search_beam(fns: list[str], workdir: str, resultsdir: str,
                 plan: list[ddplan.DedispStep] | None = None,
                 baryv: float | None = None,
                 checkpoint_dir: str | None = None,
+                checkpoint_journal=None,
                 mesh=None, device=None) -> SearchOutcome:
     """Search one beam end-to-end and write the results directory.
 
@@ -178,29 +212,55 @@ def search_beam(fns: list[str], workdir: str, resultsdir: str,
     the kernels then run).
 
     baryv: average barycentric velocity (v/c) of the observation; None
-    computes it from the beam header, 0.0 disables the correction."""
+    computes it from the beam header, 0.0 disables the correction.
+
+    checkpoint_dir: pass-level crash resume (checkpoint/) — the RFI
+    mask, every DDplan pass's partials, the sifted list and each
+    folded candidate are durably checkpointed with sha256 manifest
+    entries, and a re-entered search verifies the manifest and
+    recomputes only what is missing or corrupt.  checkpoint_journal:
+    optional ``callable(event, **extra)`` that receives the
+    ``resume`` / ``pass_complete`` / ``checkpoint_invalid`` /
+    ``checkpoint_disabled`` events."""
     params = params or SearchParams()
-    check_supported(params, checkpoint_dir, mesh)
+    check_supported(params, mesh)
     dev = resolve_device(device)
+    if trace_mod.enabled():
+        # one trace file per beam: its rollup matches THIS beam's
+        # .report, not every beam this process searched
+        trace_mod.start(clear=True)
+    # metrics.json is the registry's DELTA over this beam
+    metrics_base = telemetry.metrics.REGISTRY.snapshot()
     os.makedirs(workdir, exist_ok=True)
     os.makedirs(resultsdir, exist_ok=True)
 
-    obj, si, basenm, plan, nsub, baryv = _beam_geometry(
+    obj, si, basenm, plan, nsub, baryv, data_id = _beam_geometry(
         fns, params, plan, baryv)
     timers = StageTimers()
-    data, mask = _read_and_mask(si, params, basenm, resultsdir, timers,
-                                dev)
+    store = None
+    if checkpoint_dir:
+        # opened here (not in search_block) so the RFI mask and the
+        # fold artifacts checkpoint too, not just the pass loop
+        store = _open_checkpoint(
+            checkpoint_dir,
+            _ckpt_fingerprint(plan, params, zaplist, baryv, nsub,
+                              data_id=data_id),
+            checkpoint_journal)
+    data, mask = _read_and_mask(si, params, basenm, resultsdir, store,
+                                timers, dev)
     res = _search_block(data, si.freqs, si.dt, plan, params, zaplist,
-                        baryv, nsub, timers, dev)
+                        baryv, nsub, timers, store, None, dev)
     return _finalize_results(
         resultsdir, basenm, obj, si, plan, params, zaplist, baryv,
-        data, mask, res, timers)
+        data, mask, res, timers, metrics_base)
 
 
 def _beam_geometry(fns, params, plan, baryv):
     """Header-derived per-beam facts needed before any device work:
-    the data object, the DDplan, the effective nsub and the
-    barycentric velocity."""
+    the data object, the DDplan, the effective nsub, the barycentric
+    velocity, and the checkpoint data_id (file names/sizes/MJD + block
+    shape, as the JAX package spells it — another beam's dumps must
+    never be resumed)."""
     obj = datafile.autogen_dataobj(fns)
     si = obj.specinfo
     if baryv is None:
@@ -218,21 +278,32 @@ def _beam_geometry(fns, params, plan, baryv):
             si, lodm=params.dm_min,
             hidm=params.dm_max if params.dm_max > 0 else 1000.0,
             numsub=params.nsub)
-    return obj, si, basenm, plan, nsub, baryv
+    shape_id = (f"({si.num_channels}, {int(si.N)})|{si.dt!r}|"
+                f"{si.freqs[0]!r}|{si.freqs[-1]!r}")
+    data_id = ";".join(
+        f"{os.path.basename(fn)}:{os.path.getsize(fn)}" for fn in
+        sorted(fns)) + f"|mjd={float(si.start_MJD[0])!r}" \
+        + "|" + shape_id
+    return obj, si, basenm, plan, nsub, baryv, data_id
 
 
-def _fence(dev: torch.device) -> None:
+def _fence(dev: torch.device, *outputs) -> None:
     """Wait for the device, so that a stage timer holds the device
-    work its scope enqueued (kernels launch asynchronously)."""
+    work its scope enqueued (kernels launch asynchronously); with
+    TPULSAR_TRACE_SYNC=1 the trace also marks the enclosing span as
+    device-attributed (obs/trace.fence)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    trace_mod.fence(*outputs)
 
 
-def _read_and_mask(si, params, basenm, resultsdir, timers, dev):
+def _read_and_mask(si, params, basenm, resultsdir, store, timers, dev):
     """Read the beam block, move it to the device channel-major in its
-    native dtype, find and apply the RFI mask.  Returns the masked
-    (nchan, T) tensor and the RFIMask; the mask artifact lands in
-    resultsdir."""
+    native dtype, find and apply the RFI mask (checkpoint-aware).
+    Returns the masked (nchan, T) tensor and the RFIMask.  The mask
+    artifact lands in resultsdir and, when a store is open, in the
+    checkpoint manifest, so a resumed beam rewrites the byte-identical
+    mask file without recomputing it."""
     f32_bytes = int(si.N) * si.num_channels * 4
     quantize = (params.block_quantize == "on"
                 or (params.block_quantize == "auto"
@@ -249,23 +320,36 @@ def _read_and_mask(si, params, basenm, resultsdir, timers, dev):
         data = torch.from_numpy(block).to(dev).T.contiguous()
         del block
         mask_path = os.path.join(resultsdir, f"{basenm}_rfifind.npz")
-        mask = rfi_k.find_rfi_chan(data, si.dt,
-                                   block_len=params.rfifind_blocklen,
-                                   threshold=params.rfi_threshold)
-        # the quantization affine travels with the mask (chan_fill is
-        # in quantized units when it is present)
-        mask.save(mask_path, qscale=qscale, qoff=qoff)
+        payload = store.load("rfi_mask") if store is not None else None
+        if payload is not None:
+            # resume: the verified checkpoint payload IS the output
+            # artifact — byte-identical mask file, no recompute
+            with open(mask_path, "wb") as fh:
+                fh.write(payload)
+            mask = rfi_k.RFIMask.load(mask_path)
+        else:
+            mask = rfi_k.find_rfi_chan(data, si.dt,
+                                       block_len=params.rfifind_blocklen,
+                                       threshold=params.rfi_threshold)
+            # the quantization affine travels with the mask (chan_fill
+            # is in quantized units when it is present)
+            mask.save(mask_path, qscale=qscale, qoff=qoff)
+            if store is not None:
+                with open(mask_path, "rb") as fh:
+                    store.save("rfi_mask", fh.read(), kind="stage",
+                               ext=".npz")
         data = rfi_k.apply_mask_chan(data, mask.full_mask(),
                                      mask.chan_fill, mask.block_len)
-        _fence(dev)
+        _fence(dev, data)
     return data, mask
 
 
 def _finalize_results(resultsdir, basenm, obj, si, plan, params,
                       zaplist, baryv, data, mask, res: "_BlockResult",
-                      timers) -> SearchOutcome:
-    """Write the per-beam results directory (artifacts, provenance,
-    report, tarballs) and build the SearchOutcome."""
+                      timers, metrics_base) -> SearchOutcome:
+    """Write the per-beam results directory (artifacts, plots,
+    provenance, report, telemetry delta, tarballs) and build the
+    SearchOutcome."""
     final, folded, sp_events, num_trials = res[:4]
     accelcands.write_candlist(
         final, os.path.join(resultsdir, f"{basenm}.accelcands"),
@@ -291,6 +375,20 @@ def _finalize_results(resultsdir, basenm, obj, si, plan, params,
             reduced_chi2=fres.reduced_chi2)
         with open(stem + ".bestprof", "w") as fh:
             fh.write(fres.bestprof_text(si.source))
+
+    if params.make_plots:
+        with timers.timing("plotting"):
+            from tpulsar_torch.search import plots
+            for i, fres in enumerate(folded):
+                plots.prepfold_plot(
+                    fres,
+                    os.path.join(resultsdir, f"{basenm}_cand{i+1}.png"),
+                    source=si.source,
+                    extra_title=f"{basenm} cand {i+1}")
+            plots.single_pulse_plots(
+                sp_events, resultsdir, basenm,
+                t_obs=data.shape[1] * si.dt)
+
     _write_header_json(resultsdir, obj)
     deg = degraded.snapshot()
     resc = degraded.provenance_snapshot()
@@ -299,6 +397,15 @@ def _finalize_results(resultsdir, basenm, obj, si, plan, params,
                          rescued_modes=resc)
     timers.write_report(os.path.join(resultsdir, f"{basenm}.report"),
                         basenm, degraded=deg, rescued=resc)
+    # telemetry artifacts ride with the beam: the Chrome-trace file
+    # (TPULSAR_TRACE=1) and the per-beam metrics delta
+    if trace_mod.enabled():
+        trace_mod.save(os.path.join(resultsdir,
+                                    f"{basenm}_trace.json"))
+    mdelta = telemetry.metrics.diff_snapshots(
+        telemetry.metrics.REGISTRY.snapshot(), metrics_base)
+    with open(os.path.join(resultsdir, "metrics.json"), "w") as fh:
+        json.dump(mdelta, fh, indent=1)
     _tar_result_classes(resultsdir, basenm)
     return SearchOutcome(basenm=basenm, resultsdir=resultsdir,
                          candidates=final, folded=folded,
@@ -338,17 +445,45 @@ def search_block(data, freqs: np.ndarray, dt: float,
                  nsub: int | None = None,
                  timers: StageTimers | None = None,
                  checkpoint_dir: str | None = None,
+                 data_id: str = "",
+                 checkpoint_journal=None,
+                 progress_cb=None,
                  mesh=None, device=None):
     """Run the plan loop, sifting, refinement and folding on an
     in-memory (nchan, T) block (uint8 or float32; a numpy array or a
     tensor, moved to `device`).
 
+    checkpoint_dir: when set, per-pass candidate dumps (plus the
+    sifted list and each folded candidate) are written there as
+    sha256-manifested artifacts (checkpoint/) and completed work is
+    verified and skipped on re-entry.  data_id identifies the input
+    beam; it is folded into the checkpoint fingerprint with the
+    block's shape, so another beam's dumps in the same directory are
+    never resumed.  checkpoint_journal: see search_beam.
+
+    progress_cb: optional callable(dict) invoked after every completed
+    dedispersion pass with {pass_idx, npasses, step_idx, ntrials_done,
+    ncands, stage_s}.
+
     Returns (candidates, folded, sp_events, num_dm_trials): folded[k]
     is the fold of candidates[k]."""
     params = params or SearchParams()
-    check_supported(params, checkpoint_dir, mesh)
+    check_supported(params, mesh)
+    dev = resolve_device(device)
+    nchan = data.shape[0]
+    nsub = nsub or (params.nsub if nchan % params.nsub == 0
+                    else ddplan.largest_divisor_leq(nchan, params.nsub))
+    store = None
+    if checkpoint_dir:
+        shape_id = (f"{tuple(data.shape)}|{dt!r}|{freqs[0]!r}|"
+                    f"{freqs[-1]!r}")
+        store = _open_checkpoint(
+            checkpoint_dir,
+            _ckpt_fingerprint(plan, params, zaplist, baryv, nsub,
+                              data_id=data_id + "|" + shape_id),
+            checkpoint_journal)
     res = _search_block(data, freqs, dt, plan, params, zaplist, baryv,
-                        nsub, timers, resolve_device(device))
+                        nsub, timers, store, progress_cb, dev)
     return res.final, res.folded, res.sp_events, res.num_trials
 
 
@@ -361,78 +496,116 @@ class _BlockResult(NamedTuple):
 
 
 def _search_block(data, freqs, dt, plan, params, zaplist, baryv, nsub,
-                  timers, dev) -> _BlockResult:
-    """search_block's body, on a checked configuration and device."""
+                  timers, store, progress_cb, dev) -> _BlockResult:
+    """search_block's body, on a checked configuration and device,
+    under the trace's search_block root span."""
     timers = timers or StageTimers()
     degraded.reset()
+    with trace_mod.span("search_block",
+                        npasses=sum(s.numpasses for s in plan)):
+        return _search_block_inner(data, freqs, dt, plan, params,
+                                   zaplist, baryv, nsub, timers, store,
+                                   progress_cb, dev)
+
+
+def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
+                        nsub, timers, store, progress_cb,
+                        dev) -> _BlockResult:
     if not isinstance(data, torch.Tensor):
         data = torch.from_numpy(np.ascontiguousarray(data))
     data = data.to(dev).contiguous()
-    nchan = data.shape[0]
-    nsub = nsub or (params.nsub if nchan % params.nsub == 0
-                    else ddplan.largest_divisor_leq(nchan, params.nsub))
 
     all_cands: list[sifting.Candidate] = []
     sp_chunks: list[np.ndarray] = []
     num_trials = 0
     stages = tuple(fr.harmonic_stages(params.lo_accel_numharm))
-    for step in plan:
+    npasses = sum(s.numpasses for s in plan)
+    pass_idx = -1
+    # a verified 'sifted' artifact short-circuits the whole plan loop
+    # (and sifting and refinement): the crash being resumed happened
+    # during folding, and every pass's science is already inside it
+    sifted_state = (_load_decoded(store, "sifted", _decode_sifted)
+                    if store is not None else None)
+    for step_idx, step in enumerate(plan):
+        if sifted_state is not None:
+            break
         for ppass in step.passes():
+            pass_idx += 1
+            if store is not None:
+                done = _load_decoded(store, f"pass_{pass_idx:04d}",
+                                     _decode_pass)
+                if done is not None:
+                    cands, events, ntr = done
+                    all_cands.extend(cands)
+                    if len(events):
+                        sp_chunks.append(events)
+                    num_trials += ntr
+                    continue
+            pass_cands_start = len(all_cands)
+            pass_sp_start = len(sp_chunks)
+            pass_trials_start = num_trials
             with timers.timing("subbanding"):
                 chan_shifts, sub_shifts = dd.plan_pass_shifts(
                     freqs, nsub, ppass.subdm, np.asarray(ppass.dms),
                     dt, step.downsamp)
                 subb = dd.form_subbands(data, chan_shifts, nsub,
                                         step.downsamp)
-                _fence(dev)
+                _fence(dev, subb)
             dt_ds = dt * step.downsamp
             dms = np.asarray(ppass.dms)
             chunk_sz = pass_chunk_size(
                 len(dms), ddplan.choose_n(subb.shape[1]), params)
+            t_dd0 = timers.times.get("dedispersing", 0.0)
             # top-k-sized device outputs are held to one host transfer
             # per pass; event and candidate order is chunk order
             pending: list[tuple] = []
             for lo in range(0, len(dms), chunk_sz):
                 dm_chunk = dms[lo: lo + chunk_sz]
-                with timers.timing("dedispersing"):
-                    series = dd.dedisperse_subbands(
-                        subb, sub_shifts[lo: lo + len(dm_chunk)])
-                    _fence(dev)
-                num_trials += len(dm_chunk)
-                # FFT-friendly padded length (reference: PRESTO
-                # choose_N via prepsubband -numout)
-                nfft = ddplan.choose_n(series.shape[1])
-                T_s = nfft * dt_ds
-                with timers.timing("single-pulse"):
-                    sp_pair = sp_k.device_search(
-                        series, tuple(params.sp_widths),
-                        estimator=params.sp_detrend)
-                    _fence(dev)
-                with timers.timing("FFT"):
-                    nbins = nfft // 2 + 1
-                    keep = fr.zap_mask(nbins, T_s, zaplist, baryv) \
-                        if zaplist is not None else None
-                    wspec = (fr.whitened_spectrum_masked(series, keep,
-                                                         nfft=nfft)
-                             if keep is not None else
-                             fr.whitened_spectrum(series, nfft=nfft))
-                    del series
-                    _fence(dev)
-                with timers.timing("lo-accelsearch"):
-                    # half-bin detection grid (interbinning): bin
-                    # indices are half-bin units, hence bin_scale=0.5
-                    res = fr.lo_stage_candidates(
-                        wspec, stages, params.topk_per_stage)
-                    _fence(dev)
-                hi_cands: list = []
-                if params.run_hi_accel and params.hi_accel_zmax > 0:
-                    with timers.timing("hi-accelsearch"):
-                        # ends in its own host transfer: no fence
-                        hi_cands = _hi_accel_pass(wspec, dm_chunk, T_s,
-                                                  params)
-                del wspec
-                pending.append((dm_chunk, T_s, nbins, sp_pair, res,
-                                hi_cands))
+                # per-chunk child span: the stage scopes below nest
+                # under it, so the trace shows the pass/chunk structure
+                with trace_mod.span("dm_chunk", pass_idx=pass_idx,
+                                    lo=int(lo), n=int(len(dm_chunk)),
+                                    family="direct"):
+                    with timers.timing("dedispersing"):
+                        series = dd.dedisperse_subbands(
+                            subb, sub_shifts[lo: lo + len(dm_chunk)])
+                        _fence(dev, series)
+                    num_trials += len(dm_chunk)
+                    # FFT-friendly padded length (reference: PRESTO
+                    # choose_N via prepsubband -numout)
+                    nfft = ddplan.choose_n(series.shape[1])
+                    T_s = nfft * dt_ds
+                    with timers.timing("single-pulse"):
+                        sp_pair = sp_k.device_search(
+                            series, tuple(params.sp_widths),
+                            estimator=params.sp_detrend)
+                        _fence(dev, sp_pair)
+                    with timers.timing("FFT"):
+                        nbins = nfft // 2 + 1
+                        keep = fr.zap_mask(nbins, T_s, zaplist, baryv) \
+                            if zaplist is not None else None
+                        wspec = (fr.whitened_spectrum_masked(
+                                     series, keep, nfft=nfft)
+                                 if keep is not None else
+                                 fr.whitened_spectrum(series, nfft=nfft))
+                        del series
+                        _fence(dev, wspec)
+                    with timers.timing("lo-accelsearch"):
+                        # half-bin detection grid (interbinning): bin
+                        # indices are half-bin units, hence
+                        # bin_scale=0.5
+                        res = fr.lo_stage_candidates(
+                            wspec, stages, params.topk_per_stage)
+                        _fence(dev, res)
+                    hi_cands: list = []
+                    if params.run_hi_accel and params.hi_accel_zmax > 0:
+                        with timers.timing("hi-accelsearch"):
+                            # ends in its own host transfer: no fence
+                            hi_cands = _hi_accel_pass(wspec, dm_chunk,
+                                                      T_s, params)
+                    del wspec
+                    pending.append((dm_chunk, T_s, nbins, sp_pair, res,
+                                    hi_cands))
 
             with timers.timing("pipeline-drain"):
                 sp_host = [(s.cpu().numpy(), i.cpu().numpy())
@@ -456,66 +629,116 @@ def _search_block(data, freqs, dt, plan, params, zaplist, baryv, nsub,
                         bin_scale=0.5))
                 all_cands.extend(hi_cands)
             del pending, subb
+            # per-family throughput instruments (this package runs the
+            # direct family only)
+            telemetry.dedisp_trials_total().inc(len(dms), family="direct")
+            telemetry.dedisp_stage_seconds().observe(
+                timers.times.get("dedispersing", 0.0) - t_dd0,
+                family="direct")
+            if store is not None:
+                ntr_pass = num_trials - pass_trials_start
+                durable = store.save(
+                    f"pass_{pass_idx:04d}",
+                    _encode_pass(
+                        all_cands[pass_cands_start:],
+                        (np.concatenate(sp_chunks[pass_sp_start:])
+                         if len(sp_chunks) > pass_sp_start
+                         else _EMPTY_SP),
+                        ntr_pass),
+                    kind="pass", ext=".npz", pass_idx=pass_idx)
+                if durable:
+                    # journaled ONLY once the artifact is durable: a
+                    # consumer reads this event as "never recompute
+                    # pass k again"
+                    store.journal("pass_complete", pass_idx=pass_idx,
+                                  npasses=npasses, ntrials=ntr_pass)
+            telemetry.passes_total().inc()
+            telemetry.dm_trials_total().inc(len(dms))
+            if progress_cb is not None:
+                progress_cb({
+                    "pass_idx": pass_idx + 1, "npasses": npasses,
+                    "step_idx": step_idx, "ntrials_done": num_trials,
+                    "ncands": len(all_cands),
+                    "stage_s": {k: round(v, 2)
+                                for k, v in timers.times.items() if v},
+                })
 
     return _sift_fold_finish(data, freqs, dt, params, zaplist, baryv,
-                             nsub, timers, all_cands, sp_chunks,
-                             num_trials, plan)
+                             nsub, timers, store, all_cands, sp_chunks,
+                             num_trials, sifted_state, plan)
 
 
 def _sift_fold_finish(data, freqs, dt, params, zaplist, baryv, nsub,
-                      timers, all_cands, sp_chunks, num_trials,
-                      plan) -> _BlockResult:
-    """Everything after the plan loop: sift, refine, fold."""
+                      timers, store, all_cands, sp_chunks, num_trials,
+                      sifted_state, plan) -> _BlockResult:
+    """Everything after the plan loop: sift, refine, checkpoint the
+    sifted list, fold (checkpoint-aware)."""
     nfft_full = ddplan.choose_n(data.shape[1])
     T_s_full = nfft_full * dt
     _series_for = _BoundedCache(
         lambda dm: _dedisperse_single(data, freqs, nsub, dm, dt))
-    with timers.timing("sifting"):
-        final = sifting.sift(all_cands, params.sifting)
-    sp_events = (np.concatenate(sp_chunks) if sp_chunks else _EMPTY_SP)
-    # one bin scale for the reported r column: candidates of different
-    # passes carry pass-local (downsampled, padded) bin units
-    for c in final:
-        c.r = c.freq_hz * T_s_full
-
-    # sub-bin refinement of the fold-worthy candidates (PRESTO's
-    # harmpolish): each (r, z) optimized on a full-resolution series
-    # for its DM, its sigma recomputed from the refined power
-    to_refine = [c for c in final
-                 if c.sigma >= params.to_prepfold_sigma]
-    to_refine = to_refine[: params.max_cands_to_fold]
     by_dm: dict[float, list] = {}
-    if params.refine_cands and to_refine:
-        from tpulsar_torch.search import refine
+    if sifted_state is not None:
+        # resumed past every pass AND past sift/refine: the verified
+        # artifact carries the refined, sigma-sorted list (plus the SP
+        # events and the trial count) as the original attempt computed
+        # them — the crash happened during folding
+        final, sp_events, num_trials = sifted_state
+    else:
+        with timers.timing("sifting"):
+            final = sifting.sift(all_cands, params.sifting)
+        sp_events = (np.concatenate(sp_chunks) if sp_chunks
+                     else _EMPTY_SP)
+        # one bin scale for the reported r column: candidates of
+        # different passes carry pass-local (downsampled, padded) bin
+        # units
+        for c in final:
+            c.r = c.freq_hz * T_s_full
 
-        with timers.timing("refinement"):
-            # lo/hi identity by DETECTION z: refinement perturbs z off
-            # exact zero, which must not move a lo candidate onto the
-            # hi search's nz-times-larger trial count
-            was_hi = {id(c): abs(c.z) >= accel_k.DZ / 2
-                      for c in to_refine}
-            keep_full = fr.zap_mask(nfft_full // 2 + 1, T_s_full,
-                                    zaplist, baryv) \
-                if zaplist is not None else None
-            for c in to_refine:
-                by_dm.setdefault(c.dm, []).append(c)
-            for dm, group in by_dm.items():
-                refine.refine_candidates(
-                    group, {dm: _series_for(dm)}, dt, nfft_full,
-                    keep_mask=keep_full)
-            nz_hi = (len(_get_bank(params.hi_accel_zmax).zs)
-                     if params.run_hi_accel and params.hi_accel_zmax > 0
-                     else 1)
-            nbins_full = nfft_full // 2 + 1
-            for c in to_refine:
-                # trial count approximated with the full-resolution bin
-                # count (pass-local counts differ by <= the downsample)
-                nind = max(1, (nbins_full
-                               * (nz_hi if was_hi[id(c)] else 1))
-                           // c.numharm)
-                c.sigma = float(fr.sigma_from_power(
-                    c.power, c.numharm, numindep=nind))
-            final.sort(key=lambda c: -c.sigma)
+        # sub-bin refinement of the fold-worthy candidates (PRESTO's
+        # harmpolish): each (r, z) optimized on a full-resolution
+        # series for its DM, its sigma recomputed from the refined
+        # power
+        to_refine = [c for c in final
+                     if c.sigma >= params.to_prepfold_sigma]
+        to_refine = to_refine[: params.max_cands_to_fold]
+        if params.refine_cands and to_refine:
+            from tpulsar_torch.search import refine
+
+            with timers.timing("refinement"):
+                # lo/hi identity by DETECTION z: refinement perturbs z
+                # off exact zero, which must not move a lo candidate
+                # onto the hi search's nz-times-larger trial count
+                was_hi = {id(c): abs(c.z) >= accel_k.DZ / 2
+                          for c in to_refine}
+                keep_full = fr.zap_mask(nfft_full // 2 + 1, T_s_full,
+                                        zaplist, baryv) \
+                    if zaplist is not None else None
+                for c in to_refine:
+                    by_dm.setdefault(c.dm, []).append(c)
+                for dm, group in by_dm.items():
+                    refine.refine_candidates(
+                        group, {dm: _series_for(dm)}, dt, nfft_full,
+                        keep_mask=keep_full)
+                nz_hi = (len(_get_bank(params.hi_accel_zmax).zs)
+                         if params.run_hi_accel
+                         and params.hi_accel_zmax > 0
+                         else 1)
+                nbins_full = nfft_full // 2 + 1
+                for c in to_refine:
+                    # trial count approximated with the full-resolution
+                    # bin count (pass-local counts differ by <= the
+                    # downsample)
+                    nind = max(1, (nbins_full
+                                   * (nz_hi if was_hi[id(c)] else 1))
+                               // c.numharm)
+                    c.sigma = float(fr.sigma_from_power(
+                        c.power, c.numharm, numindep=nind))
+                final.sort(key=lambda c: -c.sigma)
+        if store is not None:
+            store.save("sifted",
+                       _encode_sifted(final, sp_events, num_trials),
+                       kind="stage", ext=".npz")
 
     # fold the top of the (re-ranked) list: final is sigma-descending
     # and the fold set is its >= threshold prefix, so folded[k] is the
@@ -525,34 +748,48 @@ def _sift_fold_finish(data, freqs, dt, params, zaplist, baryv, nsub,
     to_fold = to_fold[: params.max_cands_to_fold]
     with timers.timing("folding"):
         folded = _fold(data, freqs, dt, params, nsub, plan, to_fold,
-                       _series_for)
+                       _series_for, store)
     return _BlockResult(final, folded, sp_events, num_trials,
                         list(by_dm))
 
 
-def _fold(data, freqs, dt, params, nsub, plan, to_fold,
-          series_for) -> list:
+def _fold(data, freqs, dt, params, nsub, plan, to_fold, series_for,
+          store) -> list:
     """Fold each candidate of to_fold, in order: by default from its
     originating pass's subbands, one batch per period tier
     (fold_by_rules and fold_batched); else per DM from subbands formed
-    at that DM (fold_by_rules) or from its full-resolution series."""
+    at that DM (fold_by_rules) or from its full-resolution series.
+    Verified fold_NNNN artifacts are reused and each new fold is
+    saved."""
     if not to_fold:
         return []
+    folded = _load_folds(store, to_fold)
+
+    def _save_fold(k: int) -> None:
+        if store is not None:
+            store.save(f"fold_{k:04d}",
+                       _encode_fold(folded[k], to_fold[k]),
+                       kind="fold", ext=".npz", cand=k)
+
+    missing = [k for k in range(len(to_fold)) if k not in folded]
     if params.fold_by_rules and params.fold_batched:
         from tpulsar_torch.kernels import fold_batch as fbk
 
-        by_k = fbk.fold_candidates_by_pass(
-            data, freqs, dt, plan,
-            [(k, c.period_s, c.dm) for k, c in enumerate(to_fold)],
-            nsub, dd.form_subbands)
-        return [by_k[k] for k in range(len(to_fold))]
+        if missing:
+            folded.update(fbk.fold_candidates_by_pass(
+                data, freqs, dt, plan,
+                [(k, to_fold[k].period_s, to_fold[k].dm)
+                 for k in missing],
+                nsub, dd.form_subbands))
+            for k in missing:
+                _save_fold(k)
+        return [folded[k] for k in range(len(to_fold))]
 
-    folded: dict[int, fold_k.FoldResult] = {}
     # group by DM so each DM's subband block is formed once even when
     # same-DM candidates interleave in the sigma ordering
     groups: dict[float, list[int]] = {}
-    for k, c in enumerate(to_fold):
-        groups.setdefault(c.dm, []).append(k)
+    for k in missing:
+        groups.setdefault(to_fold[k].dm, []).append(k)
     for dm, idxs in groups.items():
         if params.fold_by_rules:
             # fold from subbands so the DM axis is a per-subband phase
@@ -567,6 +804,7 @@ def _fold(data, freqs, dt, params, nsub, plan, to_fold,
                     subb, subrefs, dt, c.period_s, dm=dm,
                     rules=fold_k.fold_rules(c.period_s),
                     sub_shifts_dm0=sub_sh[0])
+                _save_fold(k)
             del subb
         else:
             for k in idxs:
@@ -574,7 +812,35 @@ def _fold(data, freqs, dt, params, nsub, plan, to_fold,
                 folded[k] = fold_k.fold_and_optimize(
                     series_for(c.dm), dt, c.period_s, dm=c.dm,
                     nbin=params.fold_nbin, npart=params.fold_npart)
+                _save_fold(k)
     return [folded[k] for k in range(len(to_fold))]
+
+
+def _load_folds(store, to_fold) -> dict[int, fold_k.FoldResult]:
+    """The verified fold artifacts of to_fold, by position.  Each
+    carries its candidate's (input period, dm) identity: when the
+    sifted list was regenerated since the folds were written, position
+    k may name a different candidate, and a sha-valid fold is then
+    discarded, never attributed to it."""
+    out: dict[int, fold_k.FoldResult] = {}
+    if store is None:
+        return out
+    for k in range(len(to_fold)):
+        payload = store.load(f"fold_{k:04d}")
+        if payload is None:
+            continue
+        dec = _decode_fold(payload)
+        if dec is None:
+            store.discard(f"fold_{k:04d}", reason="undecodable payload")
+            continue
+        res, ident = dec
+        if ident != (to_fold[k].period_s, to_fold[k].dm):
+            store.discard(f"fold_{k:04d}",
+                          reason="candidate identity mismatch "
+                                 "(sifted list regenerated)")
+            continue
+        out[k] = res
+    return out
 
 
 class _BoundedCache:
@@ -651,6 +917,158 @@ def _hi_sigma_fn(nbins: int, nz: int):
 
 
 _EMPTY_SP = np.empty(0, dtype=sp_k.SP_EVENT_DTYPE)
+
+_CAND_FIELDS = ("r", "z", "sigma", "power", "numharm", "dm",
+                "period_s", "freq_hz")
+
+
+def _ckpt_fingerprint(plan, params, zaplist, baryv, nsub,
+                      data_id: str = "") -> str:
+    """Configuration + input fingerprint stored with the checkpoints:
+    dumps from a different search configuration OR a different beam
+    must not be resumed.  The JAX package's recipe, byte for byte: the
+    same plan, parameters, zaplist, baryv, nsub and data_id give the
+    same fingerprint in both packages."""
+    zap = (np.asarray(zaplist).tobytes() if zaplist is not None
+           else b"none")
+    blob = repr((
+        [(s.lodm, s.dmstep, s.dms_per_pass, s.numpasses, s.numsub,
+          s.downsamp) for s in plan],
+        sorted(params.provenance().items()), baryv, nsub, data_id,
+    )).encode() + zap
+    return ckpt_mod.sha256_bytes(blob)
+
+
+def _open_checkpoint(ckdir: str, fingerprint: str, journal=None):
+    """Open the beam's CheckpointStore and journal the ``resume``
+    event when it holds prior artifacts — the record that this attempt
+    started from saved work."""
+    store = ckpt_mod.CheckpointStore(
+        ckdir, fingerprint, journal=journal,
+        warn=lambda msg: warnings.warn(msg, stacklevel=2))
+    ent = store.entries()
+    if ent:
+        store.journal("resume", artifacts=len(ent),
+                      passes_done=len(store.entries(kind="pass")))
+    return store
+
+
+def _npz_bytes(**arrays) -> bytes:
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
+
+
+def _load_decoded(store, key: str, decode):
+    """Verified load + decode.  A payload whose bytes verify but whose
+    layout does not decode is DISCARDED through the store (journaling
+    ``checkpoint_invalid``), so its recompute has its excuse on
+    record."""
+    payload = store.load(key)
+    if payload is None:
+        return None
+    out = decode(payload)
+    if out is None:
+        store.discard(key, reason="undecodable payload")
+    return out
+
+
+def _encode_pass(cands: list[sifting.Candidate], events: np.ndarray,
+                 ntrials: int) -> bytes:
+    """One pass's partials as an npz payload (the JAX package's
+    fields)."""
+    arrs = {f: np.asarray([getattr(c, f) for c in cands])
+            for f in _CAND_FIELDS}
+    return _npz_bytes(events=events, ntrials=np.int64(ntrials), **arrs)
+
+
+def _decode_cands(z) -> list[sifting.Candidate]:
+    """Candidates from a payload's field columns.  Each column is read
+    once: an npz archive decompresses an array on every access, so
+    indexing it per candidate is quadratic in the candidate count
+    (minutes a pass at a full beam's thousands of candidates)."""
+    cols = [[(int if f == "numharm" else float)(v)
+             for v in z[f].tolist()] for f in _CAND_FIELDS]
+    return [sifting.Candidate(**dict(zip(_CAND_FIELDS, row)))
+            for row in zip(*cols)]
+
+
+def _decode_pass(payload: bytes | None):
+    """(cands, events, ntrials) from a verified pass payload, else
+    None (an undecodable payload is recomputed like a missing one)."""
+    if payload is None:
+        return None
+    try:
+        with np.load(io.BytesIO(payload), allow_pickle=False) as z:
+            return _decode_cands(z), z["events"], int(z["ntrials"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def _encode_sifted(final: list[sifting.Candidate],
+                   sp_events: np.ndarray, num_trials: int) -> bytes:
+    """The post-refinement sigma-sorted list WITH each candidate's
+    DM-hit history, plus the beam's SP events and trial count —
+    everything folding and the result writers need."""
+    arrs = {f: np.asarray([getattr(c, f) for c in final])
+            for f in _CAND_FIELDS}
+    hit_counts = np.asarray([len(c.dm_hits) for c in final], np.int64)
+    flat = [pair for c in final for pair in c.dm_hits]
+    hits = (np.asarray(flat, np.float64).reshape(-1, 2) if flat
+            else np.zeros((0, 2), np.float64))
+    return _npz_bytes(events=sp_events, ntrials=np.int64(num_trials),
+                      hit_counts=hit_counts, hits=hits, **arrs)
+
+
+def _decode_sifted(payload: bytes | None):
+    if payload is None:
+        return None
+    try:
+        with np.load(io.BytesIO(payload), allow_pickle=False) as z:
+            cands = _decode_cands(z)
+            hit_counts, hits = z["hit_counts"], z["hits"]
+            if len(hit_counts) != len(cands):
+                return None
+            off = 0
+            for c, k in zip(cands, hit_counts.tolist()):
+                c.dm_hits = [(float(dm), float(sg))
+                             for dm, sg in hits[off:off + k]]
+                off += k
+            return cands, z["events"], int(z["ntrials"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def _encode_fold(res: fold_k.FoldResult,
+                 cand: sifting.Candidate) -> bytes:
+    """A fold result PLUS the identity of the candidate it folded (the
+    sift-time input period/dm): the binding is stored, not derived
+    from the optimized values."""
+    return _npz_bytes(
+        profile=res.profile, subints=res.subints,
+        scalars=np.asarray(
+            [res.period_s, res.pdot, res.dm, res.reduced_chi2,
+             res.delta_p, res.delta_pdot, res.delta_dm], np.float64),
+        geom=np.asarray([res.nbin, res.npart], np.int64),
+        cand_ident=np.asarray([cand.period_s, cand.dm], np.float64))
+
+
+def _decode_fold(payload: bytes | None):
+    """(FoldResult, (input_period_s, input_dm)) or None."""
+    if payload is None:
+        return None
+    try:
+        with np.load(io.BytesIO(payload), allow_pickle=False) as z:
+            s, g, ident = z["scalars"], z["geom"], z["cand_ident"]
+            return fold_k.FoldResult(
+                period_s=float(s[0]), pdot=float(s[1]), dm=float(s[2]),
+                nbin=int(g[0]), npart=int(g[1]), profile=z["profile"],
+                subints=z["subints"], reduced_chi2=float(s[3]),
+                delta_p=float(s[4]), delta_pdot=float(s[5]),
+                delta_dm=float(s[6])), (float(ident[0]),
+                                        float(ident[1]))
+    except (OSError, ValueError, KeyError):
+        return None
 
 
 def _compute_baryv(si) -> float:

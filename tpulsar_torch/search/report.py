@@ -7,15 +7,18 @@ written at the end of the search (write_report, :336-372).  The
 .report format is the JAX package's, byte for byte in layout, so
 results directories from both packages line up.
 
-The span tracer, heartbeat file and metrics histogram that the JAX
-package's StageTimers also feeds belong to its observability layer,
-which this package does not carry yet: here a timer is a wall clock.
+Each timed scope is also one span of the tracer and one observation
+of the tpulsar_stage_seconds histogram (obs/), as in the JAX package.
+Its heartbeat file (TPULSAR_STAGE_HEARTBEAT) belongs to serving and
+comes with it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+
+from tpulsar_torch.obs import telemetry, trace
 
 
 STAGES = ("rfifind", "subbanding", "dedispersing", "single-pulse",
@@ -29,13 +32,19 @@ class StageTimers:
 
     @contextlib.contextmanager
     def timing(self, stage: str):
-        """Accumulate the wall time of one scope into times[stage]."""
+        """One timed scope = one trace span + one histogram observation
+        + the times[] accumulation: a trace-file rollup reproduces the
+        .report totals (the JAX package's contract), and the .report
+        text is unchanged."""
         self.times.setdefault(stage, 0.0)
         start = time.time()
         try:
-            yield
+            with trace.span(stage):
+                yield
         finally:
-            self.times[stage] += time.time() - start
+            end = time.time()
+            self.times[stage] += end - start
+            telemetry.stage_seconds().observe(end - start, stage=stage)
 
     @property
     def total(self) -> float:
