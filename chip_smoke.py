@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from tpulsar_torch/csrc and runs five phases:
+Builds the CUDA kernels from tpulsar_torch/csrc and runs six phases:
 
   1. kernels: each kernel against its plain PyTorch version on the
      card, exact, at every shape of the main path (stage 1 at each
@@ -36,7 +36,23 @@ Builds the CUDA kernels from tpulsar_torch/csrc and runs five phases:
      kernels' launch counts), that every results file equals phase 4's
      (tools/torch_results_diff.py: timing-bearing files by presence,
      .npz by arrays, tarballs by members), that the pulsar is
-     recovered and folded, and that the checkpoint is gone.
+     recovered and folded, and that the checkpoint is gone;
+  6. serve: three tickets written to a spool through the port's
+     serve/protocol.py — the same beam into two output directories and
+     a poisoned ticket (a datafile truncated mid-header) — answered by
+     `python -m tpulsar_torch serve --once` in a subprocess on the card
+     (default device, warm boot on; the smoke's wrapper turns plots
+     off, as in phase 4, and counts the kernels' launches after boot).
+     It checks that the server exits 0, that both beams are done and
+     warm (no compile) and the poisoned one failed in its stage-in,
+     the server's counts, the final 'stopped' heartbeat, each ticket's
+     journal chain, that both results directories equal phase 4's
+     (a resident server leaks no state between beams), the pulsar in
+     both, the candidate index's rows, and that the served beams
+     launched each kernel exactly twice as often as phase 4.
+
+Phases 4-6 search with the zaplist the job picks under the default
+configuration (the packaged default.zaplist), as the server does.
 
 Output: progress lines, then the card's name and power limit, one JSON
 line with every kernel's numbers, and as the last line
@@ -90,6 +106,9 @@ PSR_PERIOD, PSR_DM = 0.25, 50.0
 PARAMS = executor.SearchParams(make_plots=False)
 #: phase 5 resumes the beam at this pass of the 57-pass plan
 K_RESUME = 40
+#: the zaplist of phases 4-6: the one the job (and the server) picks
+#: for a beam under the default configuration
+ZAPLIST = search_job.choose_zaplist(["beam.fits"], None, None)
 
 
 def log(msg: str) -> None:
@@ -648,7 +667,7 @@ def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan) -> dict:
     with CallClock(ckpt.CheckpointStore, "save") as clock:
         out = executor.search_beam(
             fns, os.path.join(tmp, "work"), os.path.join(tmp, "results"),
-            PARAMS, checkpoint_dir=ck4, device="cuda")
+            PARAMS, zaplist=ZAPLIST, checkpoint_dir=ck4, device="cuda")
         torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(cuda_dd.LAUNCHES)
@@ -707,7 +726,7 @@ def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan) -> dict:
         f"{host_ms * len(out.folded) / 1e3:.3f} s)")
     return dict(launches=launches, n1=n1, n2=n2, wall_s=wall,
                 peak_bytes=peak, stages=stages, checkpoint=cost,
-                resultsdir=out.resultsdir, ckdir=ck4)
+                resultsdir=out.resultsdir, ckdir=ck4, basenm=out.basenm)
 
 
 def check_hi_stage(ntrials: int) -> None:
@@ -773,7 +792,7 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
     with CallClock(executor, "_load_decoded") as loads, \
             CallClock(ckpt.CheckpointStore, "save") as saves:
         out = search_job.run_search(fns, os.path.join(tmp, "work5"),
-                                    out5, PARAMS, None, log=log,
+                                    out5, PARAMS, ZAPLIST, log=log,
                                     device="cuda")
         torch.cuda.synchronize()
     wall = time.time() - t0
@@ -834,12 +853,193 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
                 save_s=saves.seconds)
 
 
+#: runs `python -m tpulsar_torch ARGS` (the package as __main__, as -m
+#: does) with plots off, as phase 4 searches (the card's machine has
+#: no matplotlib); resets the kernels' launch counts right after the
+#: server's boot and writes them, with the boot's own, to
+#: $SMOKE_COUNTS at exit
+SERVE_WRAPPER = r"""
+import dataclasses, json, os, runpy, sys
+from tpulsar_torch.kernels import cuda_dd
+from tpulsar_torch.search import executor
+from tpulsar_torch.serve import server
+
+from_config = executor.SearchParams.from_config
+executor.SearchParams.from_config = classmethod(
+    lambda cls, s: dataclasses.replace(from_config(s), make_plots=False))
+counts = {}
+boot = server.SearchServer.boot
+
+
+def counted_boot(self):
+    boot(self)
+    counts["boot"] = dict(cuda_dd.LAUNCHES)
+    counts["boot_seconds"] = self.boot_seconds
+    cuda_dd.reset_counts()
+
+
+server.SearchServer.boot = counted_boot
+sys.argv = ["tpulsar_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("tpulsar_torch", run_name="__main__", alter_sys=True)
+finally:
+    counts["served"] = dict(cuda_dd.LAUNCHES)
+    with open(os.environ["SMOKE_COUNTS"], "w") as fh:
+        json.dump(counts, fh)
+"""
+
+
+def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
+    """Phase 6: the resident server answers three spool tickets (the
+    beam twice, then a poisoned ticket) in a subprocess on the card."""
+    from tpulsar_torch.dataplane import index as dp_index
+    from tpulsar_torch.obs import journal
+    from tpulsar_torch.serve import protocol
+
+    spool = os.path.join(tmp, "spool")
+    outs = {t: os.path.join(tmp, f"served_{t}") for t in ("t0", "t1",
+                                                         "t2")}
+    poison = os.path.join(tmp, "poison", os.path.basename(fns[0]))
+    os.makedirs(os.path.dirname(poison))
+    with open(fns[0], "rb") as src, open(poison, "wb") as dst:
+        dst.write(src.read(1500))         # FITS headers are 2880 bytes
+    for tid, files in (("t0", fns), ("t1", fns), ("t2", [poison])):
+        protocol.write_ticket(spool, tid, files, outs[tid])
+        time.sleep(0.01)                  # FIFO by submission time
+    # the default configuration with every path under tmp (a python
+    # configuration file: the card's machine may have no YAML parser)
+    cfg = os.path.join(tmp, "serve_cfg.py")
+    paths = {"processing": {"base_working_directory": "serve_work",
+                            "base_results_directory": "serve_res"},
+             "basic": {"log_dir": "serve_logs"},
+             "download": {"datadir": "serve_raw"},
+             "background": {"jobtracker_db": "serve_jt.db"},
+             "resultsdb": {"url": "serve_results.db"}}
+    with open(cfg, "w") as fh:
+        for dom, kv in paths.items():
+            fh.write(f"{dom} = " + repr({k: os.path.join(tmp, v)
+                                         for k, v in kv.items()}) + "\n")
+    counts_path = os.path.join(tmp, "serve_counts.json")
+    hb_path = os.path.join(tmp, "stage_heartbeat.json")
+    log_path = os.path.join(tmp, "serve.log")
+    env = dict(os.environ, SMOKE_COUNTS=counts_path,
+               TPULSAR_STAGE_HEARTBEAT=hb_path,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with open(log_path, "w") as logf:
+        rc = subprocess.run(
+            [sys.executable, "-c", SERVE_WRAPPER, "--config", cfg,
+             "serve", "--once", "--spool", spool], env=env,
+            stdout=logf, stderr=subprocess.STDOUT, timeout=900).returncode
+    wall = time.time() - t0
+    with open(log_path) as fh:
+        text = fh.read()
+    for line in text.splitlines():
+        if re.search(r"serve: |boot took|ticket .* -> |stage-in failed|"
+                     r"server stopped|Error|Traceback", line):
+            log(f"  served: {line[:300]}")
+    if rc != 0:
+        raise AssertionError(f"phase 6: the server exited {rc}:\n"
+                             f"{text[-4000:]}")
+    recs = {t: protocol.read_result(spool, t) for t in outs}
+    for t in ("t0", "t1"):
+        r = recs[t]
+        if r is None or r["status"] != "done":
+            raise AssertionError(f"phase 6: {t} not done: {r}")
+        if not r["warm"] or r["compile_misses"] != 0:
+            raise AssertionError(f"phase 6: {t} paid a compile: {r}")
+    bad = recs["t2"]
+    if bad is None or bad["status"] != "failed" \
+            or "stage-in failed" not in bad["error"]:
+        raise AssertionError(f"phase 6: the poisoned ticket: {bad}")
+    hb = protocol.read_heartbeat(spool)
+    if hb["status"] != "stopped" or hb["beams"] != {
+            "done": 2, "failed": 1, "skipped": 0}:
+        raise AssertionError(f"phase 6: final heartbeat {hb}")
+    chains, stages = {}, {}
+    for t in outs:
+        evs = journal.read_events(spool, ticket=t)
+        names = [e["event"] for e in evs]
+        problems = journal.validate_chain(evs)
+        want = (["claimed", "search_start", "result"] if t != "t2"
+                else ["claimed", "stagein_failed", "result"])
+        if problems or [n for n in names if n in want] != want:
+            raise AssertionError(f"phase 6: {t}'s journal chain "
+                                 f"{names}: {problems}")
+        chains[t] = [f"{n} x{names.count(n)}" if names.count(n) > 1
+                     else n for i, n in enumerate(names)
+                     if n not in names[:i]]
+    stagein = {t: next((e.get("seconds") for e in journal.read_events(
+        spool, ticket=t) if e["event"] == "stagein_done"), None)
+        for t in ("t0", "t1")}
+    diff = results_diff().diff_results
+    for a, b in (("t0", "t1"), ("t0", "phase 4"), ("t1", "phase 4")):
+        problems = diff(outs[a], outs[b] if b != "phase 4"
+                        else p4["resultsdir"])
+        if problems:
+            raise AssertionError(f"phase 6: {a}'s results differ from "
+                                 f"{b}'s: " + "; ".join(problems[:10]))
+    log(f"phase 6: t0's, t1's and phase 4's results directories are "
+        f"pairwise equal ({len(os.listdir(outs['t0']))} files)")
+    for t in ("t0", "t1"):
+        check_pulsar(outs[t], p4["basenm"], f"phase 6 {t}")
+        stages[t] = report_stages(os.path.join(
+            outs[t], f"{p4['basenm']}.report"))
+    idx = dp_index.CandidateIndex(dp_index.index_path(spool))
+    for t in ("t0", "t1"):
+        rows = idx.candidate_rows(t)
+        if not rows or rows != dp_index.candidate_rows(outs[t]):
+            raise AssertionError(f"phase 6: {t}'s index rows do not "
+                                 f"match its .accelcands")
+    if idx.tickets() != ["t0", "t1"]:
+        raise AssertionError(f"phase 6: index tickets {idx.tickets()}")
+    with open(counts_path) as fh:
+        counts = json.load(fh)
+    served = counts["served"]
+    if served != {k: 2 * v for k, v in p4["launches"].items()}:
+        raise AssertionError(f"phase 6: served launches {served} != "
+                             f"twice phase 4's {p4['launches']}")
+    with open(hb_path) as fh:
+        beat = json.load(fh)
+    log(f"phase 6: boot {counts['boot_seconds']:.3f} s (boot launches "
+        f"{counts['boot']}); beam_seconds t0 {recs['t0']['beam_seconds']:.3f}"
+        f" s, t1 {recs['t1']['beam_seconds']:.3f} s (phase 4 search_beam "
+        f"{p4['wall_s']:.3f} s); stage-in t0 {stagein['t0']} s, t1 "
+        f"{stagein['t1']} s; t2 {recs['t2']['beam_seconds']:.3f} s; "
+        f"server process {wall:.3f} s")
+    log(f"phase 6: served launches {served} (twice phase 4's); "
+        f"journal chains {json.dumps(chains)}")
+    log(f"phase 6: the stage heartbeat's last record: {json.dumps(beat)}")
+    log("phase 6 stage seconds (each beam's .report), t0 / t1 / phase "
+        "4: " + json.dumps({k: [v, stages["t1"].get(k),
+                                round(p4["stages"].get(k, 0.0), 2)]
+                            for k, v in stages["t0"].items()}))
+    return dict(launches=served, boot=counts["boot"],
+                boot_s=counts["boot_seconds"], wall_s=wall,
+                beam_s={t: recs[t]["beam_seconds"] for t in outs},
+                stagein_s=stagein, stages=stages)
+
+
+def report_stages(path: str) -> dict:
+    """Stage seconds of a beam's .report (its 'Total time' as
+    'total')."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            m = re.match(r"\s*(Total time|[\w-]+): +([\d.]+) s", line)
+            if m:
+                out["total" if m.group(1) == "Total time"
+                    else m.group(1)] = float(m.group(2))
+    return out
+
+
 def _passes(plan) -> list:
     return [pp for s in plan for pp in s.passes()]
 
 
 def slice_phase(nsamp: int) -> dict:
-    """Phases 4 and 5 on one synthesized beam."""
+    """Phases 4, 5 and 6 on one synthesized beam."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
         spec = mock_spec(nsamp)
@@ -857,6 +1057,7 @@ def slice_phase(nsamp: int) -> dict:
         plan = ddplan.survey_plan("pdev")
         p4 = main_path_phase(fns, tmp, nsamp, plan)
         p4["resume"] = resume_phase(fns, tmp, nsamp, plan, p4)
+        p4["serve"] = serve_phase(fns, tmp, p4)
         return p4
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -923,11 +1124,15 @@ def main() -> None:
     rows = kernel_rows(s1, s2, res["n1"], res["n2"])
     for r in rows:
         r["launches"] = res["launches"][r["name"]]
-        # the resumed search's own run (phase 5), counted from 0 too
+        # the resumed search's own run (phase 5) and the served beams
+        # (phase 6, after the server's boot), each counted from 0 too
         r["launches_resumed"] = res["resume"]["launches"][r["name"]]
-        if r["launches"] < 1 or r["launches_resumed"] < 1:
+        r["launches_served"] = res["serve"]["launches"][r["name"]]
+        if min(r["launches"], r["launches_resumed"],
+               r["launches_served"]) < 1:
             raise AssertionError(f"{r['name']} never launched on the "
-                                 f"main path or the resumed path")
+                                 f"main path, the resumed path or the "
+                                 f"served path")
     log(f"smoke wall {time.time() - t_smoke:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,8 +1,8 @@
 """tpulsar_torch as a package: it stands alone (no JAX, nothing of
-tpulsar — its job entry point included), its entry points default to
-CUDA and refuse to move to the CPU by themselves, it refuses, by name,
-what the later slices of the port will add, and it runs what the
-earlier slices added."""
+tpulsar — its job and serve entry points included), its entry points
+default to CUDA and refuse to move to the CPU by themselves, it
+refuses, by name, what the later slices of the port will add, and it
+runs what the earlier slices added."""
 
 import os
 import pathlib
@@ -35,6 +35,14 @@ import tpulsar_torch.io.datafile, tpulsar_torch.astro.barycenter
 import tpulsar_torch.checkpoint, tpulsar_torch.resilience.faults
 import tpulsar_torch.obs.telemetry, tpulsar_torch.search.plots
 import tpulsar_torch.config, tpulsar_torch.cli.search_job
+import tpulsar_torch.cli.main, tpulsar_torch.serve.server
+import tpulsar_torch.serve.protocol, tpulsar_torch.serve.stagein
+import tpulsar_torch.frontdoor.queue, tpulsar_torch.frontdoor.tenancy
+import tpulsar_torch.obs.journal, tpulsar_torch.obs.health
+import tpulsar_torch.obs.fleetview, tpulsar_torch.obs.log
+import tpulsar_torch.dataplane.index, tpulsar_torch.resilience.policy
+import tpulsar_torch.orchestrate.zaplists
+import tpulsar_torch.orchestrate.transports
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tpulsar" or m.startswith("tpulsar."))
@@ -75,6 +83,34 @@ def test_job_entry_point_pulls_in_no_jax_and_nothing_of_tpulsar():
     sys.modules."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _HELP_PROBE],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(ROOT), timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert "EXIT:0" in lines and any("--device" in ln for ln in lines)
+    assert [ln for ln in lines if ln.startswith("BAD:")][-1] == "BAD:"
+
+
+_SERVE_HELP_PROBE = r"""
+import runpy, sys
+sys.argv = ["tpulsar_torch", "serve", "--help"]
+try:
+    runpy.run_module("tpulsar_torch", run_name="__main__")
+except SystemExit as e:
+    print("EXIT:%s" % e.code)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "tpulsar" or m.startswith("tpulsar."))
+print("BAD:" + ",".join(bad))
+"""
+
+
+def test_serve_entry_point_pulls_in_no_jax_and_nothing_of_tpulsar():
+    """`python -m tpulsar_torch serve --help` runs the package as
+    __main__, names the device option, and leaves jax and tpulsar.*
+    out of sys.modules."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _SERVE_HELP_PROBE],
                          capture_output=True, text=True, env=env,
                          cwd=str(ROOT), timeout=120)
     assert res.returncode == 0, res.stderr
@@ -129,6 +165,77 @@ def test_later_slices_are_refused_by_name(change, word, monkeypatch):
                          np.linspace(1200, 1500, 4), 1e-3,
                          [ddplan.DedispStep(0.0, 1.0, 2, 1, 2, 1)],
                          params, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("option, word", [
+    (dict(batch_size=2), "search_beam_batch"),
+    (dict(stream=True), "stream"),
+    (dict(queue_url="sqlite:q.db"), "sqlite_queue.py"),
+    ("TPULSAR_DATA_URL", "dataplane/blobstore.py"),
+    ("TPULSAR_BLOB_ROOT", "dataplane/blobstore.py"),
+])
+def test_serve_refuses_later_slices_by_name(option, word, tmp_path,
+                                            monkeypatch):
+    """Batched admission, stream mode, the sqlite queue and the blob
+    data plane raise NotImplementedError naming what they need, when
+    the server is built (a blob ticket fails its own stage-in:
+    test_torch_serve.py)."""
+    from tpulsar_torch.config import TpulsarConfig
+    from tpulsar_torch.serve.server import SearchServer
+
+    kw = {}
+    if isinstance(option, dict):
+        kw = option
+    else:
+        monkeypatch.setenv(option, str(tmp_path / "blobs"))
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=word):
+        SearchServer(spool=str(tmp_path / "spool"), cfg=TpulsarConfig(),
+                     device="cpu", warm_boot=False, **kw)
+    assert not (tmp_path / "q.db").exists()
+
+
+def test_blob_tickets_are_refused_by_name(tmp_path):
+    """A ticket with blobs: refs fails its own stage-in, naming the
+    blob data plane; nothing is left in the workspace."""
+    from tpulsar_torch.config import TpulsarConfig
+    from tpulsar_torch.serve import stagein
+
+    cfg = TpulsarConfig()
+    cfg.processing.base_working_directory = str(tmp_path / "work")
+    out = stagein.prepare_beam(
+        {"ticket": "b", "datafiles": [], "blobs": {"a.fits": "0" * 64}},
+        cfg=cfg)
+    assert out.error.startswith("stage-in failed")
+    assert "NotImplementedError" in out.error
+    assert "dataplane/blobstore.py" in out.error
+    assert os.listdir(tmp_path / "work") == []
+
+
+@pytest.mark.parametrize("flag, word", [
+    (["--batch", "2"], "search_beam_batch"),
+    (["--stream"], "stream/"),
+    (["--queue", "sqlite:q.db"], "sqlite_queue.py"),
+])
+def test_serve_cli_refuses_later_slices_by_name(flag, word, tmp_path,
+                                                capsys, monkeypatch):
+    """`serve --batch 2`, `--stream` and a sqlite queue exit 2 with the
+    refusal, before anything is claimed."""
+    from tpulsar_torch.cli import main as tmain
+    from tpulsar_torch.config import TpulsarConfig, set_settings
+
+    cfg = TpulsarConfig()
+    cfg.basic.log_dir = str(tmp_path / "logs")
+    set_settings(cfg)
+    monkeypatch.chdir(tmp_path)
+    try:
+        rc = tmain.main(["serve", "--once", "--device", "cpu",
+                         "--spool", str(tmp_path / "spool"), *flag])
+    finally:
+        set_settings(None)
+    assert rc == 2
+    assert word in capsys.readouterr().err
+    assert not (tmp_path / "spool").exists()
 
 
 def _tiny_pulsar_block():

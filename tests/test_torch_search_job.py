@@ -237,12 +237,48 @@ def test_packaged_zaplist_is_the_jax_packages():
 def test_later_slices_raise_naming_their_modules(tmp_path):
     with pytest.raises(NotImplementedError, match="search_beam_batch"):
         tjob.run_search_batch([], tex.SearchParams())
-    cfg = tcfg.TpulsarConfig()
-    cfg.processing.zaplistdir = str(tmp_path)
-    cfg.processing.zaplist_url = "http://example.invalid/zaplists"
-    with pytest.raises(NotImplementedError,
-                       match="orchestrate/zaplists.py"):
-        tjob.prepare_inputs(["x.fits"], str(tmp_path), cfg=cfg)
+
+
+def _zaplist_store(root, names=("P2030.20101225.b3.zaplist",
+                                "P2030.20101225.all.zaplist")):
+    """A local-directory store holding a zaplists.tar.gz of custom
+    zaplists (and one member that is not a zaplist)."""
+    src = root / "src"
+    src.mkdir(parents=True)
+    for i, n in enumerate(names):
+        (src / n).write_text(f"# custom\n{60.0 + i} 0.5\n")
+    store = root / "store"
+    store.mkdir()
+    with tarfile.open(store / "zaplists.tar.gz", "w:gz") as tf:
+        for n in names:
+            tf.add(src / n, arcname=f"lists/{n}")
+        tf.add(src / names[0], arcname="../escape.txt")
+    return str(store)
+
+
+def test_zaplist_url_refresh_picks_the_jax_jobs_zaplist(tmp_path):
+    """prepare_inputs of both jobs with processing.zaplist_url set
+    (a local-directory store) refresh the custom-zaplist cache and
+    pick the same per-beam zaplist for a Mock subband pair, not the
+    packaged default; exact equality."""
+    import numpy as np
+
+    fns = _subband_pair(tmp_path / "beam")
+    store = _zaplist_store(tmp_path)
+    zaps = {}
+    for name, job, cfgmod in (("jax", jjob, jcfg), ("torch", tjob, tcfg)):
+        cfg = cfgmod.TpulsarConfig()
+        cfg.processing.zaplistdir = str(tmp_path / f"zap_{name}")
+        cfg.processing.zaplist_url = store
+        work = tmp_path / f"work_{name}"
+        work.mkdir()
+        _pp, zaps[name] = job.prepare_inputs(fns, str(work), cfg=cfg)
+        assert sorted(os.listdir(tmp_path / f"zap_{name}")) == [
+            ".extracted_zaplists", ".refresh_lock",
+            "P2030.20101225.all.zaplist", "P2030.20101225.b3.zaplist",
+            "zaplists.tar.gz"]
+    assert np.array_equal(zaps["torch"], zaps["jax"])
+    assert zaps["torch"].tolist() == [[60.0, 0.5]]
 
 
 def test_configuration_mirrors_the_jax_package(tmp_path):

@@ -2,7 +2,7 @@
 """Compare two beam results directories written by tpulsar_torch (or
 the JAX package) for equality of everything but wall-clock times.
 
-    python3 tools/torch_results_diff.py DIR_A DIR_B
+    python3 tools/torch_results_diff.py [--rtol R] DIR_A DIR_B
 
 A resumed search must write the results an uninterrupted search
 writes.  Some files carry the time they were written or the time the
@@ -16,12 +16,19 @@ search took, so they cannot be compared byte for byte:
     member names (in order) and member contents are compared, by the
     same rules.
 
-Every other file is compared byte for byte.  Prints one line per
-difference and exits 1 if there is any.  Imports numpy only.
+Every other file is compared byte for byte.  By default values must be
+equal.  With --rtol (for two packages' results, whose float32 sums
+round in another order), a floating-point .npz array may differ by at
+most rtol * max|b| over the array, and a decimal number in a text file
+by at most rtol * |b| plus one unit of its last printed digit (a value
+within tolerance can round either way);
+integers, names and every other token must still be equal.  Prints one
+line per difference and exits 1 if there is any.  Imports numpy only.
 """
 
 from __future__ import annotations
 
+import argparse
 import io
 import os
 import sys
@@ -33,7 +40,23 @@ import numpy as np
 TIMED_SUFFIXES = (".report", "metrics.json", "_trace.json")
 
 
-def _npz_diff(a: bytes, b: bytes, what: str) -> list[str]:
+def _values_equal(x: np.ndarray, y: np.ndarray, rtol: float) -> bool:
+    """Equal arrays of one dtype and shape: exactly, or for floating
+    point values (field by field in a record array) within rtol of
+    the array's largest magnitude."""
+    if x.dtype.names:
+        return all(_values_equal(x[f], y[f], rtol) for f in x.dtype.names)
+    if rtol and np.issubdtype(x.dtype, np.floating) and x.size:
+        if not np.array_equal(np.isnan(x), np.isnan(y)):
+            return False
+        ok = ~np.isnan(y)
+        scale = float(np.abs(y[ok]).max(initial=0.0))
+        return bool(np.abs(x[ok] - y[ok]).max(initial=0.0)
+                    <= rtol * scale)
+    return bool(np.array_equal(x, y))
+
+
+def _npz_diff(a: bytes, b: bytes, what: str, rtol: float) -> list[str]:
     with np.load(io.BytesIO(a), allow_pickle=False) as za, \
             np.load(io.BytesIO(b), allow_pickle=False) as zb:
         if sorted(za.files) != sorted(zb.files):
@@ -43,22 +66,60 @@ def _npz_diff(a: bytes, b: bytes, what: str) -> list[str]:
         for k in za.files:
             x, y = za[k], zb[k]
             if x.dtype != y.dtype or x.shape != y.shape \
-                    or not np.array_equal(x, y):
+                    or not _values_equal(x, y, rtol):
                 out.append(f"{what}: array {k!r} differs")
         return out
 
 
-def _content_diff(name: str, a: bytes, b: bytes, what: str) -> list[str]:
+def _decimal(token: str):
+    """(value, one unit of the last printed digit) of a decimal number
+    like 17.31, or None for anything else (integers included)."""
+    if "." not in token or "e" in token.lower():
+        return None
+    try:
+        return float(token), 10.0 ** -len(token.split(".")[1])
+    except ValueError:
+        return None
+
+
+def _text_equal(a: bytes, b: bytes, rtol: float) -> bool:
+    """Text equal token by token: decimals within rtol, the rest
+    exactly."""
+    try:
+        la, lb = a.decode().splitlines(), b.decode().splitlines()
+    except UnicodeDecodeError:
+        return False
+    if len(la) != len(lb):
+        return False
+    for ra, rb in zip(la, lb):
+        ta, tb = ra.split(), rb.split()
+        if len(ta) != len(tb):
+            return False
+        for x, y in zip(ta, tb):
+            if x == y:
+                continue
+            dx, dy = _decimal(x), _decimal(y)
+            if dx is None or dy is None or \
+                    abs(dx[0] - dy[0]) > (rtol * abs(dy[0])
+                                          + max(dx[1], dy[1])):
+                return False
+    return True
+
+
+def _content_diff(name: str, a: bytes, b: bytes, what: str,
+                  rtol: float = 0.0) -> list[str]:
     if name.endswith(TIMED_SUFFIXES):
         return []
     if name.endswith(".npz"):
-        return _npz_diff(a, b, what)
+        return _npz_diff(a, b, what, rtol)
     if name.endswith(".tgz"):
-        return _tar_diff(a, b, what)
-    return [] if a == b else [f"{what}: bytes differ"]
+        return _tar_diff(a, b, what, rtol)
+    if a == b or (rtol and _text_equal(a, b, rtol)):
+        return []
+    return [f"{what}: bytes differ"]
 
 
-def _tar_diff(a: bytes, b: bytes, what: str) -> list[str]:
+def _tar_diff(a: bytes, b: bytes, what: str, rtol: float) -> list[str]:
     with tarfile.open(fileobj=io.BytesIO(a)) as ta, \
             tarfile.open(fileobj=io.BytesIO(b)) as tb:
         na, nb = ta.getnames(), tb.getnames()
@@ -68,13 +129,15 @@ def _tar_diff(a: bytes, b: bytes, what: str) -> list[str]:
         for m in na:
             out += _content_diff(m, ta.extractfile(m).read(),
                                  tb.extractfile(m).read(),
-                                 f"{what}:{m}")
+                                 f"{what}:{m}", rtol)
         return out
 
 
-def diff_results(dir_a: str, dir_b: str) -> list[str]:
+def diff_results(dir_a: str, dir_b: str, rtol: float = 0.0
+                 ) -> list[str]:
     """The differences between two results directories (empty when
-    they hold the same results)."""
+    they hold the same results; values exactly equal unless rtol is
+    set)."""
     fa, fb = sorted(os.listdir(dir_a)), sorted(os.listdir(dir_b))
     if fa != fb:
         return [f"file sets differ: only in {dir_a}: "
@@ -86,20 +149,23 @@ def diff_results(dir_a: str, dir_b: str) -> list[str]:
             a = fh.read()
         with open(os.path.join(dir_b, name), "rb") as fh:
             b = fh.read()
-        out += _content_diff(name, a, b, name)
+        out += _content_diff(name, a, b, name, rtol)
     return out
 
 
 def main(argv=None) -> int:
-    args = sys.argv[1:] if argv is None else argv
-    if len(args) != 2:
-        print(__doc__.strip().splitlines()[2].strip(), file=sys.stderr)
-        return 2
-    problems = diff_results(*args)
-    for p in problems:
-        print(p)
+    p = argparse.ArgumentParser(
+        description="Compare two beam results directories.")
+    p.add_argument("dir_a")
+    p.add_argument("dir_b")
+    p.add_argument("--rtol", type=float, default=0.0,
+                   help="relative tolerance of floating-point values")
+    args = p.parse_args(argv)
+    problems = diff_results(args.dir_a, args.dir_b, args.rtol)
+    for line in problems:
+        print(line)
     if not problems:
-        print(f"same results: {args[0]} and {args[1]}")
+        print(f"same results: {args.dir_a} and {args.dir_b}")
     return 1 if problems else 0
 
 

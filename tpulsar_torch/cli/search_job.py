@@ -134,27 +134,27 @@ def prepare_inputs(fns: list[str], workdir: str,
                    default_zaplist: str | None = None,
                    cfg=None) -> tuple[list[str], np.ndarray | None]:
     """The host-side half of a beam job: stage raw files into the
-    workspace, preprocess (Mock subband merge), and pick the zaplist.
-    Device-free, so a background thread can run it while the device
-    searches another beam.
-
-    The refresh of the custom-zaplist cache from
-    ``processing.zaplist_url`` needs the zaplist downloader
-    (orchestrate/zaplists.py and its transports), which this package
-    does not have yet: a configured URL raises NotImplementedError
-    rather than being ignored."""
+    workspace, preprocess (Mock subband merge), refresh the custom
+    zaplist cache from ``processing.zaplist_url``, and pick the
+    zaplist.  Device-free, so the resident server's prefetch thread
+    (serve/stagein.py) runs it while the device searches another
+    beam."""
     if cfg is None:
         from tpulsar_torch.config import settings
         cfg = settings()
-    zapdir = zaplist_dir or cfg.processing.zaplistdir or None
-    if zapdir and cfg.processing.zaplist_url:
-        raise NotImplementedError(
-            "tpulsar_torch does not refresh zaplists from "
-            "processing.zaplist_url yet: that needs "
-            "orchestrate/zaplists.py (refresh_zaplists) and the "
-            "downloader's transports, a later slice of the port")
     staged = stage_in(fns, workdir)
     ppfns = datafile.preprocess(staged)
+    zapdir = zaplist_dir or cfg.processing.zaplistdir or None
+    if zapdir and cfg.processing.zaplist_url:
+        # refresh the custom-zaplist cache when the remote tarball is
+        # newer; a refresh failure must not fail the search — the
+        # cached lists (or the default) still apply
+        from tpulsar_torch.orchestrate.zaplists import refresh_zaplists
+        try:
+            refresh_zaplists(zapdir, cfg.processing.zaplist_url)
+        except Exception as e:
+            warnings.warn(f"zaplist refresh from "
+                          f"{cfg.processing.zaplist_url} failed: {e}")
     zap = choose_zaplist(
         ppfns, zapdir,
         default_zaplist or cfg.processing.default_zaplist or None)

@@ -9,11 +9,11 @@ a filesystem or type validator there has one here
 (config_types.py:121-247), and all violations are reported together
 (InsaneConfigsError, config_types.py:45-65).
 
-Three checks of the JAX package live in modules this package does not
-have yet and are not made here: the front door's tenant policy
-(frontdoor.tenants), the fleet autoscaler's knobs
-(fleet_autoscale_config) and the serve heartbeat window that
-settings() installs (_apply_runtime_knobs).
+One check of the JAX package lives in a module this package does not
+have yet and is not made here: the fleet autoscaler's knobs
+(fleet_autoscale_config).  The front door's tenant policy
+(frontdoor.tenants) is validated, and settings() installs the serve
+heartbeat window (_apply_runtime_knobs), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Any
+
+from tpulsar_torch.frontdoor.tenancy import TenantPolicy
+from tpulsar_torch.serve import protocol
 
 
 class ConfigError(Exception):
@@ -325,6 +328,11 @@ class TpulsarConfig:
         if self.frontdoor.results_query_limit < 1:
             problems.append(
                 "frontdoor.results_query_limit must be >= 1")
+        try:
+            TenantPolicy(self.frontdoor.tenants,
+                         self.frontdoor.default_priority)
+        except ValueError as e:
+            problems.append(f"frontdoor.tenants: {e}")
 
         if problems:
             raise InsaneConfigsError(problems)
@@ -368,14 +376,34 @@ def load_config(path: str | None = None, create_dirs: bool = True
     return cfg
 
 
+def _apply_runtime_knobs(cfg: TpulsarConfig) -> None:
+    """Propagate config fields that back module-level runtime knobs
+    (today: the heartbeat staleness window every serve freshness
+    judgment resolves through)."""
+    v = cfg.jobpooler.heartbeat_max_age_s
+    # a DEFAULT-valued config must not install an override: doing so
+    # would shadow the TPULSAR_HEARTBEAT_MAX_AGE_S env var in every
+    # process — only an explicitly non-default value wins over env
+    try:
+        protocol.set_heartbeat_max_age(
+            v if v != protocol.HEARTBEAT_MAX_AGE_S else None)
+    except ValueError:
+        pass
+
+
 def settings() -> TpulsarConfig:
     """Process-global settings (lazy default)."""
     global _SETTINGS
     if _SETTINGS is None:
         _SETTINGS = load_config(os.environ.get("TPULSAR_CONFIG"))
+        _apply_runtime_knobs(_SETTINGS)
     return _SETTINGS
 
 
-def set_settings(cfg: TpulsarConfig) -> None:
+def set_settings(cfg: TpulsarConfig | None) -> None:
+    """Install cfg as the process-global settings (None: load them
+    again from TPULSAR_CONFIG at the next settings() call)."""
     global _SETTINGS
     _SETTINGS = cfg
+    if cfg is not None:
+        _apply_runtime_knobs(cfg)

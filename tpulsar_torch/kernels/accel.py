@@ -39,6 +39,7 @@ import torch
 from tpulsar_torch.kernels import accel_batch as abp
 from tpulsar_torch.kernels import fourier as fr
 from tpulsar_torch.obs import telemetry
+from tpulsar_torch.search.report import progress_beat
 
 DZ = 2.0  # z-plane step in bins (PRESTO's accelsearch grid spacing)
 
@@ -395,7 +396,8 @@ def accel_search_batch(spectra: torch.Tensor, bank: TemplateBank,
     is honoured exactly.  One host transfer per call.  Returns
     {stage: (powers[ndms, topk], rbins[ndms, topk], zvals[ndms, topk])}
     as NumPy arrays.  Records the call's trials and seconds under the
-    JAX package's path="batched" series."""
+    JAX package's path="batched" series, and beats the stage heartbeat
+    (search/report.py) once for each drained DM batch."""
     t_begin = time.perf_counter()
     nz = len(bank.zs)
     dev = spectra.device
@@ -426,6 +428,7 @@ def accel_search_batch(spectra: torch.Tensor, bank: TemplateBank,
         vals[s0: s0 + plan.b] = v_all[i]
         rbins[s0: s0 + plan.b] = r_all[i]
         zidx[s0: s0 + plan.b] = z_all[i]
+        progress_beat(f"accel window dm {min(s0 + plan.b, ndms)}/{ndms}")
     zs = np.asarray(bank.zs)
     return {h: (vals[:, i, :], rbins[:, i, :], zs[zidx[:, i, :]])
             for i, h in enumerate(stages)}

@@ -47,6 +47,10 @@ MAX_SMEM = 232_448
 
 #: launches per kernel since the last reset_counts()
 LAUNCHES = {"form_subbands": 0, "dedisperse_subbands": 0}
+#: kernel-library compiles in this process: "hits" counts loads of a
+#: library already built in _build/, "misses" counts nvcc builds (the
+#: counterpart of the JAX package's compile-cache hits and misses)
+COMPILES = {"hits": 0, "misses": 0}
 
 _lib = None
 _prepared: set[int] = set()
@@ -95,13 +99,17 @@ def build(verbose_ptxas: bool = False) -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
     os.replace(tmp, path)
+    COMPILES["misses"] += 1
     return path
 
 
 def _load():
     global _lib
     if _lib is None:
+        built = os.path.exists(library_path())
         lib = ctypes.CDLL(build())
+        if built:
+            COMPILES["hits"] += 1
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         for name in ("dd_form_subbands_u8", "dd_form_subbands_f32"):
             fn = getattr(lib, name)

@@ -1,3 +1,6 @@
 """Observability — counterpart of tpulsar/obs/: span tracing with
 Chrome-trace export (trace), the process-wide metrics registry
-(metrics), and the search path's instrument catalog (telemetry)."""
+(metrics), the instrument catalog (telemetry), the ticket lifecycle
+journal (journal), named loggers (log), the per-worker flight recorder
+(health) and the per-worker metric snapshots in the spool
+(fleetview)."""

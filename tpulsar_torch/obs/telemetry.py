@@ -6,13 +6,20 @@ whichever package searched it.
   * ``trace`` / ``metrics`` — the span tracer (obs/trace.py) and the
     process-wide metrics registry (obs/metrics.py), re-exported;
   * the instruments the executor, the stage timers, the hi-accel
-    stage and the checkpoint store record.
+    stage and the checkpoint store record;
+  * the resident server's: the serve family, the spool's queue-op
+    latency, the tenant quota gauge, the retry/backoff/circuit
+    counters of resilience/policy.py;
+  * ``event_record``, the one heartbeat/journal event shape.
 
-The serve, fleet, download, upload and compile-cache families come
-with the modules that record them.  stdlib only.
+The fleet, gateway, download, upload, data-plane transfer and
+compile-cache families come with the modules that record them.
+stdlib only.
 """
 
 from __future__ import annotations
+
+import time
 
 from tpulsar_torch.obs import metrics, trace  # re-exported  # noqa: F401
 
@@ -103,3 +110,137 @@ def checkpoint_events_total() -> metrics.Counter:
         "degraded the beam to un-checkpointed — 'invalid' at any "
         "sustained rate means a sick checkpoint volume",
         labelnames=("outcome",))
+
+
+def retry_attempts_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_retry_attempts_total",
+        "retries issued by the shared resilience policy engine",
+        labelnames=("point",))
+
+
+def backoff_seconds_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_backoff_seconds_total",
+        "seconds slept in policy backoff",
+        labelnames=("point",))
+
+
+def circuit_transitions_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_circuit_transitions_total",
+        "circuit-breaker state transitions",
+        labelnames=("point", "state"))
+
+
+def heartbeats_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_heartbeats_total",
+        "telemetry heartbeat events emitted",
+        labelnames=("event",))
+
+
+#: histogram buckets for serve-loop waits: admission latencies from
+#: immediate claims up to a queue that backed up for most of an hour
+SERVE_WAIT_BUCKETS = (0.1, 0.5, 2.0, 10.0, 30.0, 120.0, 600.0, 3600.0)
+
+
+def serve_queue_depth() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_serve_queue_depth",
+        "tickets waiting in the serve spool admission queue "
+        "(incoming, not yet claimed by the server)")
+
+
+def serve_admission_wait_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_serve_admission_wait_seconds",
+        "ticket submit -> server claim latency (how long beams wait "
+        "in the admission queue before the warm worker picks them up)",
+        buckets=SERVE_WAIT_BUCKETS)
+
+
+def serve_beam_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_serve_beam_seconds",
+        "per-beam wall time inside the resident server, labelled by "
+        "compile temperature: cold = the beam paid at least one "
+        "compile-cache miss, warm = it compiled nothing",
+        labelnames=("mode",), buckets=STAGE_BUCKETS)
+
+
+def serve_beams_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_serve_beams_total",
+        "beams processed by the resident server, by outcome "
+        "(done | failed | skipped)",
+        labelnames=("outcome",))
+
+
+def serve_drain_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_serve_drain_seconds",
+        "SIGTERM-to-exit drain duration (finishing the in-flight "
+        "beam, stopping the prefetch thread, final heartbeat)",
+        buckets=SERVE_WAIT_BUCKETS)
+
+
+def serve_stagein_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_serve_stagein_seconds",
+        "host-side stage-in + preprocess time per beam in the "
+        "prefetch thread (overlapped with device compute of the "
+        "previous beam, so this only costs wall time when it exceeds "
+        "the device time)",
+        buckets=STAGE_BUCKETS)
+
+
+def frontdoor_quota_deferred() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_frontdoor_quota_deferred",
+        "pending tickets skipped in the most recent claim-ordering "
+        "pass because their tenant is at its max_inflight quota "
+        "(deferred, not dropped: they re-enter ordering as the "
+        "tenant's in-flight beams finish)",
+        labelnames=("tenant",))
+
+
+#: histogram buckets for ticket-queue backend operations: healthy
+#: sub-millisecond spool renames / SQLite commits up to lock-contended
+#: multi-second waits (TPULSAR_QUEUE_BUSY_TIMEOUT_S territory)
+QUEUE_OP_BUCKETS = (0.0005, 0.002, 0.01, 0.05, 0.2, 1.0, 5.0, 30.0)
+
+
+def queue_op_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_queue_op_seconds",
+        "ticket-queue backend operation latency by backend (spool | "
+        "sqlite) and op (submit/claim/claim_batch/requeue_scan/"
+        "result/heartbeat/...) — both backends observe the same op "
+        "vocabulary so an A/B between the spool protocol and the "
+        "durable SQLite queue is one PromQL ratio",
+        labelnames=("backend", "op"), buckets=QUEUE_OP_BUCKETS)
+
+
+# --------------------------------------------------------------------
+# the shared heartbeat/progress event shape
+# --------------------------------------------------------------------
+
+def event_record(event: str, stage: str = "", info: str = "",
+                 t_stage: float = 0.0, **extra) -> dict:
+    """The canonical telemetry event: ``{"t": now, "event": ...}``
+    plus stage attribution when present — the shape of the stage
+    heartbeat (search/report.py) and of every journal line
+    (obs/journal.py), as in the JAX package.  ``extra`` keys are
+    additive — consumers key on the names above and ignore the
+    rest."""
+    rec: dict = {"t": time.time(), "event": event}
+    if stage:
+        rec["stage"] = stage
+    if t_stage:
+        rec["t_stage"] = t_stage
+    if info:
+        rec["info"] = info
+    rec.update(extra)
+    heartbeats_total().inc(event=event or "?")
+    return rec

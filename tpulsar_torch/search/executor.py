@@ -66,6 +66,7 @@ from tpulsar_torch import checkpoint as ckpt_mod
 from tpulsar_torch import resolve_device
 from tpulsar_torch.io import accelcands, datafile
 from tpulsar_torch.kernels import accel as accel_k
+from tpulsar_torch.kernels import cuda_dd
 from tpulsar_torch.kernels import dedisperse as dd
 from tpulsar_torch.kernels import fold as fold_k
 from tpulsar_torch.kernels import fourier as fr
@@ -180,6 +181,12 @@ class SearchOutcome:
     num_dm_trials: int
     timers: StageTimers
     refined_dms: list[float] = dataclasses.field(default_factory=list)
+    #: kernel-library compiles attributable to THIS beam
+    #: (kernels/cuda_dd.COMPILES: loads of a library already built,
+    #: nvcc builds).  A resident server's steady state is
+    #: compile_misses == 0: the beam paid no compile.
+    compile_hits: int = 0
+    compile_misses: int = 0
 
 
 def check_supported(params: SearchParams, mesh=None) -> None:
@@ -225,6 +232,7 @@ def search_beam(fns: list[str], workdir: str, resultsdir: str,
     params = params or SearchParams()
     check_supported(params, mesh)
     dev = resolve_device(device)
+    compiles0 = dict(cuda_dd.COMPILES)
     if trace_mod.enabled():
         # one trace file per beam: its rollup matches THIS beam's
         # .report, not every beam this process searched
@@ -250,9 +258,12 @@ def search_beam(fns: list[str], workdir: str, resultsdir: str,
                                 timers, dev)
     res = _search_block(data, si.freqs, si.dt, plan, params, zaplist,
                         baryv, nsub, timers, store, None, dev)
-    return _finalize_results(
+    out = _finalize_results(
         resultsdir, basenm, obj, si, plan, params, zaplist, baryv,
         data, mask, res, timers, metrics_base)
+    out.compile_hits = cuda_dd.COMPILES["hits"] - compiles0["hits"]
+    out.compile_misses = cuda_dd.COMPILES["misses"] - compiles0["misses"]
+    return out
 
 
 def _beam_geometry(fns, params, plan, baryv):

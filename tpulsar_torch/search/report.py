@@ -8,14 +8,16 @@ written at the end of the search (write_report, :336-372).  The
 results directories from both packages line up.
 
 Each timed scope is also one span of the tracer and one observation
-of the tpulsar_stage_seconds histogram (obs/), as in the JAX package.
-Its heartbeat file (TPULSAR_STAGE_HEARTBEAT) belongs to serving and
-comes with it.
+of the tpulsar_stage_seconds histogram (obs/), as in the JAX package,
+and one begin and one end beat of the stage heartbeat below.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
+import sys
 import time
 
 from tpulsar_torch.obs import telemetry, trace
@@ -23,6 +25,53 @@ from tpulsar_torch.obs import telemetry, trace
 
 STAGES = ("rfifind", "subbanding", "dedispersing", "single-pulse",
           "FFT", "lo-accelsearch", "hi-accelsearch", "sifting", "folding")
+
+# TPULSAR_STAGE_TRACE=1: print begin/end of every timed stage to
+# stderr, flushed, so a wedged pass names the stage it is stuck in.
+_TRACE = os.environ.get("TPULSAR_STAGE_TRACE", "") == "1"
+
+# TPULSAR_STAGE_HEARTBEAT=<path>: write a JSON beat to <path> at every
+# stage begin/end and at drains inside long stages.  A supervising
+# parent tells a stalled child (no beat for many minutes: kill it)
+# from a slow but progressing one (fresh beats: let it run), and the
+# beat carries the current stage's name and begin time, so a kill can
+# always name the stage it interrupted.
+_HEARTBEAT = os.environ.get("TPULSAR_STAGE_HEARTBEAT", "")
+
+# current innermost timed stage: (name, begin_time) — module-level so
+# progress_beat() callers (the hi stage's drain) need no handle on the
+# StageTimers instance
+_CUR_STAGE: list[tuple[str, float]] = []
+
+
+def _beat(stage: str = "", event: str = "", info: str = "") -> None:
+    if not _HEARTBEAT:
+        return
+    t_stage = _CUR_STAGE[-1][1] if _CUR_STAGE else 0.0
+    # the one event shape (telemetry.event_record); the stage/t_stage
+    # keys stay present even when empty, as the JAX package writes them
+    rec = telemetry.event_record(event, stage=stage, info=info,
+                                 t_stage=t_stage)
+    rec.setdefault("stage", stage)
+    rec.setdefault("t_stage", t_stage)
+    try:
+        # atomic replace: a reader between polls never sees a torn
+        # half-written beat
+        tmp = _HEARTBEAT + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(rec, fh)
+        os.replace(tmp, _HEARTBEAT)
+    except OSError:
+        pass
+
+
+def progress_beat(info: str = "") -> None:
+    """Refresh the heartbeat from inside a long timed stage (a DM
+    batch drained).  Keeps the stage's begin time, so a per-stage
+    budget still measures the whole stage while a stall detector sees
+    live progress."""
+    if _HEARTBEAT and _CUR_STAGE:
+        _beat(_CUR_STAGE[-1][0], "progress", info)
 
 
 class StageTimers:
@@ -38,13 +87,28 @@ class StageTimers:
         text is unchanged."""
         self.times.setdefault(stage, 0.0)
         start = time.time()
+        _CUR_STAGE.append((stage, start))
         try:
             with trace.span(stage):
+                # beat and stderr line inside the span: their I/O then
+                # counts toward the span and the timer alike
+                _beat(stage, "begin")
+                if _TRACE:
+                    print(f"[stage-trace +{start - self._t0:8.1f}s] "
+                          f"begin {stage}", file=sys.stderr,
+                          flush=True)
                 yield
         finally:
             end = time.time()
             self.times[stage] += end - start
             telemetry.stage_seconds().observe(end - start, stage=stage)
+            if _CUR_STAGE and _CUR_STAGE[-1][0] == stage:
+                _CUR_STAGE.pop()
+            _beat(stage, "end")
+            if _TRACE:
+                print(f"[stage-trace +{end - self._t0:8.1f}s] end   "
+                      f"{stage} ({end - start:.1f} s)",
+                      file=sys.stderr, flush=True)
 
     @property
     def total(self) -> float:

@@ -1,0 +1,568 @@
+"""The resident search server — counterpart of tpulsar/serve/server.py.
+
+One long-lived, device-owning process replaces the fork-per-beam
+model: it builds and loads the CUDA kernel library, prepares the
+device and (optionally) searches one synthesized block at boot, then
+loops over the spool admission queue (serve/protocol.py).  Every beam
+after boot reuses the process's kernel library, template banks, FFT
+plans and device allocator: process start, kernel build and device
+set-up are paid once per boot, not once per beam.
+
+Properties the batch path cannot offer:
+
+  * admission queue with bounded depth — the JAX package's ``warm``
+    queue backend refuses tickets past ``max_queue_depth`` (spool
+    backpressure, not an unbounded directory);
+  * stage-in prefetch — serve/stagein.py overlaps host-side staging
+    of beam N+1 with device compute of beam N;
+  * per-beam deadlines — resilience.policy.run_with_deadline converts
+    a hung dispatch into a failed ticket instead of a wedged server;
+  * crash isolation — a poisoned beam (fault point ``serve.beam``, or
+    a kernel that fails to build or launch) marks THAT ticket failed
+    and the loop continues; no beam ever moves to the plain CPU path;
+  * graceful drain — SIGTERM finishes the in-flight beam, joins the
+    stage-in prefetch thread, requeues every claimed-but-unstarted
+    ticket this worker holds via the attempt-neutral
+    ``requeue_own_claims``, and stamps the heartbeat ``stopped``;
+  * fleet membership — with a ``worker_id`` the heartbeat goes to
+    ``server.<worker_id>.json`` and every claim/result is stamped
+    with the worker, so N servers (of either package) share one spool
+    safely.  Fault point ``fleet.worker`` simulates a worker CRASH
+    (hard process exit mid-beam, no drain).
+
+Per-beam results are produced by the same ``cli.search_job``
+library functions the per-beam job runs, so the output directory
+layout is identical.  Refused by name (NotImplementedError): batched
+admission (``batch_size > 1``, the batch-of-beams executor), stream
+mode (``stream=True``, the streaming plane), and the blob data plane
+(``TPULSAR_DATA_URL`` / ``TPULSAR_BLOB_ROOT``).
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+import time
+
+import numpy as np
+import torch
+
+# Module import (not name import): frontdoor.queue itself imports
+# serve.protocol, so pulling a name out of it here would trip the
+# circular-import guard when queue.py is the first module loaded.
+from tpulsar_torch import resolve_device
+from tpulsar_torch.cli import search_job
+from tpulsar_torch.dataplane import index as dp_index
+from tpulsar_torch.frontdoor import queue as frontdoor_queue
+from tpulsar_torch.frontdoor.tenancy import TenantPolicy
+from tpulsar_torch.kernels import cuda_dd
+from tpulsar_torch.obs import fleetview, health, journal, telemetry
+from tpulsar_torch.obs.log import get_logger
+from tpulsar_torch.plan import ddplan
+from tpulsar_torch.resilience import faults, policy
+from tpulsar_torch.search import executor
+from tpulsar_torch.serve import protocol
+from tpulsar_torch.serve.stagein import PreparedBeam, StageInPipeline
+
+#: the PALFA Mock beam the warm boot synthesizes a block of (the
+#: geometry of the JAX package's AOT gate, aot/registry.py)
+MOCK_NCHAN = 960
+MOCK_TSAMP = 65.476e-6
+MOCK_NSAMP = 3_932_160
+MOCK_FCTR, MOCK_BW = 1375.5, 322.617
+#: the warm block's samples are a multiple of this, so every
+#: downsample of the Mock plan divides them
+NSAMP_QUANTUM = 30720
+
+
+class SearchServer:
+    def __init__(self, spool: str | None = None, cfg=None, *,
+                 queue_url: str = "",
+                 worker_id: str = "",
+                 worker_class: str = "",
+                 max_queue_depth: int = 8,
+                 beam_deadline_s: float = 0.0,
+                 ticket_max_attempts: int = protocol.DEFAULT_MAX_ATTEMPTS,
+                 warm_boot: bool = True,
+                 warm_boot_scale: float = 0.05,
+                 prefetch_depth: int = 1,
+                 poll_s: float = 0.5,
+                 heartbeat_interval_s: float = 10.0,
+                 claim_policy=None,
+                 batch_size: int = 1,
+                 stream: bool = False,
+                 beam_fn=None, logger=None, device=None):
+        if int(batch_size) > 1:
+            raise NotImplementedError(
+                "tpulsar_torch serve has no batched admission yet "
+                "(batch_size > 1): it needs executor.search_beam_batch "
+                "and kernels/beam_batch.py, a later slice of the port")
+        if stream:
+            raise NotImplementedError(
+                "tpulsar_torch serve has no stream mode yet: it needs "
+                "the streaming plane (stream/), a later slice of the "
+                "port")
+        for knob in ("TPULSAR_DATA_URL", "TPULSAR_BLOB_ROOT"):
+            if os.environ.get(knob):
+                raise NotImplementedError(
+                    f"tpulsar_torch serve cannot publish to the blob "
+                    f"data plane yet ({knob} is set): it needs "
+                    f"dataplane/blobstore.py and dataplane/transfer.py, "
+                    f"a later slice of the port")
+        #: where every beam runs: the GPU unless the caller asks for
+        #: the CPU (refused here, before anything is claimed, when
+        #: there is no GPU)
+        self.device = resolve_device(device)
+        if cfg is None:
+            from tpulsar_torch.config import settings
+            cfg = settings()
+        if claim_policy is None:
+            # tenant priority classes + in-flight quotas enforced at
+            # the claim (frontdoor/tenancy.py): with no tenants
+            # configured this degrades to FIFO, so it is always on
+            claim_policy = TenantPolicy.from_config(cfg)
+        self.claim_policy = claim_policy
+        self.cfg = cfg
+        self.spool = spool or protocol.default_spool_dir(cfg)
+        #: the ticket backend (``serve --queue spool:<dir>`` or
+        #: ``memory:``; ``sqlite:`` is refused by name): claims,
+        #: results, heartbeats, and requeues all route through it; the
+        #: spool stays the worker's scratch/log/metrics-snapshot root
+        self.queue = frontdoor_queue.get_ticket_queue(
+            queue_url or f"spool:{self.spool}")
+        #: journal root (== spool for the spool backend and a
+        #: queue.db inside the spool directory)
+        self.jroot = self.queue.journal_root or self.spool
+        self.worker_id = worker_id
+        #: "spot" workers advertise that an autoscaler SIGKILL is
+        #: routine for them: the class rides the heartbeat, every
+        #: claim, and every result — no behavioural difference inside
+        #: the worker itself (checkpoint resume + the scale-down
+        #: ledger's attempt-neutral requeue carry the semantics)
+        self.worker_class = worker_class
+        self.max_queue_depth = max_queue_depth
+        self.ticket_max_attempts = ticket_max_attempts
+        self.beam_deadline_s = beam_deadline_s
+        self.warm_boot = warm_boot
+        self.warm_boot_scale = warm_boot_scale
+        self.poll_s = poll_s
+        self.heartbeat_interval_s = heartbeat_interval_s
+        #: injectable for tests: callable(PreparedBeam) ->
+        #: SearchOutcome | None (None = clean skip)
+        self.beam_fn = beam_fn or self._search_one
+        #: seconds the last boot() took (kernel build and load, device
+        #: set-up, warm search)
+        self.boot_seconds = 0.0
+        self.log = logger or get_logger(
+            f"serve.{worker_id}" if worker_id else "serve")
+        #: injectable for tests: the fleet.worker fault's hard process
+        #: exit (a crash leaves claims in place — no drain, no result)
+        self._crash = os._exit
+        self.pipeline = StageInPipeline(
+            claim=lambda: self.queue.claim_next(
+                self.worker_id,
+                policy=self.claim_policy,
+                worker_class=self.worker_class),
+            workdir_base=cfg.processing.base_working_directory,
+            cfg=cfg, depth=prefetch_depth, poll_s=poll_s,
+            logger=self.log, journal=self._journal)
+        self._drain = threading.Event()
+        self._stopped = threading.Event()
+        self._hb_thread: threading.Thread | None = None
+        self._hb_last = 0.0
+        self.beams = {"done": 0, "failed": 0, "skipped": 0}
+        #: the flight recorder (obs/health.py): a bounded ring of
+        #: this worker's recent moves, dumped to <spool>/blackbox/ on
+        #: crash or abnormal exit — armed once serving starts,
+        #: disarmed by a clean drain
+        self.blackbox = health.FlightRecorder(
+            worker_id, spool=self.spool)
+        self.started_at = time.time()
+
+    # ------------------------------------------------------------ control
+
+    def install_signal_handlers(self) -> None:
+        """SIGTERM/SIGINT request a graceful drain: finish the
+        in-flight beam, requeue the rest, heartbeat ``stopped``."""
+        def _on_term(signum, frame):
+            self.log.info("signal %d: draining", signum)
+            self.request_drain()
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, _on_term)
+
+    def request_drain(self) -> None:
+        self._drain.set()
+
+    @property
+    def draining(self) -> bool:
+        return self._drain.is_set()
+
+    def _journal(self, event: str, ticket: dict, **extra) -> None:
+        """This worker's journal hook (the stage-in pipeline calls it
+        too): stamps worker id, attempt, and the ticket's trace id
+        onto every event."""
+        self.blackbox.note("journal", event=event,
+                           ticket=ticket.get("ticket", "?"))
+        journal.record(
+            self.jroot, event, ticket=ticket.get("ticket", "?"),
+            worker=self.worker_id,
+            attempt=int(ticket.get("attempts", 0)),
+            trace_id=ticket.get("trace_id", ""), **extra)
+
+    # ------------------------------------------------------------ boot
+
+    def boot(self) -> None:
+        t0 = time.time()
+        protocol.ensure_spool(self.spool)
+        requeued = self.queue.requeue_stale_claims(
+            self.ticket_max_attempts)
+        if requeued:
+            self.log.warning(
+                "requeued %d ticket(s) a dead worker left claimed: %s",
+                len(requeued), ", ".join(requeued))
+        # the whole point of residency: one kernel build and load and
+        # one device set-up for EVERY beam this process will search
+        if self.device.type == "cuda":
+            cuda_dd._load()
+            cuda_dd._prepare(self.device)
+        if self.warm_boot:
+            self.log.info("warm boot (scale %g) ...", self.warm_boot_scale)
+            try:
+                self._warm_search()
+            except Exception:
+                # a failed warm search is a degraded boot, not a fatal
+                # one: beams still run (and fail loudly through crash
+                # isolation if the device itself is broken)
+                self.log.exception("warm boot search failed — serving "
+                                   "without it")
+        self.boot_seconds = time.time() - t0
+        self.log.info("boot took %.2f s", self.boot_seconds)
+        self._heartbeat("running", force=True)
+
+    def _warm_search(self) -> None:
+        """Search one synthesized block of the Mock geometry (960
+        channels, ``warm_boot_scale`` of its samples, uint8 noise from
+        a fixed seed) through search_block on the device, with this
+        deployment's search parameters and the Mock survey plan: the
+        template banks, FFT plans, kernel launch paths and the
+        device allocator are warm before the first ticket."""
+        nsamp = int(MOCK_NSAMP * self.warm_boot_scale)
+        nsamp = max(NSAMP_QUANTUM, nsamp - nsamp % NSAMP_QUANTUM)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        block = torch.randint(0, 256, (MOCK_NCHAN, nsamp),
+                              generator=gen, device=self.device,
+                              dtype=torch.uint8)
+        freqs = (MOCK_FCTR - MOCK_BW / 2) \
+            + (np.arange(MOCK_NCHAN) + 0.5) * (MOCK_BW / MOCK_NCHAN)
+        executor.search_block(
+            block, freqs, MOCK_TSAMP, ddplan.survey_plan("pdev"),
+            executor.SearchParams.from_config(self.cfg.searching),
+            device=self.device)
+
+    def _heartbeat(self, status: str, force: bool = False) -> None:
+        now = time.time()
+        if not force and now - self._hb_last < self.heartbeat_interval_s:
+            return
+        depth = self.queue.pending_count()
+        self.blackbox.note("heartbeat", status=status, depth=depth)
+        telemetry.serve_queue_depth().set(depth)
+        self.queue.heartbeat(
+            worker_id=self.worker_id, status=status,
+            queue_depth=depth, max_queue_depth=self.max_queue_depth,
+            beams=dict(self.beams), started_at=self.started_at,
+            **({"worker_class": self.worker_class}
+               if self.worker_class else {}))
+        # every heartbeat also drops this worker's registry snapshot
+        # into the spool, so a fleet aggregator can merge ALL
+        # workers' metrics without attaching to any process
+        fleetview.export_worker_snapshot(self.spool, self.worker_id)
+        self._hb_last = now
+
+    def _heartbeat_loop(self) -> None:
+        """Background freshness writer: a beam can hold the main
+        thread for many minutes, and a heartbeat that goes stale
+        mid-compute would make the warm backend abandon tickets a
+        perfectly healthy server still owns."""
+        while not self._stopped.wait(self.heartbeat_interval_s):
+            try:
+                self._heartbeat(
+                    "draining" if self.draining else "running",
+                    force=True)
+            except OSError:
+                pass            # a full disk must not kill the writer
+
+    # ------------------------------------------------------------ serving
+
+    def serve(self, once: bool = False) -> int:
+        """The server loop.  once=True drains the spool's current
+        contents and exits 0 (CI / cron mode); otherwise loops until
+        a drain is requested."""
+        # liveness BEFORE boot work: a cold-cache warm-start gate can
+        # run for minutes, and without a fresh heartbeat through that
+        # window the warm backend would abandon (fail) every ticket
+        # already queued for this perfectly healthy, booting server
+        protocol.ensure_spool(self.spool)
+        self._heartbeat("running", force=True)
+        self._hb_thread = threading.Thread(
+            target=self._heartbeat_loop, name="serve-heartbeat",
+            daemon=True)
+        self._hb_thread.start()
+        try:
+            self.boot()
+        except BaseException:
+            # the kernel library did not build or load, or the device
+            # refused its set-up: nothing is claimed, the heartbeat
+            # says so, and the process exits non-zero
+            self._stopped.set()
+            self._heartbeat("stopped", force=True)
+            raise
+        self.blackbox.arm()
+        self.pipeline.start()
+        try:
+            while not self.draining:
+                try:
+                    self._heartbeat("running")
+                except OSError:
+                    # a failed heartbeat write (spool I/O fault) costs
+                    # freshness, not the worker: the background loop
+                    # retries within heartbeat_interval_s
+                    pass
+                prepared = self.pipeline.next(timeout=self.poll_s)
+                if prepared is not None:
+                    self._process(prepared)
+                    continue
+                if once and self.queue.pending_count() == 0 \
+                        and self.queue.claimed_count() == 0:
+                    break
+        finally:
+            self._shutdown()
+        return 0
+
+    def _shutdown(self) -> None:
+        t0 = time.time()
+        # a drain that reaches here is the clean exit path: the
+        # atexit dump must not leave wreckage for a healthy shutdown
+        self.blackbox.disarm()
+        self._stopped.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=5.0)
+        # join the prefetch thread FIRST: beams it already staged into
+        # the handoff queue (and any it was mid-stage on) hold claims
+        # this worker must give back — then requeue every claim this
+        # pid still owns, attempt-neutral (a drain is not a crash; the
+        # returned beams are not suspects).
+        leftovers = self.pipeline.stop()
+        try:
+            requeued = self.queue.requeue_own_claims()
+        except OSError as e:
+            # a failing spool during drain: the claims stay put and
+            # the janitor recovers them once this pid is gone — the
+            # drain must still stamp its heartbeat and exit
+            self.log.error("drain requeue failed (%s); leaving "
+                           "claims for the janitor", e)
+            requeued = []
+        if requeued:
+            self.log.info(
+                "drain requeued %d unstarted ticket(s) (%d of them "
+                "already staged): %s", len(requeued), len(leftovers),
+                ", ".join(requeued))
+        try:
+            self._heartbeat("stopped", force=True)
+        except OSError:
+            pass
+        dt = time.time() - t0
+        telemetry.serve_drain_seconds().observe(dt)
+        self.log.info(
+            "server stopped after %.0f s: %d done, %d failed, "
+            "%d skipped (drain took %.2f s)",
+            time.time() - self.started_at, self.beams["done"],
+            self.beams["failed"], self.beams["skipped"], dt)
+
+    # ------------------------------------------------------------ one beam
+
+    def _search_one(self, prepared: PreparedBeam):
+        """The real beam runner: the same library calls the per-beam
+        job makes, so results are layout-identical."""
+        # deterministic poisoned-beam injection point: fires before
+        # any device work, shaped like a runtime refusal
+        faults.fire("serve.beam",
+                    detail=f"ticket {prepared.ticket_id}")
+        params = executor.SearchParams.from_config(self.cfg.searching)
+        return search_job.run_search(
+            prepared.ppfns, prepared.workdir,
+            prepared.ticket["outdir"], params, prepared.zaplist,
+            log=lambda msg: self.log.info("[%s] %s",
+                                          prepared.ticket_id, msg),
+            # checkpoint resume evidence rides the ticket journal,
+            # stamped with this worker + attempt: a reclaimed beam's
+            # 'resume'/'pass_complete' chain is auditable fleet-wide
+            journal=lambda event, **extra: self._journal(
+                event, prepared.ticket, **extra),
+            device=self.device)
+
+    def _process(self, prepared: PreparedBeam) -> None:
+        tid = prepared.ticket_id
+        outdir = prepared.ticket.get("outdir", "")
+        t0 = time.time()
+        # adopt the ticket's trace context: every span this thread
+        # records while searching the beam carries the trace id
+        # minted at submission, so a stolen beam's spans from two
+        # workers stitch into one timeline
+        telemetry.trace.set_trace_id(
+            prepared.ticket.get("trace_id", ""))
+        telemetry.trace.instant("serve_beam_start", ticket=tid)
+        if faults.targets("fleet.worker"):
+            try:
+                faults.fire("fleet.worker",
+                            detail=f"ticket {tid} worker "
+                                   f"{self.worker_id or '-'}")
+            except BaseException:
+                # a worker CRASH, not a beam failure: hard exit with
+                # the claim still in place and no result record —
+                # exactly what a real mid-beam kill leaves behind for
+                # requeue_stale_claims / the fleet janitor to recover
+                self.log.error("fleet.worker fault: crashing on "
+                               "ticket %s", tid)
+                # os._exit skips atexit: dump the black box NOW —
+                # this is the evidence trail the injected crash
+                # exists to exercise
+                self.blackbox.dump(
+                    reason=f"fleet.worker fault on {tid}", rc=70)
+                self._crash(70)
+                return          # unreachable with the real os._exit
+        att = int(prepared.ticket.get("attempts", 0))
+        if prepared.error:
+            self.log.error("ticket %s stage-in failed: %s", tid,
+                           prepared.error.splitlines()[0]
+                           if prepared.error else "?")
+            self._finish(tid, "failed", t0, outdir,
+                         error=prepared.error, attempts=att)
+            return
+        self._journal("search_start", prepared.ticket)
+        misses0 = self._compile_misses_total()
+        try:
+            outcome = policy.run_with_deadline(
+                lambda: self.beam_fn(prepared),
+                self.beam_deadline_s, label=f"serve beam {tid}")
+        except policy.DeadlineExceeded as e:
+            # the abandoned runner thread still holds the device AND
+            # the workdir — deliberately LEAK the scratch dir rather
+            # than rmtree it under a live thread; the ticket is
+            # answered now, the leak is bounded per deadline kill
+            self.log.error(
+                "ticket %s exceeded its %.0f s deadline; workdir %s "
+                "left to the abandoned runner", tid,
+                self.beam_deadline_s, prepared.workdir)
+            self._finish(
+                tid, "failed", t0, outdir, error=str(e), attempts=att,
+                compile_misses=self._compile_misses_total() - misses0)
+            return
+        except Exception as e:
+            # crash isolation: THIS ticket failed; the server (and
+            # the device) live on
+            import traceback
+            self.log.exception("ticket %s failed", tid)
+            prepared.cleanup()
+            self._finish(
+                tid, "failed", t0, outdir, attempts=att,
+                error=f"{e}\n{traceback.format_exc()}"[:4000],
+                compile_misses=self._compile_misses_total() - misses0)
+            return
+        prepared.cleanup()
+        if outcome is None:                 # TooShort clean skip
+            self._finish(tid, "skipped", t0, outdir, attempts=att)
+        else:
+            self._finish(tid, "done", t0, outdir, attempts=att,
+                         compile_misses=outcome.compile_misses,
+                         compile_hits=outcome.compile_hits,
+                         candidates=len(outcome.candidates),
+                         dm_trials=outcome.num_dm_trials)
+
+    @staticmethod
+    def _compile_misses_total() -> int:
+        """Process-cumulative kernel-library builds
+        (kernels/cuda_dd.COMPILES): failure paths label their result
+        records from the delta over the beam, since no SearchOutcome
+        exists to carry it."""
+        return cuda_dd.COMPILES["misses"]
+
+    def _publish_result(self, tid: str, outdir: str) -> None:
+        """Candidate-index publication for a finished beam: the
+        index rows are written before the result record that makes
+        them observable.  (The JAX package also pushes the sifted
+        artifacts into its blob store here; the blob data plane is
+        refused at construction.)
+
+        A failed index write degrades, never fails the beam: the
+        search succeeded and the outdir holds the truth; the index is
+        rebuilt from the outdirs (CandidateIndex.rebuild)."""
+        try:
+            dp_index.CandidateIndex(
+                dp_index.index_path(self.jroot)).index_outdir(
+                    tid, outdir, {})
+        except Exception as e:          # noqa: BLE001 — degrade loud
+            self.log.warning(
+                "ticket %s: candidate index write failed (%s) — "
+                "CandidateIndex.rebuild recovers", tid, e)
+
+    def _finish(self, tid: str, status: str, t0: float, outdir: str,
+                error: str = "", **extra) -> None:
+        dt = time.time() - t0
+        if status == "done":
+            # the index rides the SAME durable step as the result:
+            # rows written before the record that makes them
+            # observable
+            self._publish_result(tid, outdir)
+        # a beam is warm when it compiled nothing: the steady state
+        # this subsystem exists to reach (failed beams are labelled
+        # by their measured compile traffic too — a deadline kill
+        # during a compile is a cold failure)
+        warm = extra.get("compile_misses", 0) == 0
+        # a TRANSIENT spool I/O failure (EIO burst, momentary ENOSPC)
+        # must not cost a finished beam its result — retry briefly.
+        # A PERSISTENT one must surface: the raise unwinds the serve
+        # loop into _shutdown, the claim stays in place, and after
+        # this worker dies the janitor reassigns the beam — degraded
+        # but never lost, never double-recorded.
+        for io_try in range(3):
+            try:
+                self.queue.write_result(
+                    tid, status,
+                    rc=0 if status in ("done", "skipped") else 1,
+                    error=error, beam_seconds=dt, warm=warm,
+                    outdir=outdir, worker=self.worker_id,
+                    **({"worker_class": self.worker_class}
+                       if self.worker_class else {}), **extra)
+                break
+            except OSError as e:
+                if io_try == 2:
+                    self.log.error(
+                        "ticket %s: result write failed 3x (%s) — "
+                        "leaving the claim for the janitor", tid, e)
+                    # abnormal exit path: the unwind reaches
+                    # _shutdown (which disarms), so the black box
+                    # must dump here or not at all
+                    self.blackbox.dump(
+                        reason=f"result write failed for {tid}: {e}")
+                    raise
+                self.log.warning(
+                    "ticket %s: result write failed (%s); retrying",
+                    tid, e)
+                time.sleep(0.05 * (io_try + 1))
+        self.blackbox.note("result", ticket=tid, status=status,
+                           seconds=round(dt, 3))
+        self.beams[status] = self.beams.get(status, 0) + 1
+        telemetry.serve_beams_total().inc(outcome=status)
+        if status != "skipped":
+            telemetry.serve_beam_seconds().observe(
+                dt, mode="warm" if warm else "cold")
+        telemetry.trace.set_trace_id("")     # the beam's context ends
+        try:
+            self._heartbeat("running", force=True)
+        except OSError:
+            pass      # the result IS durable; freshness catches up
+        self.log.info("ticket %s -> %s in %.2f s (%s)", tid, status,
+                      dt, "warm" if warm else "cold")

@@ -1,0 +1,233 @@
+"""Host-side stage-in prefetch for the resident server — counterpart
+of tpulsar/serve/stagein.py (PreparedBeam, prepare_beam and
+StageInPipeline; the batched pipeline waits for the batch-of-beams
+executor).
+
+The process-per-beam path pays stage-in (copy raw files to the
+node-local workspace), Mock subband merge, and zaplist selection
+serially before any device work.  In a resident worker those are pure
+host/disk operations, so one background thread prepares beam N+1
+while the device computes beam N — the handoff is a bounded queue
+(depth 1 by default: prefetching further ahead only grows the scratch
+footprint, the device can only consume one beam at a time).
+
+The preparation itself is ``cli.search_job.prepare_inputs`` — the
+same library function the batch path runs — so a beam staged by the
+prefetch thread is byte-identical to one staged by a cold process.
+
+A preparation failure (missing file, corrupt FITS, full disk) is
+carried in ``PreparedBeam.error`` instead of raised: the server marks
+that one job failed and keeps serving — a poisoned input must not
+kill the worker.
+
+Spool-less stage-in: a ticket may carry ``blobs`` (a
+``{filename: sha256}`` map) instead of shared-disk paths, which the
+JAX package pulls by digest from its blob data plane.  This package
+does not have the data plane yet: such a ticket fails its own
+stage-in, with an error naming it, and the worker keeps serving.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import shutil
+import threading
+import time
+import traceback
+from typing import Callable
+
+import numpy as np
+
+from tpulsar_torch.obs import telemetry
+from tpulsar_torch.obs.log import get_logger
+
+
+@dataclasses.dataclass
+class PreparedBeam:
+    """A ticket plus everything the device loop needs to search it."""
+    ticket: dict
+    workdir: str = ""
+    ppfns: list[str] = dataclasses.field(default_factory=list)
+    zaplist: np.ndarray | None = None
+    error: str = ""              # non-empty: stage-in/preprocess failed
+    stagein_seconds: float = 0.0
+
+    @property
+    def ticket_id(self) -> str:
+        return self.ticket.get("ticket", "?")
+
+    def cleanup(self) -> None:
+        if self.workdir:
+            shutil.rmtree(self.workdir, ignore_errors=True)
+
+
+def _stage_blobs(ticket: dict, workdir: str) -> list[str]:
+    """A ticket's ``blobs`` refs ({filename: sha256}) are fetched by
+    digest from the JAX package's blob data plane
+    (dataplane/blobstore.py and dataplane/transfer.py), which this
+    package does not have yet: refused by name.  prepare_beam turns
+    the refusal into this ticket's stage-in failure; the server
+    stays up."""
+    raise NotImplementedError(
+        "tpulsar_torch cannot stage a ticket's blobs: refs yet: the "
+        "blob data plane (dataplane/blobstore.py and "
+        "dataplane/transfer.py) is a later slice of the port")
+
+
+def prepare_beam(ticket: dict, workdir_base: str | None = None,
+                 cfg=None) -> PreparedBeam:
+    """Stage one ticket's beam into a fresh workspace (device-free:
+    safe on a background thread while the device is busy)."""
+    from tpulsar_torch.cli import search_job
+
+    if cfg is None:
+        from tpulsar_torch.config import settings
+        cfg = settings()
+    t0 = time.time()
+    workdir = search_job.init_workspace(
+        workdir_base or cfg.processing.base_working_directory)
+    try:
+        datafiles = ticket["datafiles"]
+        if ticket.get("blobs"):
+            # spool-less path (by-digest refs): refused by name
+            datafiles = _stage_blobs(ticket, workdir)
+        ppfns, zap = search_job.prepare_inputs(
+            datafiles, workdir, cfg=cfg)
+    except BaseException as e:
+        shutil.rmtree(workdir, ignore_errors=True)
+        return PreparedBeam(
+            ticket=ticket,
+            error=f"stage-in failed: {e}\n{traceback.format_exc()}"[:4000])
+    dt = time.time() - t0
+    telemetry.serve_stagein_seconds().observe(dt)
+    return PreparedBeam(ticket=ticket, workdir=workdir, ppfns=ppfns,
+                        zaplist=zap, stagein_seconds=dt)
+
+
+class StageInPipeline:
+    """One background thread: claim tickets, prepare them, hand them
+    over through a bounded queue.
+
+    ``claim`` is any callable returning the next ticket record or
+    None (the server passes protocol.claim_next_ticket on its spool).
+    The bounded handoff queue is the backpressure: with depth 1 the
+    thread stages at most one beam ahead of the device and then
+    blocks, so scratch disk holds at most two staged beams."""
+
+    def __init__(self, claim: Callable[[], dict | None],
+                 workdir_base: str | None = None, cfg=None,
+                 depth: int = 1, poll_s: float = 0.5, logger=None,
+                 journal: Callable | None = None):
+        self.claim = claim
+        self.workdir_base = workdir_base
+        self.cfg = cfg
+        self.poll_s = poll_s
+        self.log = logger or get_logger("serve.stagein")
+        #: optional lifecycle hook ``journal(event, ticket_rec,
+        #: **extra)`` — the server passes its journal writer so
+        #: stage-in outcomes land in the spool's ticket journal
+        self.journal = journal
+        self._out: queue.Queue[PreparedBeam] = queue.Queue(
+            maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        # guarded by _dropped_lock: appended by the stage-in thread,
+        # drained by stop() — which can overlap when the join times out
+        self._dropped: list[PreparedBeam] = []
+        self._dropped_lock = threading.Lock()
+
+    # ----------------------------------------------------------- thread
+
+    def start(self) -> "StageInPipeline":
+        self._thread = threading.Thread(
+            target=self._run, name="serve-stagein", daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                ticket = self.claim()
+            except Exception:
+                self.log.exception("ticket claim failed")
+                ticket = None
+            if ticket is None:
+                self._stop.wait(self.poll_s)
+                continue
+            waited = time.time() - ticket.get("submitted_at",
+                                              time.time())
+            telemetry.serve_admission_wait_seconds().observe(
+                max(0.0, waited))
+            # the prefetch thread stages beam N+1 while the main
+            # thread searches beam N: each thread stamps its OWN
+            # beam's trace id on the spans it records
+            telemetry.trace.set_trace_id(ticket.get("trace_id", ""))
+            try:
+                prepared = prepare_beam(ticket, self.workdir_base,
+                                        self.cfg)
+            finally:
+                telemetry.trace.set_trace_id("")
+            if self.journal is not None:
+                if prepared.error:
+                    self.journal(
+                        "stagein_failed", ticket,
+                        error=prepared.error.splitlines()[0][:200])
+                else:
+                    self.journal(
+                        "stagein_done", ticket,
+                        seconds=round(prepared.stagein_seconds, 3))
+            while not self._stop.is_set():
+                try:
+                    self._out.put(prepared, timeout=0.25)
+                    break
+                except queue.Full:
+                    continue
+            else:
+                # stopping with an unconsumed beam: drop the scratch
+                # dir; the still-claimed ticket is requeued by the
+                # server's drain (requeue_own_claims)
+                prepared.cleanup()
+                with self._dropped_lock:
+                    self._dropped.append(prepared)
+
+    # ----------------------------------------------------------- caller
+
+    def next(self, timeout: float | None = None) -> PreparedBeam | None:
+        """The next prepared beam, or None on timeout."""
+        try:
+            return self._out.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def stop(self) -> list[PreparedBeam]:
+        """Stop and JOIN the thread, then return every prepared-but-
+        unconsumed beam — both those waiting in the handoff queue and
+        any the stopping thread had to drop (all already cleaned up;
+        their tickets are still claimed in the spool for the caller
+        to requeue).  When the join times out the list is best-effort
+        — the abandoned thread may drop one more beam after we return
+        — which is safe because the caller's requeue_own_claims
+        rescans the spool rather than trusting this list."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            if self._thread.is_alive():
+                # a straggling stage-in (huge copy, slow disk): the
+                # caller's requeue_own_claims still returns whatever
+                # ticket it holds; log so the leak is attributable
+                self.log.warning("stage-in thread still running "
+                                 "after stop(); abandoning it")
+        leftovers = []
+        while True:
+            try:
+                b = self._out.get_nowait()
+            except queue.Empty:
+                break
+            b.cleanup()
+            leftovers.append(b)
+        with self._dropped_lock:
+            leftovers.extend(self._dropped)
+            self._dropped = []
+        return leftovers
