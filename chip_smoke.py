@@ -3,20 +3,34 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from tpulsar_torch/csrc and runs six phases:
+Builds the CUDA kernels from tpulsar_torch/csrc and the native unpack
+from tpulsar_torch/native (both builds started together) and runs
+these phases:
 
   1. kernels: each kernel against its plain PyTorch version on the
      card, exact, at every shape of the main path (stage 1 at each
      downsample, stage 2 at each DM chunk and at the one row that
-     refinement dedisperses), with times and bounds;
+     refinement dedisperses, and stage 2's beam axis at B = 2 at each
+     DM chunk, also against two B = 1 launches), with times and
+     bounds; and which stages after dedispersion give a row the same
+     bits inside a two-beam batch of rows as alone (the reason the
+     batch path runs them per beam);
   2. hi stage: the FDAS stage on one full-width ds-1 DM chunk of
      whitened spectra (dedispersed noise with a drifting pulse train):
      the bf16 plane against the f32 plane on the card, the card against
      the CPU's plain f32 on one row, the time a DM row (correlation and
      harmonic sums split) against its bound, and peak memory;
+  tree: the tree stage-2 family (TPULSAR_DD_FAMILY=tree) on the
+     plan's first pass at full width (ds 1, all 76 DM rows), at the
+     default level budget and at 16 GiB, against the CUDA direct
+     kernel on the same subbands (series and fused-detrend norms at
+     rtol 2e-6 / atol 2e-5), with both times and peak memory;
   3. small parity: the zero-accel configuration and the default
      configuration (with an accelerated pulsar) on a small block, on
      the card and on the CPU;
+  read: the full beam below read by read_all_uint8 through the
+     native unpack and through the NumPy unpack, byte-identical, with
+     the read times;
   4. the main path: one full-geometry PALFA Mock beam (960 channels,
      65.476 us, 3,932,160 samples, 4-bit, the 57-pass Mock survey
      plan) with one injected pulsar, written to a temporary directory
@@ -37,21 +51,29 @@ Builds the CUDA kernels from tpulsar_torch/csrc and runs six phases:
      (tools/torch_results_diff.py: timing-bearing files by presence,
      .npz by arrays, tarballs by members), that the pulsar is
      recovered and folded, and that the checkpoint is gone;
-  6. serve: three tickets written to a spool through the port's
-     serve/protocol.py — the same beam into two output directories and
-     a poisoned ticket (a datafile truncated mid-header) — answered by
+  6. serve: two tickets written to a spool through the port's
+     serve/protocol.py — the beam and a poisoned ticket (a datafile
+     truncated mid-header) — answered by
      `python -m tpulsar_torch serve --once` in a subprocess on the card
      (default device, warm boot on; the smoke's wrapper turns plots
      off, as in phase 4, and counts the kernels' launches after boot).
-     It checks that the server exits 0, that both beams are done and
-     warm (no compile) and the poisoned one failed in its stage-in,
+     It checks that the server exits 0, that the beam is done and warm
+     (no compile) and the poisoned one failed in its stage-in,
      the server's counts, the final 'stopped' heartbeat, each ticket's
-     journal chain, that both results directories equal phase 4's
-     (a resident server leaks no state between beams), the pulsar in
-     both, the candidate index's rows, and that the served beams
-     launched each kernel exactly twice as often as phase 4.
+     journal chain, that the results directory equals phase 4's, the
+     pulsar, the candidate index's rows, and that the served beam
+     launched each kernel exactly as often as phase 4.  (Phase 6
+     served the beam twice until the batch phase took the second
+     full beam of the smoke's time.)
+  7. batch: two tickets for the beam into two output directories,
+     answered by `python -m tpulsar_torch serve --once --batch 2` in a
+     subprocess on the card (the same wrapper).  It checks that both
+     are done on the batched path in one batch_dispatch event, warm,
+     that both results directories and both checkpoints' artifacts
+     equal phase 4's, the pulsar in both, and that stage 1 launched
+     once a pass for the group and stage 2's beam axis once a chunk.
 
-Phases 4-6 search with the zaplist the job picks under the default
+Phases 4-7 search with the zaplist the job picks under the default
 configuration (the packaged default.zaplist), as the server does.
 
 Output: progress lines, then the card's name and power limit, one JSON
@@ -75,6 +97,8 @@ import tarfile
 import tempfile
 import time
 
+import threading
+
 import numpy as np
 import torch
 
@@ -85,13 +109,16 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpulsar_torch import checkpoint as ckpt  # noqa: E402
+from tpulsar_torch import native  # noqa: E402
 from tpulsar_torch.cli import search_job  # noqa: E402
-from tpulsar_torch.io import accelcands, synth  # noqa: E402
+from tpulsar_torch.io import accelcands, psrfits, synth  # noqa: E402
 from tpulsar_torch.kernels import accel  # noqa: E402
 from tpulsar_torch.kernels import cuda_dd  # noqa: E402
 from tpulsar_torch.kernels import dedisperse as dd  # noqa: E402
 from tpulsar_torch.kernels import fold_batch  # noqa: E402
 from tpulsar_torch.kernels import fourier as fr  # noqa: E402
+from tpulsar_torch.kernels import singlepulse as sp_k  # noqa: E402
+from tpulsar_torch.kernels import tree_dd  # noqa: E402
 from tpulsar_torch.plan import ddplan  # noqa: E402
 from tpulsar_torch.search import degraded, executor  # noqa: E402
 
@@ -106,9 +133,11 @@ PSR_PERIOD, PSR_DM = 0.25, 50.0
 PARAMS = executor.SearchParams(make_plots=False)
 #: phase 5 resumes the beam at this pass of the 57-pass plan
 K_RESUME = 40
-#: the zaplist of phases 4-6: the one the job (and the server) picks
+#: the zaplist of phases 4-7: the one the job (and the server) picks
 #: for a beam under the default configuration
 ZAPLIST = search_job.choose_zaplist(["beam.fits"], None, None)
+#: the kernels a solo beam launches (the beam axis is the batch path's)
+SOLO_KERNELS = ("form_subbands", "dedisperse_subbands")
 
 
 def log(msg: str) -> None:
@@ -239,15 +268,90 @@ def _stage2_entry(subb, rows_sh, regs, ds: int, launches: int | None,
                 blocks_per_sm=occ)
 
 
+def _stage2_beams_entry(subb, rows_sh, regs, ds: int) -> dict:
+    """Stage 2's beam axis at B = 2 on one shift table: exact against
+    its plain version and against two B = 1 launches; time, bound.
+    Beam 1's subbands are beam 0's rolled along time, so a launch that
+    ignored the beam axis would not pass."""
+    sub3 = torch.stack([subb, torch.roll(subb, 4099, dims=1)])
+    nrows, T = rows_sh.shape[0], subb.shape[1]
+    launch = cuda_dd.stage2_launch(rows_sh)
+    got = cuda_dd.dedisperse_subbands_beams(sub3, rows_sh)
+    want = cuda_dd.dedisperse_subbands_beams_plain(sub3, rows_sh)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"stage-2 beam axis differs from its plain "
+                             f"version at {nrows} rows, ds={ds}: max "
+                             f"|err| {err}")
+    del want
+    for b in range(2):
+        if not torch.equal(got[b], cuda_dd.dedisperse_subbands(
+                sub3[b].contiguous(), rows_sh)):
+            raise AssertionError(f"stage-2 beam axis: beam {b} differs "
+                                 f"from its B = 1 launch ({nrows} rows, "
+                                 f"ds={ds})")
+    del got
+    ms = time_ms(lambda: cuda_dd.dedisperse_subbands_beams(sub3, rows_sh))
+    plain = time_ms(lambda: cuda_dd.dedisperse_subbands_beams_plain(
+        sub3, rows_sh), runs=3)
+    nbytes = 2 * (96 + nrows) * T * 4 + rows_sh.size * 4
+    b, by = bound_ms(nbytes, 2 * nrows * 96 * T)
+    nreg = regs[f"dedisperse_subbands<{launch.rows} rows>"]
+    log(f"kernel dedisperse_subbands_beams B=2 x {nrows} rows x {T} "
+        f"(ds={ds}): exact vs plain and vs two B=1 launches (max|err| "
+        f"{err}), {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
+        f"({by}), share {b / ms:.3f}")
+    return dict(beams=2, rows=nrows, ds=ds, role="batch chunk",
+                span=launch.span, launches=None, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by,
+                groups=launch.groups, group_rows=launch.rows,
+                registers=nreg)
+
+
+def batch_rows_report(subb, rows_sh, ds: int) -> dict:
+    """Which stages after dedispersion give a row the same bits inside
+    a two-beam batch of rows (B x chunk, the reference's batch path)
+    as in the chunk alone (the solo path): one row's rfft, the SP
+    detrend and boxcar, the whitened spectrum and the lo stage.  A
+    report, not a check: the batch path runs these stages per beam,
+    at the solo shapes."""
+    nrows = rows_sh.shape[0]
+    one = cuda_dd.dedisperse_subbands(subb, rows_sh)
+    two = torch.cat([one, torch.roll(one, 977, dims=1)])
+    nfft = ddplan.choose_n(one.shape[1])
+    same = {"rfft of one row": torch.equal(
+        torch.fft.rfft(two, dim=-1)[0], torch.fft.rfft(one[:1], dim=-1)[0])}
+    n1, n2 = (sp_k.detrend_normalize(x) for x in (one, two))
+    same["SP detrend"] = torch.equal(n1, n2[:nrows])
+    b1, b2 = (sp_k.boxcar_search(x) for x in (n1, n1.repeat(2, 1)))
+    same["SP boxcar top-k"] = all(torch.equal(a, b[:, :nrows])
+                                  for a, b in zip(b1, b2))
+    w1, w2 = (fr.whitened_spectrum(x, nfft=nfft) for x in (one, two))
+    same["whitened spectrum"] = torch.equal(w1, w2[:nrows])
+    stages = tuple(fr.harmonic_stages(PARAMS.lo_accel_numharm))
+    l1 = fr.lo_stage_candidates(w1, stages, PARAMS.topk_per_stage)
+    l2 = fr.lo_stage_candidates(w1.repeat(2, 1), stages,
+                                PARAMS.topk_per_stage)
+    same["lo stage"] = all(torch.equal(l1[h][k], l2[h][k][:nrows])
+                           for h in l1 for k in range(2))
+    log(f"batch rows ({nrows} rows alone vs inside {2 * nrows}, ds={ds}): "
+        + ", ".join(f"{k} {'same bits' if v else 'DIFFERENT bits'}"
+                    for k, v in same.items()))
+    return same
+
+
 def kernel_phase(data, freqs: np.ndarray, regs: dict):
     """Each kernel against its plain version at every shape the Mock
     plan launches, and stage 2 at the one row refinement dedisperses
     (ds 1, the pulsar's DM), exact; per shape the time, bound and
-    share of the bound.  Returns the per-shape lists; their per-beam
-    launch counts are completed from the main path's outcome."""
+    share of the bound; stage 2's beam axis at B = 2 at every search
+    chunk shape.  Returns the per-shape lists (stage 1, stage 2, stage
+    2 at B = 2) and the batch-rows report; their per-beam launch counts
+    are completed from the main path's outcome."""
     plan = ddplan.survey_plan("pdev")
     n1, n2 = plan_shapes(plan, NSAMP, PARAMS)
-    s1, s2 = [], []
+    s1, s2, s2b, rows_report = [], [], [], {}
     for step in plan:
         # the step's last pass: its widest shifts (shifts > 0 reach the
         # edge clamp at the series' end)
@@ -284,6 +388,9 @@ def kernel_phase(data, freqs: np.ndarray, regs: dict):
         (nrows, _), = [k for k in n2 if k[1] == ds]
         s2.append(_stage2_entry(got, sub_sh[-nrows:], regs, ds,
                                 n2[(nrows, ds)], "search chunk"))
+        s2b.append(_stage2_beams_entry(got, sub_sh[-nrows:], regs, ds))
+        if ds in (1, 5):
+            rows_report[ds] = batch_rows_report(got, sub_sh[-nrows:], ds)
         del got
 
     # refinement's shape: stage 1 at ds 1 (the per-step shape above),
@@ -294,7 +401,7 @@ def kernel_phase(data, freqs: np.ndarray, regs: dict):
     s2.append(_stage2_entry(subb, sub_sh, regs, 1, None,
                             "refinement, one row"))
     del subb
-    return s1, s2
+    return s1, s2, s2b, rows_report
 
 
 def _inject_drifting_train(series: torch.Tensor, nfft: int, r0: int,
@@ -459,6 +566,95 @@ def hi_beam_bound_ms(plan, nsamp: int) -> float:
         total += (step.dms_per_pass * step.numpasses
                   * hi_row_bound_ms(nbins, len(bank.zs), bank)[0])
     return total
+
+
+#: the tree phase's level budgets: the default (TPULSAR_TREE_BUDGET
+#: unset) and one that lets the full-width tree keep its levels
+TREE_BUDGETS = (None, 16 << 30)
+
+
+def tree_phase(data, freqs: np.ndarray) -> list[dict]:
+    """The tree stage-2 family on the plan's first pass at full width
+    (ds 1, all its DM rows) with TPULSAR_DD_FAMILY=tree, against the
+    CUDA direct kernel on the same subbands: series and the fused
+    detrend's norms at rtol 2e-6 / atol 2e-5 (tests/test_tree_dd.py's
+    summation-order tolerance), the plan, both times and peak memory,
+    at each of TREE_BUDGETS."""
+    step = ddplan.survey_plan("pdev")[0]
+    ppass = step.passes()[0]
+    dms = np.asarray(ppass.dms)
+    ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, ppass.subdm, dms,
+                                        TSAMP, 1)
+    subb = cuda_dd.form_subbands(data, ch_sh, 96, 1)
+    T = subb.shape[1]
+    direct = cuda_dd.dedisperse_subbands(subb, sub_sh)
+    direct_norm = sp_k.detrend_normalize(direct)
+    direct_ms = time_ms(lambda: cuda_dd.dedisperse_subbands(subb, sub_sh))
+    # what the tree's fused residual replaces on the direct path
+    direct_sp_ms = time_ms(lambda: sp_k.detrend_normalize(
+        cuda_dd.dedisperse_subbands(subb, sub_sh)), runs=3)
+    out = []
+    family = os.environ.get("TPULSAR_DD_FAMILY")
+    os.environ["TPULSAR_DD_FAMILY"] = "tree"
+    try:
+        for budget in TREE_BUDGETS:
+            plan = tree_dd.plan_for_pass(sub_sh, T=T, budget=budget,
+                                         device=DEV)
+            if plan is None:
+                raise AssertionError("TPULSAR_DD_FAMILY=tree: no tree plan")
+
+            def run():
+                parts = tree_dd.tree_levels(subb, plan)
+                return tree_dd.residual_series(parts, plan, 0, len(dms), T,
+                                               fuse=True)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            series, norm = run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            errs = []
+            for what, got, want in (("series", series, direct),
+                                    ("fused-detrend norms", norm,
+                                     direct_norm)):
+                err = float((got - want).abs().max())
+                errs.append(err)
+                if not torch.allclose(got, want, rtol=2e-6, atol=2e-5):
+                    raise AssertionError(
+                        f"tree (budget {budget}): {what} differ from the "
+                        f"direct kernel's beyond rtol 2e-6 / atol 2e-5: "
+                        f"max |err| {err}")
+            exact = torch.equal(series, direct)
+            del series, norm
+            tree_ms = time_ms(run, runs=3)
+            log(f"tree pass 0 (ds 1, {len(dms)} DM rows x {T}, budget "
+                f"{budget or tree_dd.level_budget()} B): depth "
+                f"{plan.depth}, cost_rows {plan.cost_rows} (direct "
+                f"{len(dms) * 96}), residual fraction "
+                f"{plan.residual_fraction:.4f}; series max|err| "
+                f"{errs[0]} ({'bit-identical' if exact else 'within tol'}), "
+                f"norms max|err| {errs[1]}; levels + residual + fused "
+                f"detrend {tree_ms:.3f} ms vs direct kernel + detrend "
+                f"{direct_sp_ms:.3f} ms ({tree_ms / direct_sp_ms:.2f}x; "
+                f"the kernel alone {direct_ms:.3f} ms); peak memory "
+                f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+                f"above the inputs)")
+            out.append(dict(budget=budget or tree_dd.level_budget(),
+                            depth=plan.depth, cost_rows=plan.cost_rows,
+                            residual_fraction=plan.residual_fraction,
+                            tree_ms=tree_ms, direct_ms=direct_ms,
+                            direct_detrend_ms=direct_sp_ms,
+                            peak_bytes=peak, series_err=errs[0],
+                            norm_err=errs[1]))
+    finally:
+        if family is None:
+            del os.environ["TPULSAR_DD_FAMILY"]
+        else:
+            os.environ["TPULSAR_DD_FAMILY"] = family
+    del subb, direct, direct_norm
+    torch.cuda.empty_cache()
+    return out
 
 
 def _small_pulsar_block(seed: int, period: float, dm: float, amp: float,
@@ -826,7 +1022,7 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
             launches["dedisperse_subbands"] != exp2:
         raise AssertionError(f"phase 5 launch counts {launches} != "
                              f"expected ({exp1}, {exp2})")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in SOLO_KERNELS) < 1:
         raise AssertionError(f"phase 5: a kernel never launched: "
                              f"{launches}")
     problems = results_diff().diff_results(p4["resultsdir"], out5)
@@ -855,14 +1051,28 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
 
 #: runs `python -m tpulsar_torch ARGS` (the package as __main__, as -m
 #: does) with plots off, as phase 4 searches (the card's machine has
-#: no matplotlib); resets the kernels' launch counts right after the
-#: server's boot and writes them, with the boot's own, to
-#: $SMOKE_COUNTS at exit
+#: no matplotlib); resets the kernels' launch counts and the peak
+#: device memory right after the server's boot and writes them, with
+#: the boot's own counts, to $SMOKE_COUNTS at exit; keeps a copy of
+#: each checkpoint the job cleans, beside its output directory, as
+#: <outdir>.checkpoint
 SERVE_WRAPPER = r"""
-import dataclasses, json, os, runpy, sys
+import dataclasses, json, os, runpy, shutil, sys
+import torch
+from tpulsar_torch import checkpoint
 from tpulsar_torch.kernels import cuda_dd
 from tpulsar_torch.search import executor
 from tpulsar_torch.serve import server
+
+clean = checkpoint.clean
+
+
+def kept_clean(root):
+    shutil.copytree(root, os.path.dirname(root) + ".checkpoint")
+    clean(root)
+
+
+checkpoint.clean = kept_clean
 
 from_config = executor.SearchParams.from_config
 executor.SearchParams.from_config = classmethod(
@@ -876,6 +1086,7 @@ def counted_boot(self):
     counts["boot"] = dict(cuda_dd.LAUNCHES)
     counts["boot_seconds"] = self.boot_seconds
     cuda_dd.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
 
 
 server.SearchServer.boot = counted_boot
@@ -884,44 +1095,41 @@ try:
     runpy.run_module("tpulsar_torch", run_name="__main__", alter_sys=True)
 finally:
     counts["served"] = dict(cuda_dd.LAUNCHES)
+    counts["peak_bytes"] = torch.cuda.max_memory_allocated()
     with open(os.environ["SMOKE_COUNTS"], "w") as fh:
         json.dump(counts, fh)
 """
 
 
-def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
-    """Phase 6: the resident server answers three spool tickets (the
-    beam twice, then a poisoned ticket) in a subprocess on the card."""
-    from tpulsar_torch.dataplane import index as dp_index
-    from tpulsar_torch.obs import journal
+def run_server(tmp: str, name: str, tickets: dict, args=()) -> dict:
+    """Write the tickets ({tid: (files, outdir)}, in order) to a spool
+    and answer them with `python -m tpulsar_torch serve --once ARGS`
+    in a subprocess on the card, through SERVE_WRAPPER, with the
+    default configuration and every path under tmp.  Returns the
+    spool, the result records, the wrapper's counts, the server
+    process's wall time and its log."""
     from tpulsar_torch.serve import protocol
 
-    spool = os.path.join(tmp, "spool")
-    outs = {t: os.path.join(tmp, f"served_{t}") for t in ("t0", "t1",
-                                                         "t2")}
-    poison = os.path.join(tmp, "poison", os.path.basename(fns[0]))
-    os.makedirs(os.path.dirname(poison))
-    with open(fns[0], "rb") as src, open(poison, "wb") as dst:
-        dst.write(src.read(1500))         # FITS headers are 2880 bytes
-    for tid, files in (("t0", fns), ("t1", fns), ("t2", [poison])):
-        protocol.write_ticket(spool, tid, files, outs[tid])
+    spool = os.path.join(tmp, f"{name}_spool")
+    for tid, (files, outdir) in tickets.items():
+        protocol.write_ticket(spool, tid, files, outdir)
         time.sleep(0.01)                  # FIFO by submission time
     # the default configuration with every path under tmp (a python
     # configuration file: the card's machine may have no YAML parser)
-    cfg = os.path.join(tmp, "serve_cfg.py")
-    paths = {"processing": {"base_working_directory": "serve_work",
-                            "base_results_directory": "serve_res"},
-             "basic": {"log_dir": "serve_logs"},
-             "download": {"datadir": "serve_raw"},
-             "background": {"jobtracker_db": "serve_jt.db"},
-             "resultsdb": {"url": "serve_results.db"}}
+    cfg = os.path.join(tmp, f"{name}_cfg.py")
+    paths = {"processing": {"base_working_directory": "work",
+                            "base_results_directory": "res"},
+             "basic": {"log_dir": "logs"},
+             "download": {"datadir": "raw"},
+             "background": {"jobtracker_db": "jt.db"},
+             "resultsdb": {"url": "results.db"}}
     with open(cfg, "w") as fh:
         for dom, kv in paths.items():
-            fh.write(f"{dom} = " + repr({k: os.path.join(tmp, v)
+            fh.write(f"{dom} = " + repr({k: os.path.join(tmp, f"{name}_{v}")
                                          for k, v in kv.items()}) + "\n")
-    counts_path = os.path.join(tmp, "serve_counts.json")
-    hb_path = os.path.join(tmp, "stage_heartbeat.json")
-    log_path = os.path.join(tmp, "serve.log")
+    counts_path = os.path.join(tmp, f"{name}_counts.json")
+    hb_path = os.path.join(tmp, f"{name}_stage_heartbeat.json")
+    log_path = os.path.join(tmp, f"{name}.log")
     env = dict(os.environ, SMOKE_COUNTS=counts_path,
                TPULSAR_STAGE_HEARTBEAT=hb_path,
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
@@ -930,95 +1138,204 @@ def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
     with open(log_path, "w") as logf:
         rc = subprocess.run(
             [sys.executable, "-c", SERVE_WRAPPER, "--config", cfg,
-             "serve", "--once", "--spool", spool], env=env,
+             "serve", "--once", "--spool", spool, *args], env=env,
             stdout=logf, stderr=subprocess.STDOUT, timeout=900).returncode
     wall = time.time() - t0
     with open(log_path) as fh:
         text = fh.read()
     for line in text.splitlines():
         if re.search(r"serve: |boot took|ticket .* -> |stage-in failed|"
-                     r"server stopped|Error|Traceback", line):
-            log(f"  served: {line[:300]}")
+                     r"server stopped|\[batch\]|Error|Traceback", line):
+            log(f"  {name}: {line[:300]}")
     if rc != 0:
-        raise AssertionError(f"phase 6: the server exited {rc}:\n"
+        raise AssertionError(f"{name}: the server exited {rc}:\n"
                              f"{text[-4000:]}")
-    recs = {t: protocol.read_result(spool, t) for t in outs}
-    for t in ("t0", "t1"):
-        r = recs[t]
-        if r is None or r["status"] != "done":
-            raise AssertionError(f"phase 6: {t} not done: {r}")
-        if not r["warm"] or r["compile_misses"] != 0:
-            raise AssertionError(f"phase 6: {t} paid a compile: {r}")
+    with open(counts_path) as fh:
+        counts = json.load(fh)
+    with open(hb_path) as fh:
+        beat = json.load(fh)
+    return dict(spool=spool, wall_s=wall, counts=counts, beat=beat,
+                recs={t: protocol.read_result(spool, t) for t in tickets})
+
+
+def check_journal(spool: str, tid: str, want: list[str], what: str
+                  ) -> list[str]:
+    """A ticket's journal chain is well formed and holds the events of
+    `want` in that order; returns its events, repeats folded."""
+    from tpulsar_torch.obs import journal
+
+    evs = journal.read_events(spool, ticket=tid)
+    names = [e["event"] for e in evs]
+    problems = journal.validate_chain(evs)
+    if problems or [n for n in names if n in want] != want:
+        raise AssertionError(f"{what}: {tid}'s journal chain {names}: "
+                             f"{problems}")
+    return [f"{n} x{names.count(n)}" if names.count(n) > 1 else n
+            for i, n in enumerate(names) if n not in names[:i]]
+
+
+def stagein_seconds(spool: str, tid: str):
+    from tpulsar_torch.obs import journal
+
+    return next((e.get("seconds") for e in journal.read_events(
+        spool, ticket=tid) if e["event"] == "stagein_done"), None)
+
+
+def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
+    """Phase 6: the resident server answers two spool tickets (the
+    beam, then a poisoned ticket) in a subprocess on the card."""
+    from tpulsar_torch.dataplane import index as dp_index
+
+    outs = {t: os.path.join(tmp, f"served_{t}") for t in ("t0", "t2")}
+    poison = os.path.join(tmp, "poison", os.path.basename(fns[0]))
+    os.makedirs(os.path.dirname(poison))
+    with open(fns[0], "rb") as src, open(poison, "wb") as dst:
+        dst.write(src.read(1500))         # FITS headers are 2880 bytes
+    run = run_server(tmp, "serve", {"t0": (fns, outs["t0"]),
+                                    "t2": ([poison], outs["t2"])})
+    spool, recs, counts = run["spool"], run["recs"], run["counts"]
+    r = recs["t0"]
+    if r is None or r["status"] != "done":
+        raise AssertionError(f"phase 6: t0 not done: {r}")
+    if not r["warm"] or r["compile_misses"] != 0:
+        raise AssertionError(f"phase 6: t0 paid a compile: {r}")
     bad = recs["t2"]
     if bad is None or bad["status"] != "failed" \
             or "stage-in failed" not in bad["error"]:
         raise AssertionError(f"phase 6: the poisoned ticket: {bad}")
+    from tpulsar_torch.serve import protocol
     hb = protocol.read_heartbeat(spool)
     if hb["status"] != "stopped" or hb["beams"] != {
-            "done": 2, "failed": 1, "skipped": 0}:
+            "done": 1, "failed": 1, "skipped": 0}:
         raise AssertionError(f"phase 6: final heartbeat {hb}")
-    chains, stages = {}, {}
-    for t in outs:
-        evs = journal.read_events(spool, ticket=t)
-        names = [e["event"] for e in evs]
-        problems = journal.validate_chain(evs)
-        want = (["claimed", "search_start", "result"] if t != "t2"
-                else ["claimed", "stagein_failed", "result"])
-        if problems or [n for n in names if n in want] != want:
-            raise AssertionError(f"phase 6: {t}'s journal chain "
-                                 f"{names}: {problems}")
-        chains[t] = [f"{n} x{names.count(n)}" if names.count(n) > 1
-                     else n for i, n in enumerate(names)
-                     if n not in names[:i]]
-    stagein = {t: next((e.get("seconds") for e in journal.read_events(
-        spool, ticket=t) if e["event"] == "stagein_done"), None)
-        for t in ("t0", "t1")}
-    diff = results_diff().diff_results
-    for a, b in (("t0", "t1"), ("t0", "phase 4"), ("t1", "phase 4")):
-        problems = diff(outs[a], outs[b] if b != "phase 4"
-                        else p4["resultsdir"])
-        if problems:
-            raise AssertionError(f"phase 6: {a}'s results differ from "
-                                 f"{b}'s: " + "; ".join(problems[:10]))
-    log(f"phase 6: t0's, t1's and phase 4's results directories are "
-        f"pairwise equal ({len(os.listdir(outs['t0']))} files)")
-    for t in ("t0", "t1"):
-        check_pulsar(outs[t], p4["basenm"], f"phase 6 {t}")
-        stages[t] = report_stages(os.path.join(
-            outs[t], f"{p4['basenm']}.report"))
+    chains = {"t0": check_journal(spool, "t0", ["claimed", "search_start",
+                                                "result"], "phase 6"),
+              "t2": check_journal(spool, "t2", ["claimed", "stagein_failed",
+                                                "result"], "phase 6")}
+    problems = results_diff().diff_results(outs["t0"], p4["resultsdir"])
+    if problems:
+        raise AssertionError("phase 6: t0's results differ from phase "
+                             "4's: " + "; ".join(problems[:10]))
+    log(f"phase 6: t0's results directory equals phase 4's "
+        f"({len(os.listdir(outs['t0']))} files)")
+    check_pulsar(outs["t0"], p4["basenm"], "phase 6 t0")
+    stages = report_stages(os.path.join(outs["t0"],
+                                        f"{p4['basenm']}.report"))
     idx = dp_index.CandidateIndex(dp_index.index_path(spool))
-    for t in ("t0", "t1"):
-        rows = idx.candidate_rows(t)
-        if not rows or rows != dp_index.candidate_rows(outs[t]):
-            raise AssertionError(f"phase 6: {t}'s index rows do not "
-                                 f"match its .accelcands")
-    if idx.tickets() != ["t0", "t1"]:
+    rows = idx.candidate_rows("t0")
+    if not rows or rows != dp_index.candidate_rows(outs["t0"]):
+        raise AssertionError("phase 6: t0's index rows do not match its "
+                             ".accelcands")
+    if idx.tickets() != ["t0"]:
         raise AssertionError(f"phase 6: index tickets {idx.tickets()}")
-    with open(counts_path) as fh:
-        counts = json.load(fh)
     served = counts["served"]
-    if served != {k: 2 * v for k, v in p4["launches"].items()}:
+    if served != p4["launches"]:
         raise AssertionError(f"phase 6: served launches {served} != "
-                             f"twice phase 4's {p4['launches']}")
-    with open(hb_path) as fh:
-        beat = json.load(fh)
+                             f"phase 4's {p4['launches']}")
+    stagein = stagein_seconds(spool, "t0")
     log(f"phase 6: boot {counts['boot_seconds']:.3f} s (boot launches "
-        f"{counts['boot']}); beam_seconds t0 {recs['t0']['beam_seconds']:.3f}"
-        f" s, t1 {recs['t1']['beam_seconds']:.3f} s (phase 4 search_beam "
-        f"{p4['wall_s']:.3f} s); stage-in t0 {stagein['t0']} s, t1 "
-        f"{stagein['t1']} s; t2 {recs['t2']['beam_seconds']:.3f} s; "
-        f"server process {wall:.3f} s")
-    log(f"phase 6: served launches {served} (twice phase 4's); "
-        f"journal chains {json.dumps(chains)}")
-    log(f"phase 6: the stage heartbeat's last record: {json.dumps(beat)}")
-    log("phase 6 stage seconds (each beam's .report), t0 / t1 / phase "
-        "4: " + json.dumps({k: [v, stages["t1"].get(k),
-                                round(p4["stages"].get(k, 0.0), 2)]
-                            for k, v in stages["t0"].items()}))
+        f"{counts['boot']}); beam_seconds t0 {r['beam_seconds']:.3f} s "
+        f"(phase 4 search_beam {p4['wall_s']:.3f} s); stage-in t0 "
+        f"{stagein} s; t2 {bad['beam_seconds']:.3f} s; peak device memory "
+        f"after boot {counts['peak_bytes'] / 2**30:.3f} GiB; server process "
+        f"{run['wall_s']:.3f} s")
+    log(f"phase 6: served launches {served} (phase 4's); journal chains "
+        f"{json.dumps(chains)}")
+    log(f"phase 6: the stage heartbeat's last record: "
+        f"{json.dumps(run['beat'])}")
+    log("phase 6 stage seconds (the beam's .report), t0 / phase 4: "
+        + json.dumps({k: [v, round(p4["stages"].get(k, 0.0), 2)]
+                      for k, v in stages.items()}))
     return dict(launches=served, boot=counts["boot"],
-                boot_s=counts["boot_seconds"], wall_s=wall,
+                boot_s=counts["boot_seconds"], wall_s=run["wall_s"],
                 beam_s={t: recs[t]["beam_seconds"] for t in outs},
-                stagein_s=stagein, stages=stages)
+                stagein_s=stagein, stages=stages,
+                peak_bytes=counts["peak_bytes"])
+
+
+def batch_phase(fns: list[str], tmp: str, nsamp: int, plan,
+                p4: dict) -> dict:
+    """Phase 7: `serve --once --batch 2` answers two tickets for the
+    beam as one coalesced group in a subprocess on the card."""
+    from tpulsar_torch.obs import journal
+
+    outs = {t: os.path.join(tmp, f"batch_{t}") for t in ("b0", "b1")}
+    run = run_server(tmp, "batch", {t: (fns, o) for t, o in outs.items()},
+                     args=("--batch", "2"))
+    spool, recs, counts = run["spool"], run["recs"], run["counts"]
+    for t, r in recs.items():
+        if r is None or r["status"] != "done":
+            raise AssertionError(f"phase 7: {t} not done: {r}")
+        if r.get("batch_path") != "batched" or r.get("batch_beams") != 2:
+            raise AssertionError(f"phase 7: {t} was not searched in a "
+                                 f"group of 2: {r}")
+        if not r["warm"] or r["compile_misses"] != 0:
+            raise AssertionError(f"phase 7: {t} paid a compile: {r}")
+    dispatches = [e for e in journal.read_events(spool)
+                  if e["event"] == "batch_dispatch"]
+    if len(dispatches) != 1 or dispatches[0]["beams"] != 2 or \
+            sorted(dispatches[0]["tickets"]) != ["b0", "b1"]:
+        raise AssertionError(f"phase 7: batch_dispatch events "
+                             f"{dispatches}")
+    chains = {t: check_journal(spool, t, ["claimed", "search_start",
+                                          "result"], "phase 7")
+              for t in outs}
+    diff = results_diff().diff_results
+    p4_ck = ckpt.read_manifest(p4["ckdir"])["entries"]
+    for t, out in outs.items():
+        problems = diff(out, p4["resultsdir"])
+        if problems:
+            raise AssertionError(f"phase 7: {t}'s results differ from "
+                                 f"phase 4's: " + "; ".join(problems[:10]))
+        kept = ckpt.read_manifest(out + ".checkpoint")
+        entries = kept["entries"] if kept else {}
+        if {k: e["sha256"] for k, e in entries.items()} != \
+                {k: e["sha256"] for k, e in p4_ck.items()}:
+            raise AssertionError(
+                f"phase 7: {t}'s checkpoint artifacts differ from phase "
+                f"4's: " + ", ".join(sorted(
+                    k for k in set(entries) | set(p4_ck)
+                    if entries.get(k, {}).get("sha256")
+                    != p4_ck.get(k, {}).get("sha256")))[:500])
+        check_pulsar(out, p4["basenm"], f"phase 7 {t}")
+    npass = sum(1 for _ in _passes(plan))
+    s1, s2 = (sum(n.values()) for n in plan_shapes(plan, nsamp, PARAMS))
+    nref = p4["n2"].get((1, 1), 0) - plan_shapes(plan, nsamp, PARAMS)[1] \
+        .get((1, 1), 0)
+    per_beam1 = sum(p4["n1"].values()) - s1       # refinement + folds
+    want = {"form_subbands": s1 + 2 * per_beam1,
+            "dedisperse_subbands": 2 * nref,
+            "dedisperse_subbands_beams": s2}
+    served = counts["served"]
+    log(f"phase 7 launches: {served} (expected form_subbands "
+        f"{want['form_subbands']} = {s1} coalesced passes ({npass} in the "
+        f"plan) + 2 x {per_beam1} refinement and fold passes; "
+        f"dedisperse_subbands {want['dedisperse_subbands']} = 2 x {nref} "
+        f"refinement rows; dedisperse_subbands_beams "
+        f"{want['dedisperse_subbands_beams']} = {s2} search chunks)")
+    if served != want:
+        raise AssertionError(f"phase 7: launch counts {served} != "
+                             f"expected {want}")
+    log(f"phase 7: b0's and b1's results directories and checkpoint "
+        f"artifacts ({len(p4_ck)}) equal phase 4's; journal chains "
+        f"{json.dumps(chains)}")
+    beam_s = {t: recs[t]["beam_seconds"] for t in outs}
+    log(f"phase 7: boot {counts['boot_seconds']:.3f} s; beam_seconds b0 "
+        f"{beam_s['b0']:.3f} s, b1 {beam_s['b1']:.3f} s (phase 4 "
+        f"search_beam {p4['wall_s']:.3f} s); stage-in b0 "
+        f"{stagein_seconds(spool, 'b0')} s, b1 "
+        f"{stagein_seconds(spool, 'b1')} s; peak device memory after boot "
+        f"{counts['peak_bytes'] / 2**30:.3f} GiB; server process "
+        f"{run['wall_s']:.3f} s")
+    stages = report_stages(os.path.join(outs["b0"],
+                                        f"{p4['basenm']}.report"))
+    log("phase 7 stage seconds (b0's .report: the group's plan loop, "
+        "then b0's own finish), b0 / phase 4: "
+        + json.dumps({k: [v, round(p4["stages"].get(k, 0.0), 2)]
+                      for k, v in stages.items()}))
+    return dict(launches=served, want=want, beam_s=beam_s,
+                wall_s=run["wall_s"], boot_s=counts["boot_seconds"],
+                peak_bytes=counts["peak_bytes"], stages=stages)
 
 
 def report_stages(path: str) -> dict:
@@ -1034,12 +1351,41 @@ def report_stages(path: str) -> dict:
     return out
 
 
+def read_phase(fns: list[str]) -> dict:
+    """read_all_uint8 of the beam through the native unpack and through
+    the NumPy unpack (the file just written is in the page cache for
+    both): byte-identical blocks and affine maps, the unpack counter
+    naming the path that ran, and each read's seconds."""
+    reads = {}
+    for unpack in ("native", "numpy"):
+        psrfits.reset_counts()
+        t0 = time.time()
+        got = psrfits.SpectraInfo(fns, unpack=unpack).read_all_uint8()
+        reads[unpack] = (time.time() - t0, got)
+        other = "numpy" if unpack == "native" else "native"
+        if psrfits.UNPACKS[unpack] < 1 or psrfits.UNPACKS[other] != 0:
+            raise AssertionError(f"read ({unpack}): unpack counts "
+                                 f"{psrfits.UNPACKS}")
+    for name, a, b in zip(("block", "scale", "offset"),
+                          reads["native"][1], reads["numpy"][1]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"read: the native and NumPy reads' "
+                                 f"{name}s differ "
+                                 f"({int(np.count_nonzero(a != b))} values)")
+    nat, npy = reads["native"][0], reads["numpy"][0]
+    del reads
+    log(f"read_all_uint8 of the beam: native unpack {nat:.3f} s, NumPy "
+        f"unpack {npy:.3f} s (NumPy / native {npy / nat:.2f}x); blocks, "
+        f"scales and offsets byte-identical; unpack counts name the path")
+    return dict(native_s=nat, numpy_s=npy)
+
+
 def _passes(plan) -> list:
     return [pp for s in plan for pp in s.passes()]
 
 
 def slice_phase(nsamp: int) -> dict:
-    """Phases 4, 5 and 6 on one synthesized beam."""
+    """The read phase and phases 4 to 7 on one synthesized beam."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
         spec = mock_spec(nsamp)
@@ -1055,20 +1401,25 @@ def slice_phase(nsamp: int) -> dict:
             f"samples, 4-bit, {os.path.getsize(fns[0]) / 1e9:.3f} GB in "
             f"{t_write:.1f} s")
         plan = ddplan.survey_plan("pdev")
+        read = read_phase(fns)
         p4 = main_path_phase(fns, tmp, nsamp, plan)
+        p4["read"] = read
         p4["resume"] = resume_phase(fns, tmp, nsamp, plan, p4)
         p4["serve"] = serve_phase(fns, tmp, p4)
+        p4["batch"] = batch_phase(fns, tmp, nsamp, plan, p4)
         return p4
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def kernel_rows(s1, s2, n1: dict, n2: dict) -> list[dict]:
+def kernel_rows(s1, s2, s2b, n1: dict, n2: dict) -> list[dict]:
     """The kernels line: per shape the main path's launches at that
-    shape, per beam the sums over those launches of each time."""
+    shape, per beam the sums over those launches of each time (for
+    the beam axis, per group of two beams: its launches are the batch
+    phase's, one per search chunk)."""
     for x in s1:
         x["launches"] = n1.get(x["ds"], 0)
-    for x in s2:
+    for x in s2 + s2b:
         x["launches"] = n2.get((x["rows"], x["ds"]), 0)
     rows = []
     for name, shapes, replaces in (
@@ -1077,11 +1428,16 @@ def kernel_rows(s1, s2, n1: dict, n2: dict) -> list[dict]:
              "at :318)"),
             ("dedisperse_subbands", s2,
              "tpulsar/kernels/pallas_dd.py:68 (_kernel_roll, pallas_call "
-             "at :205)")):
+             "at :205)"),
+            ("dedisperse_subbands_beams", s2b,
+             "tpulsar/kernels/pallas_dd.py:68 (_kernel_roll, pallas_call "
+             "at :205), with the beam axis of "
+             "tpulsar/kernels/beam_batch.py:248 (_dd_beams_scan_impl)")):
         tot = {k: sum(x["launches"] * x[k] for x in shapes)
                for k in ("ms", "plain_ms", "bound_ms")}
         by = {x["bound_by"] for x in shapes}
-        log(f"per beam {name}: {tot['ms']:.3f} ms, plain "
+        log(f"per {'group of 2 beams' if shapes is s2b else 'beam'} "
+            f"{name}: {tot['ms']:.3f} ms, plain "
             f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms, "
             f"share {tot['bound_ms'] / tot['ms']:.3f}")
         rows.append(dict(
@@ -1091,7 +1447,9 @@ def kernel_rows(s1, s2, n1: dict, n2: dict) -> list[dict]:
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=tot["bound_ms"],
             bound_by=by.pop() if len(by) == 1 else "bytes",
-            library_ms=None, per="beam", shapes=shapes))
+            library_ms=None,
+            per="2-beam group" if shapes is s2b else "beam",
+            shapes=shapes))
     return rows
 
 
@@ -1101,9 +1459,28 @@ def main() -> None:
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
+    # both builds at once: g++ for the native unpack in a thread, nvcc
+    # for the CUDA kernels here
     t0 = time.time()
+    built: dict = {}
+
+    def build_native():
+        try:
+            native.load()
+            built["native"] = time.time() - t0
+        except BaseException as e:      # re-raised below
+            built["error"] = e
+
+    th = threading.Thread(target=build_native)
+    th.start()
     path = cuda_dd.build(verbose_ptxas=True)
-    log(f"built {os.path.relpath(path)} in {time.time() - t0:.2f} s")
+    t_cuda = time.time() - t0
+    th.join()
+    if "error" in built:
+        raise built["error"]
+    log(f"built {os.path.relpath(path)} in {t_cuda:.2f} s and "
+        f"{os.path.relpath(native.library_path())} in "
+        f"{built['native']:.2f} s (together {time.time() - t0:.2f} s)")
     regs = ptxas_report(cuda_dd.BUILD_LOG)
 
     freqs = synth.channel_freqs(mock_spec(NSAMP))
@@ -1111,8 +1488,9 @@ def main() -> None:
     gen.manual_seed(7)
     data = torch.randint(0, 256, (NCHAN, NSAMP), generator=gen,
                          device=DEV, dtype=torch.uint8)
-    s1, s2 = kernel_phase(data, freqs, regs)
+    s1, s2, s2b, _rows_report = kernel_phase(data, freqs, regs)
     hi_phase(data, freqs)
+    tree_phase(data, freqs)
     del data
     small_parity_phase()
 
@@ -1121,18 +1499,25 @@ def main() -> None:
         log(f"NSAMP CUT: {nsamp} samples instead of {NSAMP} "
             f"(TPULSAR_SMOKE_NSAMP); channels, nsub and plan unchanged")
     res = slice_phase(nsamp)
-    rows = kernel_rows(s1, s2, res["n1"], res["n2"])
+    rows = kernel_rows(s1, s2, s2b, res["n1"], res["n2"])
     for r in rows:
-        r["launches"] = res["launches"][r["name"]]
-        # the resumed search's own run (phase 5) and the served beams
-        # (phase 6, after the server's boot), each counted from 0 too
-        r["launches_resumed"] = res["resume"]["launches"][r["name"]]
-        r["launches_served"] = res["serve"]["launches"][r["name"]]
-        if min(r["launches"], r["launches_resumed"],
-               r["launches_served"]) < 1:
-            raise AssertionError(f"{r['name']} never launched on the "
-                                 f"main path, the resumed path or the "
-                                 f"served path")
+        # each path counted from 0: the full beam (phase 4), the
+        # resumed search (phase 5), the served beam and the served
+        # batch (phases 6 and 7, after each server's boot)
+        name = r["name"]
+        r["launches_resumed"] = res["resume"]["launches"][name]
+        r["launches_served"] = res["serve"]["launches"][name]
+        r["launches_batch"] = res["batch"]["launches"][name]
+        if name in SOLO_KERNELS:
+            r["launches"] = res["launches"][name]
+            paths = ("launches", "launches_resumed", "launches_served",
+                     "launches_batch")
+        else:
+            r["launches"] = r["launches_batch"]
+            paths = ("launches_batch",)
+        if min(r[k] for k in paths) < 1:
+            raise AssertionError(f"{name} never launched on one of its "
+                                 f"paths: {[(k, r[k]) for k in paths]}")
     log(f"smoke wall {time.time() - t_smoke:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": rows}), flush=True)

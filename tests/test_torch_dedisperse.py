@@ -200,8 +200,11 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     np.testing.assert_array_equal(
         out.numpy(), cuda_dd.form_subbands_plain(data, sh, 2, 1).numpy())
     cuda_dd.dedisperse_subbands(out, np.zeros((3, 2), np.int32))
+    cuda_dd.dedisperse_subbands_beams(torch.stack([out, out]),
+                                      np.zeros((3, 2), np.int32))
     assert cuda_dd.LAUNCHES == {"form_subbands": 0,
-                                "dedisperse_subbands": 0}
+                                "dedisperse_subbands": 0,
+                                "dedisperse_subbands_beams": 0}
 
 
 @pytest.fixture

@@ -9,7 +9,12 @@ The JAX package's metrics.json also holds the compile-cache families
 its runtime monitor records (tpulsar/aot/), which the port has no
 counterpart of yet (ROADMAP item 16); its trace holds their
 backend_compile spans.  The port times the file read as its own
-stage, "read"."""
+stage, "read".
+
+Both tracers hold process-wide state that other test files change:
+tests/test_aot.py ends a test with the JAX tracer's stop(), which
+pins it off whatever TPULSAR_TRACE says, so the fixture resets both
+tracers to the environment's control before it searches."""
 
 from __future__ import annotations
 
@@ -58,6 +63,8 @@ def traced(tmp_path_factory):
     saved = {k: os.environ.get(k)
              for k in ("TPULSAR_TRACE", "TPULSAR_DD_FAMILY")}
     os.environ.update(TPULSAR_TRACE="1", TPULSAR_DD_FAMILY="direct")
+    jtrace.reset()
+    ttrace.reset()
     try:
         jo = jex.search_beam(fns, str(root / "jw"), str(root / "jr"),
                              jp, plan=plan)
@@ -83,21 +90,45 @@ def _load(outcome, name):
         return json.load(fh)
 
 
+def _catalog(telemetry) -> dict:
+    """Every metric family of a package's instrument catalog
+    (obs/telemetry.py) as its registry snapshot records it: each
+    getter that needs no argument, called once."""
+    import inspect
+
+    for name, fn in vars(telemetry).items():
+        if (inspect.isfunction(fn) and fn.__module__ == telemetry.__name__
+                and not name.startswith("_")
+                and all(p.default is not p.empty for p in
+                        inspect.signature(fn).parameters.values())):
+            fn()
+    return telemetry.metrics.REGISTRY.snapshot()
+
+
 def test_metrics_json_names_labels_and_counts(traced):
     jo, to = traced
     jm, tm = _load(jo, "metrics.json"), _load(to, "metrics.json")
-    # a gauge is a point-in-time reading, kept whole in the delta, so
-    # the JAX file also carries gauges that other tests in this
-    # process set (the tree family's depth, the fleet's size); the port
-    # records no gauge
-    assert {r["type"] for r in tm.values()} <= {"counter", "histogram"}
-    assert set(tm) == {n for n, r in jm.items() if r["type"] != "gauge"} \
-        - JAX_COMPILE_METRICS
-    for name in tm:
+    # every family the port records, gauges included, is a family of
+    # the JAX package's catalog with the same type, help, label names
+    # and buckets (a gauge is a point-in-time reading, kept whole in
+    # the delta, so either file may also carry gauges that other
+    # tests in this process set)
+    from tpulsar.obs import telemetry as jtelemetry
+    from tpulsar_torch.obs import telemetry as ttelemetry
+
+    catalog = _catalog(jtelemetry)
+    port = _catalog(ttelemetry)
+    assert set(tm) <= set(port)
+    for name, rec in port.items():
+        assert name in catalog, name
         for key in ("type", "help", "labelnames"):
-            assert tm[name][key] == jm[name][key], (name, key)
-        if tm[name]["type"] == "histogram":
-            assert tm[name]["buckets"] == jm[name]["buckets"], name
+            assert rec[key] == catalog[name][key], (name, key)
+        if rec["type"] == "histogram":
+            assert rec["buckets"] == catalog[name]["buckets"], name
+    # the counters and histograms of this beam are the JAX beam's
+    assert {n for n, r in tm.items() if r["type"] != "gauge"} == \
+        {n for n, r in jm.items() if r["type"] != "gauge"} \
+        - JAX_COMPILE_METRICS
     for name in ("tpulsar_passes_total", "tpulsar_dm_trials_total",
                  "tpulsar_dedisp_trials_total",
                  "tpulsar_accel_batch_trials_total",

@@ -43,6 +43,8 @@ import tpulsar_torch.obs.fleetview, tpulsar_torch.obs.log
 import tpulsar_torch.dataplane.index, tpulsar_torch.resilience.policy
 import tpulsar_torch.orchestrate.zaplists
 import tpulsar_torch.orchestrate.transports
+import tpulsar_torch.native, tpulsar_torch.kernels.tree_dd
+import tpulsar_torch.kernels.beam_batch
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tpulsar" or m.startswith("tpulsar."))
@@ -151,15 +153,10 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path,
 
 @pytest.mark.parametrize("change, word", [
     ("mesh", "mesh"),
-    ("tree", "tree"),
 ])
 def test_later_slices_are_refused_by_name(change, word, monkeypatch):
     params = tex.SearchParams.slice_defaults()
-    kw = {}
-    if change == "mesh":
-        kw["mesh"] = object()
-    else:
-        monkeypatch.setenv("TPULSAR_DD_FAMILY", "tree")
+    kw = {"mesh": object()}
     with pytest.raises(NotImplementedError, match=word):
         tex.search_block(np.zeros((4, 256), np.float32),
                          np.linspace(1200, 1500, 4), 1e-3,
@@ -168,7 +165,6 @@ def test_later_slices_are_refused_by_name(change, word, monkeypatch):
 
 
 @pytest.mark.parametrize("option, word", [
-    (dict(batch_size=2), "search_beam_batch"),
     (dict(stream=True), "stream"),
     (dict(queue_url="sqlite:q.db"), "sqlite_queue.py"),
     ("TPULSAR_DATA_URL", "dataplane/blobstore.py"),
@@ -176,8 +172,8 @@ def test_later_slices_are_refused_by_name(change, word, monkeypatch):
 ])
 def test_serve_refuses_later_slices_by_name(option, word, tmp_path,
                                             monkeypatch):
-    """Batched admission, stream mode, the sqlite queue and the blob
-    data plane raise NotImplementedError naming what they need, when
+    """Stream mode, the sqlite queue and the blob data plane raise
+    NotImplementedError naming what they need, when
     the server is built (a blob ticket fails its own stage-in:
     test_torch_serve.py)."""
     from tpulsar_torch.config import TpulsarConfig
@@ -213,14 +209,14 @@ def test_blob_tickets_are_refused_by_name(tmp_path):
 
 
 @pytest.mark.parametrize("flag, word", [
-    (["--batch", "2"], "search_beam_batch"),
     (["--stream"], "stream/"),
     (["--queue", "sqlite:q.db"], "sqlite_queue.py"),
 ])
 def test_serve_cli_refuses_later_slices_by_name(flag, word, tmp_path,
                                                 capsys, monkeypatch):
-    """`serve --batch 2`, `--stream` and a sqlite queue exit 2 with the
-    refusal, before anything is claimed."""
+    """`serve --stream` and a sqlite queue exit 2 with the refusal,
+    before anything is claimed (`serve --batch 2` runs:
+    test_torch_beam_batch.py)."""
     from tpulsar_torch.cli import main as tmain
     from tpulsar_torch.config import TpulsarConfig, set_settings
 
@@ -258,19 +254,26 @@ def _tiny_pulsar_block():
     (dict(max_cands_to_fold=3), "folding"),
     (dict(max_cands_to_fold=3, make_plots=True), "plotting"),
     ("checkpoint", "checkpoint"),
+    ("tree", "tree"),
 ])
-def test_earlier_refused_options_now_run(change, stage, tmp_path):
-    """The hi-accel stage, refinement, folding, plots and
-    checkpoint/resume are ported: each is accepted and a tiny search
-    runs it on the CPU (search_block; search_beam for the plots, which
-    it draws)."""
+def test_earlier_refused_options_now_run(change, stage, tmp_path,
+                                         monkeypatch):
+    """The hi-accel stage, refinement, folding, plots,
+    checkpoint/resume and the tree stage-2 family are ported: each is
+    accepted and a tiny search runs it on the CPU (search_block;
+    search_beam for the plots, which it draws)."""
     from tpulsar_torch import checkpoint as ckpt
+    from tpulsar_torch.obs import telemetry
     from tpulsar_torch.search import degraded
 
     kw = {}
     if change == "checkpoint":
         kw["checkpoint_dir"] = str(tmp_path / "ck")
         change = dict(max_cands_to_fold=3)
+    elif change == "tree":
+        monkeypatch.setenv("TPULSAR_DD_FAMILY", "tree")
+        change = dict(max_cands_to_fold=3)
+    base = telemetry.metrics.REGISTRY.snapshot()
     params = tex.SearchParams.slice_defaults(nsub=8, lo_accel_numharm=4,
                                              topk_per_stage=8, **change)
     tex.check_supported(params)
@@ -291,14 +294,20 @@ def test_earlier_refused_options_now_run(change, stage, tmp_path):
         assert ntr == 4 and final
         assert abs(final[0].freq_hz - 10.0) < 0.05
     assert stage + ("search" if stage == "hi-accel" else "") \
-        in timers.times or stage == "checkpoint"
+        in timers.times or stage in ("checkpoint", "tree")
+    fams = telemetry.metrics.diff_snapshots(
+        telemetry.metrics.REGISTRY.snapshot(), base)[
+            "tpulsar_dedisp_trials_total"]["series"]
+    if stage == "tree":
+        assert fams == {"tree": 4.0}
     if stage == "checkpoint":
         entries = ckpt.read_manifest(kw["checkpoint_dir"])["entries"]
         assert {"pass_0000", "sifted", "fold_0000"} <= set(entries)
     if stage == "hi-accel":
         # all four trials went through the hi stage, none skipped
         assert degraded.counts()["accel_hi_chunk_skipped"] == (0, 4, 1)
-    if stage in ("hi-accel", "refinement", "folding", "checkpoint"):
+    if stage in ("hi-accel", "refinement", "folding", "checkpoint",
+                 "tree"):
         # refined r leaves the half-bin grid; unrefined r stays on it
         on_grid = 2 * final[0].r == round(2 * final[0].r)
         assert on_grid == (stage != "refinement")

@@ -2,8 +2,8 @@
 `tpulsar_torch.cli.search_job.main` and `tpulsar.cli.search_job.main`
 on the same synthesized Mock subband pair through the DATAFILES/OUTDIR
 contract, with the default configuration (plots on) cut to a DM window
-of 0-8; the job's skip, signal, device and configuration rules; and
-the parts that belong to later slices raising by name.
+of 0-8; and the job's skip, signal, device and configuration rules
+(its batch entry point, run_search_batch: test_torch_beam_batch.py).
 
 Candidates compare at test_torch_default_golden.py's tolerances (the
 JAX side runs the direct stage-2 family)."""
@@ -232,11 +232,6 @@ def test_packaged_zaplist_is_the_jax_packages():
     jz = jjob.choose_zaplist(["nonexistent.fits"], None, None)
     assert tz is not None and tz.shape[1] == 2
     assert (tz == jz).all()
-
-
-def test_later_slices_raise_naming_their_modules(tmp_path):
-    with pytest.raises(NotImplementedError, match="search_beam_batch"):
-        tjob.run_search_batch([], tex.SearchParams())
 
 
 def _zaplist_store(root, names=("P2030.20101225.b3.zaplist",

@@ -6,8 +6,10 @@ counterpart of ``tpulsar.kernels.dedisperse``) and imports nothing of
 it.  It runs the reference's default single-beam search on one
 device: dedispersion, single-pulse search, the zero-accel and hi-accel
 (FDAS) periodicity searches, sifting, harmpolish refinement, candidate
-folding and plots, with pass-level checkpoint/resume, and the
-per-beam job a queue runs (``python -m tpulsar_torch.cli.search_job``).  Plain tensor code is PyTorch (FFTs through
+folding and plots, with pass-level checkpoint/resume, the per-beam
+job a queue runs (``python -m tpulsar_torch.cli.search_job``) and the
+resident server (``python -m tpulsar_torch serve``, ``--batch N`` for
+coalesced groups of beams).  Plain tensor code is PyTorch (FFTs through
 ``torch.fft``, cuFFT on the GPU); the two Pallas kernels of the
 reference (stage-1 subband formation and stage-2 shift-and-sum
 dedispersion) are CUDA kernels written for Hopper

@@ -7,8 +7,9 @@ Subcommands so far:
   serve — the resident search server (serve/server.py): one
           device-owning process drains the spool admission queue,
           paying process start, kernel build and device set-up once
-          per boot instead of once per beam.  It takes the JAX
-          package's ``tpulsar serve`` flags plus ``--device`` (cuda,
+          per boot instead of once per beam (``--batch N`` searches
+          up to N compatible beams as one coalesced group).  It takes
+          the JAX package's ``tpulsar serve`` flags plus ``--device`` (cuda,
           the default, or cpu; without a GPU it fails unless
           ``--device cpu`` is given).
 
@@ -82,6 +83,7 @@ def cmd_serve(args) -> int:
             heartbeat_interval_s=cfg.jobpooler.serve_heartbeat_interval_s,
             prefetch_depth=args.prefetch_depth,
             batch_size=args.batch,
+            batch_linger_s=args.batch_linger,
             stream=args.stream,
             device=args.device)
     except (RuntimeError, NotImplementedError) as e:
@@ -97,6 +99,8 @@ def cmd_serve(args) -> int:
           + (f"class {args.worker_class} " if args.worker_class
              else "")
           + f"device {server.device} "
+          + (f"batch {server.batch_size} " if server.batch_size > 1
+             else "")
           + f"(depth {server.max_queue_depth}, "
           f"warm boot {'on' if server.warm_boot else 'off'}"
           + (f", beam deadline {args.beam_deadline:g} s"
@@ -159,11 +163,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="capacity class stamped on heartbeats, "
                          "claims, and results")
     sp.add_argument("--batch", type=int, default=1,
-                    help="batched admission (N > 1 is not ported yet: "
-                         "it needs the batch-of-beams executor)")
+                    help="batched admission: claim up to N "
+                         "compatible tickets per ordering pass and "
+                         "search them as ONE coalesced batch-of-"
+                         "beams dispatch (1 = per-beam admission); "
+                         "per-beam results, checkpoints, and "
+                         "exactly-once semantics are unchanged")
     sp.add_argument("--batch-linger", type=float, default=2.0,
                     help="bounded wait (s) a partial batch lingers "
-                         "(with --batch > 1, not ported yet)")
+                         "for late-arriving compatible tickets "
+                         "before dispatching partial")
     sp.add_argument("--stream", action="store_true",
                     help="streaming search mode (not ported yet: it "
                          "needs the streaming plane)")

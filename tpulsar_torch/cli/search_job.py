@@ -204,14 +204,58 @@ def run_search(ppfns: list[str], workdir: str, outdir: str,
 
 
 def run_search_batch(jobs: list[dict], params: "executor.SearchParams",
-                     log=print, cap: int = 0) -> list[tuple]:
-    """The batch analogue of :func:`run_search` in the JAX package.
-    It needs the batch-of-beams executor (search_beam_batch and
-    kernels/beam_batch.py), which this package does not have yet."""
-    raise NotImplementedError(
-        "tpulsar_torch has no run_search_batch yet: it needs "
-        "executor.search_beam_batch and kernels/beam_batch.py, a later "
-        "slice of the port")
+                     log=print, cap: int = 0,
+                     device=None) -> list[tuple]:
+    """Search a batch of prepared beams through the coalesced
+    batch-of-beams executor entry and make each beam's results
+    durable in ITS outdir — the batch analogue of :func:`run_search`,
+    with identical per-beam results discipline (checkpoints in the
+    durable outdir, results copied only on success, resume state
+    cleaned only after results are durable, TooShort = clean skip).
+
+    ``jobs``: dicts of ``{ppfns, workdir, outdir, zap, journal,
+    label}``.  Returns one ``(status, payload, path)`` tuple per job,
+    aligned: ``("done", SearchOutcome, "batched"|"solo")``,
+    ``("skipped", None, path)``, or ``("failed", error, path)`` — a
+    beam's failure never fails its batchmates.  device: as
+    run_search's."""
+    specs = [executor.BeamSpec(
+        fns=j["ppfns"], workdir=j["workdir"],
+        resultsdir=os.path.join(j["workdir"], "results"),
+        zaplist=j.get("zap"),
+        checkpoint_dir=ckpt.default_root(j["outdir"]),
+        checkpoint_journal=j.get("journal"),
+        label=j.get("label", "")) for j in jobs]
+    results = executor.search_beam_batch(specs, params, cap=cap,
+                                         device=device)
+    out: list[tuple] = []
+    for j, r in zip(jobs, results):
+        label = j.get("label", "?")
+        if r.error is not None:
+            if isinstance(r.error, executor.TooShortToSearchError):
+                os.makedirs(j["outdir"], exist_ok=True)
+                with open(os.path.join(j["outdir"], "skipped.txt"),
+                          "w") as fh:
+                    fh.write(str(r.error) + "\n")
+                log(f"[{label}] skipped: {r.error}")
+                out.append(("skipped", None, r.path))
+            else:
+                log(f"[{label}] failed: {r.error}")
+                out.append(("failed", r.error, r.path))
+            continue
+        outcome = r.outcome
+        os.makedirs(j["outdir"], exist_ok=True)
+        for name in os.listdir(outcome.resultsdir):
+            shutil.copy2(os.path.join(outcome.resultsdir, name),
+                         os.path.join(j["outdir"], name))
+        # only after results are durable is resume state disposable
+        ckpt.clean(ckpt.default_root(j["outdir"]))
+        log(f"[{label}] {r.path} (group {r.group_size}"
+            f"{', ' + r.fallout if r.fallout else ''}): "
+            f"{len(outcome.candidates)} candidates, "
+            f"{outcome.num_dm_trials} DM trials")
+        out.append(("done", outcome, r.path))
+    return out
 
 
 def _keep_stderr_clean() -> None:

@@ -96,12 +96,19 @@
 //     loaded once per block.
 //   - Neighbouring threads read neighbouring samples for every row, so
 //     the shared loads are conflict-free.
+//   - A beam axis.  B beams that share one shift table (the
+//     batch-of-beams path, tpulsar/kernels/beam_batch.py's
+//     _dd_beams_scan) run in the same launch with gridDim.y = B:
+//     block (x, y) is block x of the solo launch on beam y's subbands
+//     and output, so each beam's sums are the solo kernel's, in the
+//     same order.  The shift table is shared.  Solo is B = 1.
 // What remains is that floor: the kernel's time sits close to it
 // (PERF.md).  Keeping a row's samples in registers for the next row of
 // equal offset (common on the Mock plan) was tried and lost more to
 // the branch than it saved in loads.
 // Summation order (the contract with the reference's scan,
-// tpulsar/kernels/dedisperse.py:_dedisperse_subbands_scan): every
+// tpulsar/kernels/dedisperse.py:_dedisperse_subbands_scan, and with
+// its beam-axis form): every
 // accumulator starts at 0.0f and adds the subbands one at a time in s
 // order; no partial sums are combined, and the s loop is never split
 // across threads or blocks, so the result is bit-identical to it.
@@ -475,6 +482,10 @@ dedisperse_kernel(const float* __restrict__ subb, int nsub, int64_t T_len,
                   const int* __restrict__ tables, int ndms, int ngroups,
                   int span, float* __restrict__ out) {
     extern __shared__ __align__(16) unsigned char smem_dd[];
+    // the beam: every pointer below is into beam blockIdx.y's
+    // (nsub, T) subbands and (ndms, T) output
+    subb += (int64_t)blockIdx.y * nsub * T_len;
+    out += (int64_t)blockIdx.y * ndms * T_len;
     uint64_t* bar = reinterpret_cast<uint64_t*>(smem_dd);
     // rel: (nsub, kDdGroupRows) shifts minus the group's smallest shift
     // for that subband; lo: (nsub,) those smallest shifts
@@ -660,13 +671,15 @@ int dd_blocks_per_sm(int kernel, int rows, int64_t smem) {
     return err == cudaSuccess ? n : -(int)err;
 }
 
-// tables: (ngroups, dd_table_ints(nsub)) int32, each group's
-// [rel (nsub, kDdGroupRows) | lo (nsub,) | pad]; grows rows a group
-// (the last may hold fewer); out: (ndms, T_len).
-int dd_dedisperse(const float* subb, int nsub, int64_t T_len,
+// subb: (nbeams, nsub, T_len); tables: (ngroups, dd_table_ints(nsub))
+// int32, each group's [rel (nsub, kDdGroupRows) | lo (nsub,) | pad],
+// shared by the beams; grows rows a group (the last may hold fewer);
+// out: (nbeams, ndms, T_len).
+int dd_dedisperse(const float* subb, int nbeams, int nsub, int64_t T_len,
                   const int* tables, int ndms, int ngroups, int grows,
                   int span, float* out, void* stream) {
-    if (ndms < 1 || grows < 1 || grows > kDdGroupRows
+    if (nbeams < 1 || nbeams > 65535 || ndms < 1 || grows < 1
+        || grows > kDdGroupRows
         || (int64_t)ngroups * grows < ndms
         || (int64_t)(ngroups - 1) * grows >= ndms)
         return (int)cudaErrorInvalidValue;
@@ -678,7 +691,8 @@ int dd_dedisperse(const float* subb, int nsub, int64_t T_len,
                         &span, &out};
         return (int)cudaLaunchKernel(
             reinterpret_cast<const void*>(dd_kernels()[grows - 1]),
-            dim3((unsigned)(ntiles * ngroups)), dim3(kDdThreads), args,
+            dim3((unsigned)(ntiles * ngroups), (unsigned)nbeams),
+            dim3(kDdThreads), args,
             (size_t)smem, (cudaStream_t)stream);
     }
     return (int)cudaGetLastError();

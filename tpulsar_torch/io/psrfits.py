@@ -7,9 +7,14 @@ itself (which the reference leaves to PRESTO's C code): 4/8/16-bit
 unpacking, per-channel scales/offsets/weights, polarization summing,
 band flipping, and inter-file padding.
 
-Only the NumPy unpack path is kept here: the JAX package's native
-C++ fast paths (tpulsar/native) are host helpers this package does
-not carry.
+Two unpack paths, chosen by the caller (``SpectraInfo(...,
+unpack=)``): "native" (the default) runs the C++ fast paths of
+tpulsar_torch/native (the fused 4-bit unpack + calibration and the
+fused 4-bit unpack + uint8 requantization, and the lookup-table
+unpack of 4/2/1-bit samples); "numpy" is the plain version.  There is
+no fallback between them: where the native path applies and its
+library cannot be built, the read raises.  UNPACKS counts which path
+unpacked each chunk of rows.
 
 Key behaviors carried over from the reference (cited by file:line into
 /root/reference):
@@ -63,13 +68,31 @@ class _FileInfo:
     num_pad: int = 0
 
 
+#: chunks of subint rows unpacked by each path since the last
+#: reset_counts() (instrumentation: a run can show which path read it)
+UNPACKS = {"native": 0, "numpy": 0}
+UNPACK_PATHS = ("native", "numpy")
+
+
+def reset_counts() -> None:
+    for k in UNPACKS:
+        UNPACKS[k] = 0
+
+
 class SpectraInfo:
     """Aggregate header/geometry info for one or more PSRFITS files
-    belonging to a single observation, in time order."""
+    belonging to a single observation, in time order.
 
-    def __init__(self, filenames: list[str]):
+    unpack: "native" (default) or "numpy" — which unpack decodes the
+    samples (see the module docstring)."""
+
+    def __init__(self, filenames: list[str], unpack: str = "native"):
         if not filenames:
             raise ValueError("SpectraInfo needs at least one file")
+        if unpack not in UNPACK_PATHS:
+            raise ValueError(f"unpack must be one of {UNPACK_PATHS}, "
+                             f"got {unpack!r}")
+        self.unpack = unpack
         self.filenames = list(filenames)
         self.num_files = len(filenames)
         self.N = 0
@@ -269,8 +292,15 @@ class SpectraInfo:
         nrows = raw.shape[0]
         nsblk, npol, nchan = self.spectra_per_subint, self.num_polns, self.num_channels
 
+        if self._fast4_applicable():
+            data = self._read_fused_4bit(rows, raw, nrows, nsblk, nchan,
+                                         apply_calibration)
+            if self.need_flipband:
+                data = data[:, ::-1]
+            return np.ascontiguousarray(data)
+
         data = unpack_samples(raw.reshape(nrows, -1), self.bits_per_sample,
-                              self.signed_ints)
+                              self.signed_ints, unpack=self.unpack)
         data = data.reshape(nrows, nsblk, npol, nchan).astype(np.float32)
 
         if apply_calibration:
@@ -300,6 +330,59 @@ class SpectraInfo:
         if self.need_flipband:
             data = data[:, ::-1]
         return np.ascontiguousarray(data)
+
+    def _fast4_applicable(self) -> bool:
+        """Shared guard of the native 4-bit fast paths: the native
+        unpack was asked for and the data is unsigned single-poln
+        4-bit with an even channel count."""
+        return (self.unpack == "native" and self.bits_per_sample == 4
+                and not self.signed_ints and self.num_polns == 1
+                and self.num_channels % 2 == 0)
+
+    def _row_effective_affine(self, rows, r: int, nchan: int
+                              ) -> tuple[np.ndarray, np.ndarray]:
+        """Per-subint-row calibration folded to one (eff_scl,
+        eff_off) per channel, FILE channel order:
+        (x - z)*scl*wts + offs*wts = x*(scl*wts) + (offs - z*scl)*wts.
+        Both native fast paths (float32 calibrate and uint8
+        requantize) fold through it."""
+        scl = (np.asarray(rows["DAT_SCL"][r], np.float32)
+               .reshape(nchan) if self.need_scale
+               else np.ones(nchan, np.float32))
+        offs = (np.asarray(rows["DAT_OFFS"][r], np.float32)
+                .reshape(nchan) if self.need_offset
+                else np.zeros(nchan, np.float32))
+        eff_off = offs - self.zero_off * scl
+        eff_scl = scl
+        if self.need_weight:
+            wts = np.asarray(rows["DAT_WTS"][r],
+                             np.float32).reshape(nchan)
+            eff_scl = eff_scl * wts
+            eff_off = eff_off * wts
+        return eff_scl, eff_off
+
+    def _read_fused_4bit(self, rows, raw, nrows, nsblk, nchan,
+                         apply_calibration) -> np.ndarray:
+        """Single-poln 4-bit fast path: the native fused unpack +
+        calibrate kernel (tpulsar_torch/native/unpack.cpp).  Returns
+        (nrows*nsblk, nchan) float32 in file channel order."""
+        from tpulsar_torch import native
+
+        packed = np.ascontiguousarray(
+            np.asarray(raw).reshape(nrows, nsblk, nchan // 2))
+        ones = np.ones(nchan, dtype=np.float32)
+        zeros = np.zeros(nchan, dtype=np.float32)
+        out = np.empty((nrows * nsblk, nchan), dtype=np.float32)
+        for r in range(nrows):
+            if apply_calibration:
+                eff_scl, eff_off = self._row_effective_affine(
+                    rows, r, nchan)
+            else:
+                eff_scl, eff_off = ones, zeros
+            out[r * nsblk:(r + 1) * nsblk] = native.unpack4_calibrate(
+                packed[r], eff_scl, eff_off)
+        UNPACKS["native"] += 1
+        return out
 
     def read_all(self, apply_calibration: bool = True) -> np.ndarray:
         """Decode the entire observation into one (N, nchan) float32
@@ -347,6 +430,38 @@ class SpectraInfo:
         offset = (med - 128.0 * scale).astype(np.float32)
         return np.full(self.num_channels, scale, np.float32), offset
 
+    def _read_quantized_4bit(self, ii: int, lo: int, hi: int,
+                             qscale: np.ndarray, qoffset: np.ndarray,
+                             out_slice: np.ndarray) -> None:
+        """Single-poln 4-bit fast path of read_all_uint8: the native
+        fused unpack + requantize kernel (unpack.cpp), with per-row
+        calibration and the block affine folded into one per-channel
+        (a, b): q = clip(rint(x*a + b)).  Writes into out_slice
+        (ascending-frequency channel order)."""
+        from tpulsar_torch import native
+
+        finfo = self._files[ii]
+        subint_hdu = fitscore.get_hdu(finfo.hdus, "SUBINT")
+        rows = subint_hdu.data[lo:hi]
+        raw = np.asarray(rows["DATA"])
+        nrows = hi - lo
+        nsblk = self.spectra_per_subint
+        nchan = self.num_channels
+        packed = np.ascontiguousarray(
+            raw.reshape(nrows, nsblk, nchan // 2))
+        qs = float(qscale[0])
+        # qoffset is in ascending-frequency order; calibration arrays
+        # are in file order
+        qoff_file = qoffset[::-1] if self.need_flipband else qoffset
+        for r in range(nrows):
+            eff_scl, eff_off = self._row_effective_affine(rows, r, nchan)
+            a = eff_scl / qs
+            b = (eff_off - qoff_file) / qs
+            res = native.unpack4_quantize(packed[r], a, b)
+            out_slice[r * nsblk:(r + 1) * nsblk] = \
+                res[:, ::-1] if self.need_flipband else res
+        UNPACKS["native"] += 1
+
     def read_all_uint8(self, target_std_lsb: float = 18.0,
                        chunk_subints: int = 16
                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -377,6 +492,12 @@ class SpectraInfo:
             file_start = pos
             for r0 in range(0, finfo.num_subint, chunk_subints):
                 hi = min(r0 + chunk_subints, finfo.num_subint)
+                if self._fast4_applicable():
+                    n = (hi - r0) * nsblk
+                    self._read_quantized_4bit(ii, r0, hi, scale, offset,
+                                              out[pos: pos + n])
+                    pos += n
+                    continue
                 blockf = self.read_subints(ii, r0, hi)
                 q = np.rint((blockf - offset) / scale)
                 out[pos: pos + len(blockf)] = np.clip(
@@ -394,13 +515,23 @@ class SpectraInfo:
         return out[:pos], scale, offset
 
 
-def unpack_samples(raw: np.ndarray, nbits: int, signed: bool = False) -> np.ndarray:
+def unpack_samples(raw: np.ndarray, nbits: int, signed: bool = False,
+                   unpack: str = "native") -> np.ndarray:
     """Unpack packed sample bytes to integer samples.
 
     raw: (..., nbytes) uint8.  For nbits=4 the high nibble is the
     earlier sample (PSRFITS convention).  Returns (..., nsamples).
+    unpack="native" takes the native lookup-table unpack for unsigned
+    4/2/1-bit samples (raising if its library cannot be built);
+    "numpy" the plain version below.
     """
     raw = np.asarray(raw, dtype=np.uint8)
+    if unpack == "native" and nbits in (4, 2, 1) and not signed:
+        from tpulsar_torch import native
+        out = native.unpack_bits(raw, nbits)
+        UNPACKS["native"] += 1
+        return out
+    UNPACKS["numpy"] += 1
     if nbits == 8:
         return raw.astype(np.int16) if not signed else raw.view(np.int8).astype(np.int16)
     if nbits == 16:

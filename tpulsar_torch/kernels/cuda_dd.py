@@ -5,6 +5,9 @@ tpulsar_torch/csrc/dedisperse.cu (the design notes are there):
 
   form_subbands        <- pallas_dd._kernel_sb   (via _form_subbands_block)
   dedisperse_subbands  <- pallas_dd._kernel_roll (via _dedisperse_chunk)
+  dedisperse_subbands_beams  the same stage-2 kernel with a beam axis
+                       (gridDim.y = B), for the batch-of-beams path
+                       (the reference's beam_batch._dd_beams_scan)
 
 The library is compiled for sm_90a with nvcc at first use, from the
 sources in this checkout only, into tpulsar_torch/_build/, and bound
@@ -46,7 +49,8 @@ DD_SUB_PER_STAGE = 8
 MAX_SMEM = 232_448
 
 #: launches per kernel since the last reset_counts()
-LAUNCHES = {"form_subbands": 0, "dedisperse_subbands": 0}
+LAUNCHES = {"form_subbands": 0, "dedisperse_subbands": 0,
+            "dedisperse_subbands_beams": 0}
 #: kernel-library compiles in this process: "hits" counts loads of a
 #: library already built in _build/, "misses" counts nvcc builds (the
 #: counterpart of the JAX package's compile-cache hits and misses)
@@ -115,7 +119,7 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = [P, I, L, P, I, I, P, P]
             fn.restype = I
-        lib.dd_dedisperse.argtypes = [P, I, L, P, I, I, I, I, P, P]
+        lib.dd_dedisperse.argtypes = [P, I, I, L, P, I, I, I, I, P, P]
         lib.dd_dedisperse.restype = I
         lib.dd_dedisperse_smem_bytes.argtypes = [I, I]
         lib.dd_dedisperse_smem_bytes.restype = L
@@ -336,30 +340,37 @@ def stage2_launch(sub_shifts) -> Stage2Launch:
     return Stage2Launch(groups, rows, span, smem, tables)
 
 
-def dedisperse_subbands(subb: torch.Tensor, sub_shifts) -> torch.Tensor:
-    """Stage 2: (nsub, T) float32 + (ndms, nsub) shifts -> (ndms, T)
-    float32 DM series, in one kernel launch (see stage2_launch and
-    dedisperse_subbands_plain)."""
-    if not isinstance(subb, torch.Tensor) or subb.dim() != 2:
-        raise ValueError("dedisperse_subbands: subb must be a 2-d tensor")
+def _stage2_args(subb: torch.Tensor, sub_shifts, what: str,
+                 ndim: int) -> np.ndarray:
+    """Check a stage-2 call's inputs; return the host shift table."""
+    if not isinstance(subb, torch.Tensor) or subb.dim() != ndim:
+        raise ValueError(f"{what}: subb must be a {ndim}-d tensor")
     if subb.dtype != torch.float32:
-        raise ValueError(f"dedisperse_subbands: dtype {subb.dtype} not "
-                         f"taken (float32)")
-    nsub, T = subb.shape
-    sh = _host_shifts(sub_shifts, 2, "dedisperse_subbands")
+        raise ValueError(f"{what}: dtype {subb.dtype} not taken "
+                         f"(float32)")
+    nsub, T = subb.shape[-2:]
+    sh = _host_shifts(sub_shifts, 2, what)
     if sh.shape[1] != nsub:
-        raise ValueError(f"dedisperse_subbands: shift table {sh.shape} "
-                         f"vs {nsub} subbands")
-    if not _check_device(subb, "dedisperse_subbands"):
-        return dedisperse_subbands_plain(subb, sh)
-    if not subb.is_contiguous():
-        raise ValueError("dedisperse_subbands: subb must be contiguous")
+        raise ValueError(f"{what}: shift table {sh.shape} vs {nsub} "
+                         f"subbands")
     if sh.size and sh.max() > np.iinfo(np.int32).max - T:
-        raise ValueError("dedisperse_subbands: shift out of range")
+        raise ValueError(f"{what}: shift out of range")
+    return sh
+
+
+def _launch_stage2(subb: torch.Tensor, sh: np.ndarray, what: str
+                   ) -> torch.Tensor:
+    """One stage-2 launch over (B, nsub, T) subbands on the card ->
+    (B, ndms, T); the B beams share the shift table."""
+    if not subb.is_contiguous():
+        raise ValueError(f"{what}: subb must be contiguous")
+    B, nsub, T = subb.shape
+    if B > 65535:
+        raise ValueError(f"{what}: {B} beams in one launch (> 65535)")
     dev = subb.device
     ndms = sh.shape[0]
-    out = torch.empty((ndms, T), dtype=torch.float32, device=dev)
-    if ndms == 0:
+    out = torch.empty((B, ndms, T), dtype=torch.float32, device=dev)
+    if ndms == 0 or B == 0:
         return out
     plan = stage2_launch(sh)
     lib = _load()
@@ -368,11 +379,50 @@ def dedisperse_subbands(subb: torch.Tensor, sub_shifts) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _check(lib.dd_dedisperse(
-            subb.data_ptr(), nsub, T, tables.data_ptr(), ndms, plan.groups,
-            plan.rows, plan.span, out.data_ptr(), stream),
-            "dedisperse_subbands")
-    LAUNCHES["dedisperse_subbands"] += 1
+            subb.data_ptr(), B, nsub, T, tables.data_ptr(), ndms,
+            plan.groups, plan.rows, plan.span, out.data_ptr(), stream),
+            what)
     return out
+
+
+def dedisperse_subbands(subb: torch.Tensor, sub_shifts) -> torch.Tensor:
+    """Stage 2: (nsub, T) float32 + (ndms, nsub) shifts -> (ndms, T)
+    float32 DM series, in one kernel launch (see stage2_launch and
+    dedisperse_subbands_plain)."""
+    sh = _stage2_args(subb, sub_shifts, "dedisperse_subbands", 2)
+    if not _check_device(subb, "dedisperse_subbands"):
+        return dedisperse_subbands_plain(subb, sh)
+    out = _launch_stage2(subb[None], sh, "dedisperse_subbands")[0]
+    if sh.shape[0]:
+        LAUNCHES["dedisperse_subbands"] += 1
+    return out
+
+
+def dedisperse_subbands_beams(subb: torch.Tensor,
+                              sub_shifts) -> torch.Tensor:
+    """Stage 2 with a beam axis: (B, nsub, T) float32 + one (ndms,
+    nsub) shift table -> (B, ndms, T), in one launch whose beam y is
+    the solo launch on subb[y] (bit-identical to it; see
+    dedisperse_subbands_beams_plain)."""
+    sh = _stage2_args(subb, sub_shifts, "dedisperse_subbands_beams", 3)
+    if not _check_device(subb, "dedisperse_subbands_beams"):
+        return dedisperse_subbands_beams_plain(subb, sh)
+    out = _launch_stage2(subb, sh, "dedisperse_subbands_beams")
+    if sh.shape[0] and subb.shape[0]:
+        LAUNCHES["dedisperse_subbands_beams"] += 1
+    return out
+
+
+def dedisperse_subbands_beams_plain(subb: torch.Tensor,
+                                    sub_shifts) -> torch.Tensor:
+    """Plain PyTorch stage 2 with a beam axis: each beam through
+    dedisperse_subbands_plain (the reference's _dd_beams_scan keeps
+    the solo scan's order per beam)."""
+    sh = _host_shifts(sub_shifts, 2, "dedisperse_subbands_beams")
+    if subb.shape[0] == 0:
+        return torch.zeros((0, sh.shape[0], subb.shape[-1]),
+                           dtype=torch.float32, device=subb.device)
+    return torch.stack([dedisperse_subbands_plain(s, sh) for s in subb])
 
 
 def dedisperse_subbands_plain(subb: torch.Tensor,

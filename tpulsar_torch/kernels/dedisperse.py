@@ -11,9 +11,8 @@ lib/python/PALFA2_presto_search.py:506-529):
 
 Both stages run as the hand-written CUDA kernels of
 tpulsar_torch/kernels/cuda_dd.py on a CUDA tensor, and as their plain
-PyTorch versions on a CPU tensor.  Only the direct stage-2 family is
-here; the shift-tree family (the JAX package's tree_dd.py) is not
-ported.  All delays are relative to the *highest* frequency in the
+PyTorch versions on a CPU tensor.  This is the direct stage-2
+family; the shift-tree family is kernels/tree_dd.py.  All delays are relative to the *highest* frequency in the
 band (delay >= 0), matching the synthesizer and the reference.
 """
 

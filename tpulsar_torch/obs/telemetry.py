@@ -6,7 +6,8 @@ whichever package searched it.
   * ``trace`` / ``metrics`` — the span tracer (obs/trace.py) and the
     process-wide metrics registry (obs/metrics.py), re-exported;
   * the instruments the executor, the stage timers, the hi-accel
-    stage and the checkpoint store record;
+    stage and the checkpoint store record, the tree family's gauges
+    and the batch-of-beams families;
   * the resident server's: the serve family, the spool's queue-op
     latency, the tenant quota gauge, the retry/backoff/circuit
     counters of resilience/policy.py;
@@ -73,6 +74,24 @@ def dedisp_stage_seconds() -> metrics.Histogram:
         labelnames=("family",), buckets=STAGE_BUCKETS)
 
 
+def dedisp_tree_depth() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_dedisp_tree_depth",
+        "merge-level depth of the most recent pass's tree plan (0 = "
+        "the plan cut at the leaves, i.e. direct-equivalent; the "
+        "budget governor cuts shallower when level tensors would "
+        "exceed TPULSAR_TREE_BUDGET)")
+
+
+def dedisp_residual_fraction() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_dedisp_residual_fraction",
+        "fraction of the most recent tree pass's row-ops spent in "
+        "the per-trial residual layer (the rest is the shared "
+        "merge levels every trial reuses); near 1.0 means the grid "
+        "shares almost nothing and direct would do as well")
+
+
 def accel_batch_trials_total() -> metrics.Counter:
     return metrics.counter(
         "tpulsar_accel_batch_trials_total",
@@ -98,6 +117,37 @@ def accel_stage_seconds() -> metrics.Histogram:
         "whole call, rescued = the executor's whole-chunk host "
         "rescue after the runtime refused every dispatch",
         labelnames=("path",), buckets=STAGE_BUCKETS)
+
+
+def beam_batch_beams_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_beam_batch_beams_total",
+        "beams searched by dispatch path: batched = inside a "
+        "coalesced multi-beam group (kernels/beam_batch.py), solo = "
+        "the single-beam path (no batchmates, resume state, an "
+        "operator cap of 1, a ragged group remainder, or per-beam "
+        "degradation out of a failed group).  Disjoint: together "
+        "they count every beam a batch entry point searched",
+        labelnames=("path",))
+
+
+def beam_batch_occupancy() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_beam_batch_occupancy",
+        "beams in the most recent coalesced dispatch group (a "
+        "BATCH_QUANTA rung; compare against the serve worker's "
+        "--batch admission size to see how full batches actually "
+        "run)")
+
+
+def beam_batch_trials_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_beam_batch_trials_total",
+        "DM trials searched through a batch-of-beams entry point by "
+        "path: batched trials rode coalesced B-beam dispatches, solo "
+        "trials a beam that fell out of (or never joined) a batch — "
+        "the beams/dispatch occupancy story in trial units",
+        labelnames=("path",))
 
 
 def checkpoint_events_total() -> metrics.Counter:

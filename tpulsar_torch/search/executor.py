@@ -6,6 +6,7 @@ Stage sequence (reference: lib/python/PALFA2_presto_search.py):
   rfifind            -> kernels.rfi.find_rfi_chan / apply_mask_chan
   prepsubband -sub   -> kernels.dedisperse.form_subbands   (CUDA kernel)
   prepsubband        -> kernels.dedisperse.dedisperse_subbands (CUDA kernel)
+                        or the shift tree, kernels.tree_dd (PyTorch)
   single_pulse_search-> kernels.singlepulse.device_search
   realfft/zapbirds/
   rednoise/accelsearch(z=0) -> kernels.fourier.whitened_spectrum +
@@ -20,13 +21,16 @@ Stage sequence (reference: lib/python/PALFA2_presto_search.py):
 This package runs the JAX package's default search (SearchParams():
 the full survey DDplan, dedispersion, the zero-accel and the zmax-50
 hi-accel periodicity searches, sifting, refinement, folding and
-plots), with the direct stage-2 family on one device, and with
-pass-level checkpoint/resume (checkpoint/): the RFI mask, every
-DDplan pass's partials, the sifted list and each folded candidate
-are checksummed artifacts, and a re-entered search recomputes only
-what is missing or corrupt.  The multi-chip mesh and the tree stage-2
-family are not ported yet: search_beam and search_block raise
-NotImplementedError when asked for either.
+plots) on one device, with both stage-2 families (the direct CUDA
+kernel, and the shift tree where kernels/tree_dd.plan_for_pass picks
+it), and with pass-level checkpoint/resume (checkpoint/): the RFI
+mask, every DDplan pass's partials, the sifted list and each folded
+candidate are checksummed artifacts, and a re-entered search
+recomputes only what is missing or corrupt.  search_beam_batch
+searches compatible beams as coalesced groups (kernels/beam_batch.py)
+with per-beam results identical to the solo path's.  The multi-chip
+mesh is not ported yet: search_beam and search_block raise
+NotImplementedError when asked for it.
 
 Artifacts written to the results directory have the JAX package's
 names and formats:
@@ -66,12 +70,14 @@ from tpulsar_torch import checkpoint as ckpt_mod
 from tpulsar_torch import resolve_device
 from tpulsar_torch.io import accelcands, datafile
 from tpulsar_torch.kernels import accel as accel_k
+from tpulsar_torch.kernels import beam_batch as bb
 from tpulsar_torch.kernels import cuda_dd
 from tpulsar_torch.kernels import dedisperse as dd
 from tpulsar_torch.kernels import fold as fold_k
 from tpulsar_torch.kernels import fourier as fr
 from tpulsar_torch.kernels import rfi as rfi_k
 from tpulsar_torch.kernels import singlepulse as sp_k
+from tpulsar_torch.kernels import tree_dd
 from tpulsar_torch.obs import telemetry
 from tpulsar_torch.obs import trace as trace_mod
 from tpulsar_torch.plan import ddplan
@@ -192,16 +198,10 @@ class SearchOutcome:
 def check_supported(params: SearchParams, mesh=None) -> None:
     """Refuse, by name, every option that belongs to a later slice of
     the port."""
-    later = []
     if mesh is not None:
-        later.append("the multi-device mesh (mesh)")
-    if ddplan.dedisp_family_override() == "tree":
-        later.append("the tree stage-2 family (TPULSAR_DD_FAMILY=tree; "
-                     "kernels/tree_dd.py)")
-    if later:
         raise NotImplementedError(
             "tpulsar_torch does not run these yet (a later slice of "
-            "the port): " + "; ".join(later))
+            "the port): the multi-device mesh (mesh)")
 
 
 def search_beam(fns: list[str], workdir: str, resultsdir: str,
@@ -298,6 +298,359 @@ def _beam_geometry(fns, params, plan, baryv):
     return obj, si, basenm, plan, nsub, baryv, data_id
 
 
+# ------------------------------------------------------ batch of beams
+
+@dataclasses.dataclass
+class BeamSpec:
+    """One beam's inputs to :func:`search_beam_batch` — exactly the
+    arguments :func:`search_beam` takes, as data."""
+    fns: list[str]
+    workdir: str
+    resultsdir: str
+    zaplist: np.ndarray | None = None
+    baryv: float | None = None
+    checkpoint_dir: str | None = None
+    checkpoint_journal: object = None
+    #: ticket id / display label for telemetry and error reporting
+    label: str = ""
+
+
+@dataclasses.dataclass
+class BeamBatchResult:
+    """Per-beam outcome of a batch dispatch: the SearchOutcome (or the
+    per-beam error — one beam's failure never fails its batchmates),
+    plus which path searched it."""
+    spec: BeamSpec
+    outcome: SearchOutcome | None = None
+    error: BaseException | None = None
+    path: str = "solo"             # "batched" | "solo"
+    group_size: int = 1
+    fallout: str = ""              # why a beam left the batch
+
+
+def search_beam_batch(specs: list[BeamSpec],
+                      params: SearchParams | None = None,
+                      cap: int = 0, progress_cb=None,
+                      device=None) -> list[BeamBatchResult]:
+    """Search B beams, coalescing compatibility-keyed groups into one
+    dispatch stream (kernels/beam_batch.py): stage 1 runs once a pass
+    over the group's stacked channel blocks and stage 2 once a chunk
+    through the CUDA kernel's beam axis; the stages after
+    dedispersion run on each beam's rows at the solo shapes.
+
+    Per-beam results discipline is preserved: every beam keeps its own
+    results directory, checkpoint store (pass artifacts sliced out of
+    the batched arrays — byte-identical to a solo run's), journal
+    chain, and SearchOutcome.  A beam that cannot ride the batch
+    (checkpoint resume state, incompatible geometry, an unreadable
+    input, a ragged group remainder, or any failure inside the
+    coalesced section) falls out to the solo path; it never fails its
+    batchmates.  ``cap`` pins the largest coalesced group (0 =
+    TPULSAR_BEAM_BATCH, then the working-set budget); group sizes are
+    quantized to the BATCH_QUANTA ladder either way.  device: as
+    search_beam's."""
+    params = params or SearchParams()
+    check_supported(params)
+    dev = resolve_device(device)
+    results = [BeamBatchResult(spec=s) for s in specs]
+
+    preludes: dict[int, tuple] = {}
+    solo: dict[int, str] = {}
+    groups: dict[str, list[int]] = {}
+    for i, spec in enumerate(specs):
+        try:
+            pre = _beam_geometry(spec.fns, params, None, spec.baryv)
+        except Exception:
+            # unreadable header or too-short beam: the solo path
+            # surfaces the same error (or clean skip) attributably
+            solo[i] = "prelude_failed"
+            continue
+        preludes[i] = pre
+        if spec.checkpoint_dir and _has_resume_state(spec.checkpoint_dir):
+            # resume state binds the beam to the solo path: resuming
+            # SKIPS completed passes, and a group runs every pass for
+            # every member
+            solo[i] = "resume"
+            continue
+        _obj, si, _basenm, plan, nsub, _baryv, _data_id = pre
+        key = bb.compat_key(si.num_channels, int(si.N), float(si.dt),
+                            float(si.freqs[0]), float(si.freqs[-1]),
+                            nsub, plan, params,
+                            zap_digest=bb.zaplist_digest(spec.zaplist))
+        groups.setdefault(key, []).append(i)
+
+    cap = cap or bb.beam_batch_cap()
+    for idxs in groups.values():
+        if cap == 1 or len(idxs) == 1:
+            for i in idxs:
+                solo.setdefault(i, "no_batchmates" if len(idxs) == 1
+                                else "cap_1")
+            continue
+        _obj, si, _basenm, plan, _nsub, _baryv, _id = preludes[idxs[0]]
+        eff_cap = min(cap or len(idxs),
+                      _budget_beam_cap(si, plan, params, dev))
+        for members in bb.plan_beam_groups(len(idxs), cap=eff_cap).groups:
+            sub = [idxs[m] for m in members]
+            if len(sub) == 1:
+                solo.setdefault(sub[0], "ragged_remainder")
+                continue
+            try:
+                outcomes = _search_group(
+                    [specs[i] for i in sub], [preludes[i] for i in sub],
+                    params, progress_cb, dev)
+            except Exception as e:
+                warnings.warn(
+                    f"coalesced {len(sub)}-beam group failed ({e}); "
+                    f"every member degrades to the solo path")
+                for i in sub:
+                    solo.setdefault(i, "group_failed")
+                continue
+            for i, out in zip(sub, outcomes):
+                results[i].outcome = out
+                results[i].path = "batched"
+                results[i].group_size = len(sub)
+                telemetry.beam_batch_beams_total().inc(path="batched")
+
+    for i, reason in sorted(solo.items()):
+        spec = specs[i]
+        results[i].fallout = reason
+        try:
+            results[i].outcome = search_beam(
+                spec.fns, spec.workdir, spec.resultsdir, params,
+                zaplist=spec.zaplist, baryv=spec.baryv,
+                checkpoint_dir=spec.checkpoint_dir,
+                checkpoint_journal=spec.checkpoint_journal, device=dev)
+        except Exception as e:
+            results[i].error = e
+        telemetry.beam_batch_beams_total().inc(path="solo")
+        if results[i].outcome is not None:
+            telemetry.beam_batch_trials_total().inc(
+                results[i].outcome.num_dm_trials, path="solo")
+    return results
+
+
+def _has_resume_state(checkpoint_dir: str) -> bool:
+    try:
+        return ckpt_mod.progress_marker(checkpoint_dir) > 0
+    except OSError:
+        return False
+
+
+def _budget_beam_cap(si, plan, params: SearchParams, dev) -> int:
+    """How many beams the coalesced working set affords for this
+    geometry on ``dev`` (beam_batch.budget_beams with the executor's
+    own block and chunk arithmetic, against the device's budget)."""
+    f32_bytes = int(si.N) * si.num_channels * 4
+    quantize = (params.block_quantize == "on"
+                or (params.block_quantize == "auto"
+                    and f32_bytes > params.block_quantize_min))
+    block_bytes = f32_bytes // 4 if quantize else f32_bytes
+    step0 = plan[0]
+    nfft = ddplan.choose_n(int(si.N) // step0.downsamp)
+    chunk_rows = pass_chunk_size(int(step0.dms_per_pass), nfft, params)
+    return bb.budget_beams(block_bytes, chunk_rows, nfft,
+                           bb.beam_budget_bytes(dev))
+
+
+def _search_group(specs: list[BeamSpec], pres: list[tuple],
+                  params: SearchParams, progress_cb,
+                  dev) -> list[SearchOutcome]:
+    """One coalesced group end to end.  All members share a compat
+    key, so the plan geometry, nsub, dt and channel table are
+    identical; what stays per beam is the data block, the RFI mask,
+    the zaplist/baryv-derived keep mask, the checkpoint store, and
+    everything after the plan loop (sift, refine, fold, artifacts),
+    which runs through the solo path's own helpers."""
+    B = len(specs)
+    _obj0, si0, _b0, plan, nsub, _bv0, _id0 = pres[0]
+    freqs, dt = si0.freqs, si0.dt
+    compiles0 = dict(cuda_dd.COMPILES)
+
+    degraded.reset()
+    if trace_mod.enabled():
+        trace_mod.start(clear=True)
+    metrics_base = telemetry.metrics.REGISTRY.snapshot()
+    timers = StageTimers()
+
+    stores, datas, masks = [], [], []
+    for spec, (obj, si, basenm, _plan, _nsub, baryv, data_id) in zip(
+            specs, pres):
+        os.makedirs(spec.workdir, exist_ok=True)
+        os.makedirs(spec.resultsdir, exist_ok=True)
+        store = None
+        if spec.checkpoint_dir:
+            store = _open_checkpoint(
+                spec.checkpoint_dir,
+                _ckpt_fingerprint(plan, params, spec.zaplist, baryv,
+                                  nsub, data_id=data_id),
+                spec.checkpoint_journal)
+        data, mask = _read_and_mask(si, params, basenm, spec.resultsdir,
+                                    store, timers, dev)
+        stores.append(store)
+        datas.append(data)
+        masks.append(mask)
+    # the group's stage-1 input, and each beam's block a view of it
+    stacked = bb.stack_blocks(datas)
+    datas = list(stacked.split(datas[0].shape[0]))
+
+    telemetry.beam_batch_occupancy().set(B)
+    with trace_mod.span("search_beam_batch", nbeams=B,
+                        npasses=sum(s.numpasses for s in plan)):
+        per = _group_plan_loop(stacked, freqs, dt, plan, params,
+                               [s.zaplist for s in specs],
+                               [p[5] for p in pres], nsub, timers,
+                               stores, progress_cb, dev)
+        # per-beam attribution past this point: the plan loop's delta
+        # is SHARED (one dispatch stream served the whole group, so
+        # every member's metrics.json carries it), but each beam's
+        # sift/fold/finalize runs on its own, so its counters and
+        # stage seconds land only in ITS results directory
+        group_delta = telemetry.metrics.diff_snapshots(
+            telemetry.metrics.REGISTRY.snapshot(), metrics_base)
+        outcomes = []
+        for b, (spec, pre) in enumerate(zip(specs, pres)):
+            obj, si, basenm, _plan, _nsub, baryv, _id = pre
+            finish_base = telemetry.metrics.REGISTRY.snapshot()
+            timers_b = StageTimers()
+            timers_b.times = dict(timers.times)
+            res = _sift_fold_finish(
+                datas[b], freqs, dt, params, spec.zaplist, baryv, nsub,
+                timers_b, stores[b], per[b]["cands"], per[b]["sp"],
+                per[b]["ntr"], None, plan)
+            outcomes.append(_finalize_results(
+                spec.resultsdir, basenm, obj, si, plan, params,
+                spec.zaplist, baryv, datas[b], masks[b], res, timers_b,
+                finish_base, metrics_extra=group_delta))
+    for out in outcomes:
+        out.compile_hits = cuda_dd.COMPILES["hits"] - compiles0["hits"]
+        out.compile_misses = (cuda_dd.COMPILES["misses"]
+                              - compiles0["misses"])
+    return outcomes
+
+
+def _group_plan_loop(stacked, freqs, dt, plan, params, zaplists,
+                     baryvs, nsub, timers, stores, progress_cb, dev):
+    """The coalesced plan loop: every pass's stage 1 is one launch
+    over the beams' stacked channel blocks and every chunk's stage 2
+    one launch of the beam axis; the tree family instead runs its
+    levels and residuals per beam, as the solo loop does.  The stages after dedispersion run
+    on each beam's rows at the solo shapes (torch's CUDA reductions
+    choose their launch shape from the row count, which would make a
+    row's sums depend on its batchmates; the reference hands them
+    B*chunk rows).  Chunk boundaries are the SOLO pass_chunk_size, so
+    each beam's candidates, SP events and per-pass checkpoint
+    artifacts are byte-identical to a solo run's."""
+    B = len(stores)
+    per = [{"cands": [], "sp": [], "ntr": 0} for _ in range(B)]
+    npasses = sum(s.numpasses for s in plan)
+    pass_idx = -1
+    sp_est = sp_k.detrend_estimator(params.sp_detrend)
+
+    for step_idx, step in enumerate(plan):
+        for ppass in step.passes():
+            pass_idx += 1
+            starts = [(len(p["cands"]), len(p["sp"]), p["ntr"])
+                      for p in per]
+            dms = np.asarray(ppass.dms)
+            with timers.timing("subbanding"):
+                chan_shifts, sub_shifts = dd.plan_pass_shifts(
+                    freqs, nsub, ppass.subdm, dms, dt, step.downsamp)
+                subb_all = bb.form_subbands_beams(
+                    stacked, chan_shifts, B, nsub, step.downsamp)
+                _fence(dev, subb_all)                # (B*nsub, T')
+            T_ds = int(subb_all.shape[1])
+            dt_ds = dt * step.downsamp
+            chunk_sz = pass_chunk_size(len(dms), ddplan.choose_n(T_ds),
+                                       params)
+            t_dd0 = timers.times.get("dedispersing", 0.0)
+            # per-beam levels: the solo program, so the tree family's
+            # summation order is untouched
+            levels = [_tree_levels(subb_all[b * nsub:(b + 1) * nsub],
+                                   sub_shifts, T_ds, timers, dev)
+                      for b in range(B)]
+            tree_plan = levels[0][0]
+            fam = "direct" if tree_plan is None else "tree"
+
+            # per-beam keep masks for this pass's spectrum length
+            nfft = ddplan.choose_n(T_ds)
+            nbins = nfft // 2 + 1
+            T_s = nfft * dt_ds
+            keeps = [fr.zap_mask(nbins, T_s, z, bv) if z is not None
+                     else None for z, bv in zip(zaplists, baryvs)]
+
+            pending: list[list] = [[] for _ in range(B)]
+            for lo in range(0, len(dms), chunk_sz):
+                dm_chunk = dms[lo: lo + chunk_sz]
+                n = len(dm_chunk)
+                with trace_mod.span("beam_batch_chunk",
+                                    pass_idx=pass_idx, lo=int(lo),
+                                    n=int(n), nbeams=B):
+                    with timers.timing("dedispersing"):
+                        if tree_plan is not None:
+                            pairs = [tree_dd.residual_series(
+                                parts, tree_plan, lo, n, T=T_ds,
+                                fuse=True, estimator=sp_est)
+                                for _plan, parts in levels]
+                        else:
+                            series = bb.dedisperse_beams(
+                                subb_all, sub_shifts[lo: lo + n], B)
+                            pairs = [(series[b * n:(b + 1) * n], None)
+                                     for b in range(B)]
+                            del series
+                        _fence(dev, pairs)
+                    # the stages after dedispersion run per beam, at the
+                    # solo shapes: torch's CUDA reductions pick their
+                    # launch shape from the row count, so a row's sums
+                    # would depend on its batchmates
+                    for b in range(B):
+                        pending[b].append(_chunk_stages(
+                            *pairs[b], dm_chunk, nfft, T_s, keeps[b],
+                            params, timers, dev))
+                    del pairs
+
+            for b in range(B):
+                cands, events = _drain(pending[b], dt_ds, T_s, nbins,
+                                       params, timers)
+                per[b]["cands"].extend(cands)
+                per[b]["sp"].extend(events)
+                per[b]["ntr"] += len(dms)
+            del pending, subb_all, levels
+            telemetry.dedisp_trials_total().inc(B * len(dms), family=fam)
+            telemetry.dedisp_stage_seconds().observe(
+                timers.times.get("dedispersing", 0.0) - t_dd0,
+                family=fam)
+            telemetry.passes_total().inc(B)
+            telemetry.dm_trials_total().inc(B * len(dms))
+            telemetry.beam_batch_trials_total().inc(B * len(dms),
+                                                    path="batched")
+            for b, store in enumerate(stores):
+                if store is None:
+                    continue
+                c0, s0, t0 = starts[b]
+                ntr_pass = per[b]["ntr"] - t0
+                durable = store.save(
+                    f"pass_{pass_idx:04d}",
+                    _encode_pass(
+                        per[b]["cands"][c0:],
+                        (np.concatenate(per[b]["sp"][s0:])
+                         if len(per[b]["sp"]) > s0 else _EMPTY_SP),
+                        ntr_pass),
+                    kind="pass", ext=".npz", pass_idx=pass_idx)
+                if durable:
+                    store.journal("pass_complete", pass_idx=pass_idx,
+                                  npasses=npasses, ntrials=ntr_pass)
+            if progress_cb is not None:
+                progress_cb({
+                    "pass_idx": pass_idx + 1, "npasses": npasses,
+                    "step_idx": step_idx, "nbeams": B,
+                    "ntrials_done": per[0]["ntr"],
+                    "ncands": sum(len(p["cands"]) for p in per),
+                    "stage_s": {k: round(v, 2)
+                                for k, v in timers.times.items() if v},
+                })
+    return per
+
+
 def _fence(dev: torch.device, *outputs) -> None:
     """Wait for the device, so that a stage timer holds the device
     work its scope enqueued (kernels launch asynchronously); with
@@ -357,10 +710,13 @@ def _read_and_mask(si, params, basenm, resultsdir, store, timers, dev):
 
 def _finalize_results(resultsdir, basenm, obj, si, plan, params,
                       zaplist, baryv, data, mask, res: "_BlockResult",
-                      timers, metrics_base) -> SearchOutcome:
+                      timers, metrics_base,
+                      metrics_extra=None) -> SearchOutcome:
     """Write the per-beam results directory (artifacts, plots,
     provenance, report, telemetry delta, tarballs) and build the
-    SearchOutcome."""
+    SearchOutcome — shared by the solo and the batch-of-beams paths,
+    so a beam's output layout cannot depend on which path searched
+    it."""
     final, folded, sp_events, num_trials = res[:4]
     accelcands.write_candlist(
         final, os.path.join(resultsdir, f"{basenm}.accelcands"),
@@ -415,6 +771,11 @@ def _finalize_results(resultsdir, basenm, obj, si, plan, params,
                                     f"{basenm}_trace.json"))
     mdelta = telemetry.metrics.diff_snapshots(
         telemetry.metrics.REGISTRY.snapshot(), metrics_base)
+    if metrics_extra is not None:
+        # batch path: the group-shared plan-loop delta composed with
+        # this beam's own finish-phase delta (metrics_base was taken
+        # at the start of this beam's finish, not the group's)
+        mdelta = telemetry.metrics.merge_deltas(metrics_extra, mdelta)
     with open(os.path.join(resultsdir, "metrics.json"), "w") as fh:
         json.dump(mdelta, fh, indent=1)
     _tar_result_classes(resultsdir, basenm)
@@ -529,7 +890,7 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
     all_cands: list[sifting.Candidate] = []
     sp_chunks: list[np.ndarray] = []
     num_trials = 0
-    stages = tuple(fr.harmonic_stages(params.lo_accel_numharm))
+    sp_est = sp_k.detrend_estimator(params.sp_detrend)
     npasses = sum(s.numpasses for s in plan)
     pass_idx = -1
     # a verified 'sifted' artifact short-circuits the whole plan loop
@@ -564,9 +925,24 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
                 _fence(dev, subb)
             dt_ds = dt * step.downsamp
             dms = np.asarray(ppass.dms)
-            chunk_sz = pass_chunk_size(
-                len(dms), ddplan.choose_n(subb.shape[1]), params)
+            T_ds = int(subb.shape[1])
+            chunk_sz = pass_chunk_size(len(dms), ddplan.choose_n(T_ds),
+                                       params)
             t_dd0 = timers.times.get("dedispersing", 0.0)
+            # the stage-2 family of THIS pass (kernels/tree_dd.py): tree
+            # passes run the shared merge levels once here, and each
+            # chunk below pays only its residual layer, with the SP
+            # detrend fused into it
+            tree_plan, tree_parts = _tree_levels(subb, sub_shifts, T_ds,
+                                                 timers, dev)
+            fam = "direct" if tree_parts is None else "tree"
+            # FFT-friendly padded length (reference: PRESTO choose_N via
+            # prepsubband -numout)
+            nfft = ddplan.choose_n(T_ds)
+            nbins = nfft // 2 + 1
+            T_s = nfft * dt_ds
+            keep = fr.zap_mask(nbins, T_s, zaplist, baryv) \
+                if zaplist is not None else None
             # top-k-sized device outputs are held to one host transfer
             # per pass; event and candidate order is chunk order
             pending: list[tuple] = []
@@ -576,76 +952,33 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
                 # under it, so the trace shows the pass/chunk structure
                 with trace_mod.span("dm_chunk", pass_idx=pass_idx,
                                     lo=int(lo), n=int(len(dm_chunk)),
-                                    family="direct"):
+                                    family=fam):
                     with timers.timing("dedispersing"):
-                        series = dd.dedisperse_subbands(
-                            subb, sub_shifts[lo: lo + len(dm_chunk)])
-                        _fence(dev, series)
+                        if tree_parts is not None:
+                            series, norm = tree_dd.residual_series(
+                                tree_parts, tree_plan, lo, len(dm_chunk),
+                                T=T_ds, fuse=True, estimator=sp_est)
+                        else:
+                            series = dd.dedisperse_subbands(
+                                subb, sub_shifts[lo: lo + len(dm_chunk)])
+                            norm = None
+                        _fence(dev, series, norm)
                     num_trials += len(dm_chunk)
-                    # FFT-friendly padded length (reference: PRESTO
-                    # choose_N via prepsubband -numout)
-                    nfft = ddplan.choose_n(series.shape[1])
-                    T_s = nfft * dt_ds
-                    with timers.timing("single-pulse"):
-                        sp_pair = sp_k.device_search(
-                            series, tuple(params.sp_widths),
-                            estimator=params.sp_detrend)
-                        _fence(dev, sp_pair)
-                    with timers.timing("FFT"):
-                        nbins = nfft // 2 + 1
-                        keep = fr.zap_mask(nbins, T_s, zaplist, baryv) \
-                            if zaplist is not None else None
-                        wspec = (fr.whitened_spectrum_masked(
-                                     series, keep, nfft=nfft)
-                                 if keep is not None else
-                                 fr.whitened_spectrum(series, nfft=nfft))
-                        del series
-                        _fence(dev, wspec)
-                    with timers.timing("lo-accelsearch"):
-                        # half-bin detection grid (interbinning): bin
-                        # indices are half-bin units, hence
-                        # bin_scale=0.5
-                        res = fr.lo_stage_candidates(
-                            wspec, stages, params.topk_per_stage)
-                        _fence(dev, res)
-                    hi_cands: list = []
-                    if params.run_hi_accel and params.hi_accel_zmax > 0:
-                        with timers.timing("hi-accelsearch"):
-                            # ends in its own host transfer: no fence
-                            hi_cands = _hi_accel_pass(wspec, dm_chunk,
-                                                      T_s, params)
-                    del wspec
-                    pending.append((dm_chunk, T_s, nbins, sp_pair, res,
-                                    hi_cands))
+                    pending.append(_chunk_stages(
+                        series, norm, dm_chunk, nfft, T_s, keep, params,
+                        timers, dev))
+                    del series, norm
 
-            with timers.timing("pipeline-drain"):
-                sp_host = [(s.cpu().numpy(), i.cpu().numpy())
-                           for _c, _t, _n, (s, i), _r, _h in pending]
-                lo_host = [{h: (v.cpu().numpy(), b.cpu().numpy())
-                            for h, (v, b) in p[4].items()}
-                           for p in pending]
-            for (dm_chunk, T_s, nbins, _sp, _res, hi_cands), \
-                    (snrs, idx), res_h in zip(pending, sp_host, lo_host):
-                with timers.timing("single-pulse"):
-                    ev = sp_k.events_from_topk(
-                        snrs, idx, dm_chunk, dt_ds,
-                        threshold=params.sp_threshold,
-                        widths=tuple(params.sp_widths))
-                    if len(ev):
-                        sp_chunks.append(ev)
-                with timers.timing("lo-accelsearch"):
-                    all_cands.extend(sifting.make_candidates(
-                        res_h, dm_chunk, T_s, _lo_sigma_fn(nbins),
-                        sigma_min=params.sifting.sigma_threshold,
-                        bin_scale=0.5))
-                all_cands.extend(hi_cands)
-            del pending, subb
-            # per-family throughput instruments (this package runs the
-            # direct family only)
-            telemetry.dedisp_trials_total().inc(len(dms), family="direct")
+            cands, events = _drain(pending, dt_ds, T_s, nbins, params,
+                                   timers)
+            all_cands.extend(cands)
+            sp_chunks.extend(events)
+            del pending, subb, tree_parts
+            # per-family throughput instruments
+            telemetry.dedisp_trials_total().inc(len(dms), family=fam)
             telemetry.dedisp_stage_seconds().observe(
                 timers.times.get("dedispersing", 0.0) - t_dd0,
-                family="direct")
+                family=fam)
             if store is not None:
                 ntr_pass = num_trials - pass_trials_start
                 durable = store.save(
@@ -677,6 +1010,91 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
     return _sift_fold_finish(data, freqs, dt, params, zaplist, baryv,
                              nsub, timers, store, all_cands, sp_chunks,
                              num_trials, sifted_state, plan)
+
+
+def _tree_levels(subb, sub_shifts, T_ds, timers, dev):
+    """(tree plan, merge-level partials) for a pass the tree family
+    runs (kernels/tree_dd.plan_for_pass decides), else (None, None):
+    the levels run once per pass, timed as dedispersing, and the tree
+    gauges record the plan."""
+    tree_plan = tree_dd.plan_for_pass(sub_shifts, T=T_ds, device=dev)
+    if tree_plan is None:
+        return None, None
+    with timers.timing("dedispersing"):
+        parts = tree_dd.tree_levels(subb, tree_plan)
+        _fence(dev, parts)
+    telemetry.dedisp_tree_depth().set(tree_plan.depth)
+    telemetry.dedisp_residual_fraction().set(
+        round(tree_plan.residual_fraction, 4))
+    return tree_plan, parts
+
+
+def _chunk_stages(series, norm, dm_chunk, nfft, T_s, keep, params,
+                  timers, dev) -> tuple:
+    """The stages after dedispersion of one DM chunk: the SP boxcar
+    top-k (after the detrend, unless the tree's residual fused it and
+    gave ``norm``), the whitened spectrum (zaplist ``keep`` mask), the
+    lo stage, and the hi stage.  Returns the chunk's pending entry
+    (dm_chunk, sp_pair, lo_res, hi_cands): the SP and lo outputs stay
+    on the device until the pass drains (_drain)."""
+    with timers.timing("single-pulse"):
+        if norm is not None:
+            sp_pair = sp_k.boxcar_search(norm, tuple(params.sp_widths),
+                                         sp_k.DEFAULT_TOPK)
+        else:
+            sp_pair = sp_k.device_search(series, tuple(params.sp_widths),
+                                         estimator=params.sp_detrend)
+        _fence(dev, sp_pair)
+    with timers.timing("FFT"):
+        wspec = (fr.whitened_spectrum_masked(series, keep, nfft=nfft)
+                 if keep is not None else
+                 fr.whitened_spectrum(series, nfft=nfft))
+        _fence(dev, wspec)
+    with timers.timing("lo-accelsearch"):
+        # half-bin detection grid (interbinning): bin indices are
+        # half-bin units, hence bin_scale=0.5 in _drain
+        res = fr.lo_stage_candidates(
+            wspec, tuple(fr.harmonic_stages(params.lo_accel_numharm)),
+            params.topk_per_stage)
+        _fence(dev, res)
+    hi_cands: list = []
+    if params.run_hi_accel and params.hi_accel_zmax > 0:
+        with timers.timing("hi-accelsearch"):
+            # ends in its own host transfer: no fence
+            hi_cands = _hi_accel_pass(wspec, dm_chunk, T_s, params)
+    return dm_chunk, sp_pair, res, hi_cands
+
+
+def _drain(pending, dt_ds, T_s, nbins, params, timers) -> tuple:
+    """A pass's chunks, drained: one host transfer for the SP outputs
+    and one for the lo outputs (charged to their own timer: the first
+    transfer waits for all the pass's queued device work), then the
+    host halves in chunk order.  Returns (candidates, SP event
+    arrays)."""
+    with timers.timing("pipeline-drain"):
+        sp_host = [(s.cpu().numpy(), i.cpu().numpy())
+                   for _c, (s, i), _r, _h in pending]
+        lo_host = [{h: (v.cpu().numpy(), b.cpu().numpy())
+                    for h, (v, b) in res.items()}
+                   for _c, _s, res, _h in pending]
+    cands: list = []
+    events: list = []
+    for (dm_chunk, _sp, _res, hi_cands), (snrs, idx), res_h in zip(
+            pending, sp_host, lo_host):
+        with timers.timing("single-pulse"):
+            ev = sp_k.events_from_topk(
+                snrs, idx, dm_chunk, dt_ds,
+                threshold=params.sp_threshold,
+                widths=tuple(params.sp_widths))
+            if len(ev):
+                events.append(ev)
+        with timers.timing("lo-accelsearch"):
+            cands.extend(sifting.make_candidates(
+                res_h, dm_chunk, T_s, _lo_sigma_fn(nbins),
+                sigma_min=params.sifting.sigma_threshold,
+                bin_scale=0.5))
+        cands.extend(hi_cands)
+    return cands, events
 
 
 def _sift_fold_finish(data, freqs, dt, params, zaplist, baryv, nsub,

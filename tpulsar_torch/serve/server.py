@@ -30,11 +30,17 @@ Properties the batch path cannot offer:
     safely.  Fault point ``fleet.worker`` simulates a worker CRASH
     (hard process exit mid-beam, no drain).
 
+  * batched admission — with ``batch_size`` N > 1 (``serve --batch
+    N``) the stage-in thread claims up to N compatible tickets, lingers
+    ``batch_linger_s`` to fill a partial batch, and the batch is
+    searched as coalesced groups (executor.search_beam_batch); a beam
+    that cannot ride the batch falls out to the solo path, never
+    failing its batchmates.
+
 Per-beam results are produced by the same ``cli.search_job``
 library functions the per-beam job runs, so the output directory
-layout is identical.  Refused by name (NotImplementedError): batched
-admission (``batch_size > 1``, the batch-of-beams executor), stream
-mode (``stream=True``, the streaming plane), and the blob data plane
+layout is identical.  Refused by name (NotImplementedError): stream
+mode (``stream=True``, the streaming plane) and the blob data plane
 (``TPULSAR_DATA_URL`` / ``TPULSAR_BLOB_ROOT``).
 """
 
@@ -51,7 +57,7 @@ import torch
 # Module import (not name import): frontdoor.queue itself imports
 # serve.protocol, so pulling a name out of it here would trip the
 # circular-import guard when queue.py is the first module loaded.
-from tpulsar_torch import resolve_device
+from tpulsar_torch import native, resolve_device
 from tpulsar_torch.cli import search_job
 from tpulsar_torch.dataplane import index as dp_index
 from tpulsar_torch.frontdoor import queue as frontdoor_queue
@@ -63,7 +69,9 @@ from tpulsar_torch.plan import ddplan
 from tpulsar_torch.resilience import faults, policy
 from tpulsar_torch.search import executor
 from tpulsar_torch.serve import protocol
-from tpulsar_torch.serve.stagein import PreparedBeam, StageInPipeline
+from tpulsar_torch.serve.stagein import (BatchStageInPipeline,
+                                         PreparedBatch, PreparedBeam,
+                                         StageInPipeline)
 
 #: the PALFA Mock beam the warm boot synthesizes a block of (the
 #: geometry of the JAX package's AOT gate, aot/registry.py)
@@ -91,13 +99,9 @@ class SearchServer:
                  heartbeat_interval_s: float = 10.0,
                  claim_policy=None,
                  batch_size: int = 1,
+                 batch_linger_s: float = 2.0,
                  stream: bool = False,
-                 beam_fn=None, logger=None, device=None):
-        if int(batch_size) > 1:
-            raise NotImplementedError(
-                "tpulsar_torch serve has no batched admission yet "
-                "(batch_size > 1): it needs executor.search_beam_batch "
-                "and kernels/beam_batch.py, a later slice of the port")
+                 beam_fn=None, batch_fn=None, logger=None, device=None):
         if stream:
             raise NotImplementedError(
                 "tpulsar_torch serve has no stream mode yet: it needs "
@@ -159,14 +163,35 @@ class SearchServer:
         #: injectable for tests: the fleet.worker fault's hard process
         #: exit (a crash leaves claims in place — no drain, no result)
         self._crash = os._exit
-        self.pipeline = StageInPipeline(
-            claim=lambda: self.queue.claim_next(
-                self.worker_id,
-                policy=self.claim_policy,
-                worker_class=self.worker_class),
-            workdir_base=cfg.processing.base_working_directory,
-            cfg=cfg, depth=prefetch_depth, poll_s=poll_s,
-            logger=self.log, journal=self._journal)
+        #: batched admission (``serve --batch N``): claim up to N
+        #: compatible tickets per ordering pass and dispatch them as
+        #: one batch through executor.search_beam_batch — a per-beam
+        #: error, resume state, or a lying compat stamp degrades THAT
+        #: beam to the solo path, never its batchmates.  batch_fn is
+        #: injectable for tests: callable(list[PreparedBeam]) ->
+        #: list[(status, payload, path)]
+        self.batch_size = max(1, int(batch_size))
+        self.batch_fn = batch_fn or self._search_batch
+        if self.batch_size > 1:
+            self.pipeline = BatchStageInPipeline(
+                claim_batch=lambda n, compat: self.queue.claim_batch(
+                    n, self.worker_id,
+                    policy=self.claim_policy,
+                    worker_class=self.worker_class, compat=compat),
+                workdir_base=cfg.processing.base_working_directory,
+                cfg=cfg, batch=self.batch_size,
+                linger_s=batch_linger_s, depth=prefetch_depth,
+                poll_s=poll_s, logger=self.log,
+                journal=self._journal)
+        else:
+            self.pipeline = StageInPipeline(
+                claim=lambda: self.queue.claim_next(
+                    self.worker_id,
+                    policy=self.claim_policy,
+                    worker_class=self.worker_class),
+                workdir_base=cfg.processing.base_working_directory,
+                cfg=cfg, depth=prefetch_depth, poll_s=poll_s,
+                logger=self.log, journal=self._journal)
         self._drain = threading.Event()
         self._stopped = threading.Event()
         self._hb_thread: threading.Thread | None = None
@@ -224,6 +249,8 @@ class SearchServer:
                 len(requeued), ", ".join(requeued))
         # the whole point of residency: one kernel build and load and
         # one device set-up for EVERY beam this process will search
+        # (the native unpack the reads use, too)
+        native.load()
         if self.device.type == "cuda":
             cuda_dd._load()
             cuda_dd._prepare(self.device)
@@ -332,7 +359,10 @@ class SearchServer:
                     pass
                 prepared = self.pipeline.next(timeout=self.poll_s)
                 if prepared is not None:
-                    self._process(prepared)
+                    if isinstance(prepared, PreparedBatch):
+                        self._process_batch(prepared)
+                    else:
+                        self._process(prepared)
                     continue
                 if once and self.queue.pending_count() == 0 \
                         and self.queue.claimed_count() == 0:
@@ -480,6 +510,135 @@ class SearchServer:
                          compile_hits=outcome.compile_hits,
                          candidates=len(outcome.candidates),
                          dm_trials=outcome.num_dm_trials)
+
+    # ------------------------------------------------------------ one batch
+
+    def _search_batch(self, beams: list[PreparedBeam]):
+        """The real batch runner: search_job.run_search_batch over
+        the staged members — same library layering as _search_one, so
+        each beam's results directory is layout-identical whichever
+        admission mode claimed it."""
+        for prepared in beams:
+            faults.fire("serve.beam",
+                        detail=f"ticket {prepared.ticket_id}")
+        params = executor.SearchParams.from_config(self.cfg.searching)
+        jobs = []
+        for prepared in beams:
+            t = prepared.ticket
+            jobs.append({
+                "ppfns": prepared.ppfns, "workdir": prepared.workdir,
+                "outdir": t["outdir"], "zap": prepared.zaplist,
+                "label": prepared.ticket_id,
+                "journal": (lambda event, _t=t, **extra:
+                            self._journal(event, _t, **extra)),
+            })
+        return search_job.run_search_batch(
+            jobs, params,
+            log=lambda msg: self.log.info("[batch] %s", msg),
+            device=self.device)
+
+    def _process_batch(self, batch: PreparedBatch) -> None:
+        t0 = time.time()
+        if faults.targets("fleet.worker"):
+            try:
+                faults.fire(
+                    "fleet.worker",
+                    detail=f"batch {batch.ticket_ids} worker "
+                           f"{self.worker_id or '-'}")
+            except BaseException:
+                # same crash footprint as the solo path: every
+                # member's claim stays in place with no result — the
+                # mid-batch kill the janitor must requeue per ticket
+                self.log.error("fleet.worker fault: crashing on "
+                               "batch %s", batch.ticket_ids)
+                self.blackbox.dump(
+                    reason=f"fleet.worker fault on batch "
+                           f"{batch.ticket_ids}", rc=70)
+                self._crash(70)
+                return          # unreachable with the real os._exit
+        ok: list[PreparedBeam] = []
+        for prepared in batch.beams:
+            att = int(prepared.ticket.get("attempts", 0))
+            if prepared.error:
+                # a poisoned input fails ITS ticket only — the rest
+                # of the batch dispatches without it
+                self.log.error(
+                    "ticket %s stage-in failed: %s",
+                    prepared.ticket_id,
+                    prepared.error.splitlines()[0]
+                    if prepared.error else "?")
+                self._finish(prepared.ticket_id, "failed", t0,
+                             prepared.ticket.get("outdir", ""),
+                             error=prepared.error, attempts=att)
+                continue
+            ok.append(prepared)
+        if not ok:
+            return
+        # the batch-dispatch evidence: ONE fleet-level journal event
+        # naming the members (their own chains carry claim/result),
+        # plus per-beam search_start so every chain stays well-formed
+        journal.record(self.jroot, "batch_dispatch",
+                       worker=self.worker_id, beams=len(ok),
+                       tickets=[p.ticket_id for p in ok])
+        telemetry.beam_batch_occupancy().set(len(ok))
+        for prepared in ok:
+            telemetry.trace.instant("serve_beam_start",
+                                    ticket=prepared.ticket_id)
+            self._journal("search_start", prepared.ticket)
+        misses0 = self._compile_misses_total()
+        try:
+            # the per-beam deadline scales with the batch: B beams of
+            # device work ride one dispatch stream
+            results = policy.run_with_deadline(
+                lambda: self.batch_fn(ok),
+                self.beam_deadline_s * len(ok),
+                label=f"serve batch x{len(ok)}")
+        except policy.DeadlineExceeded as e:
+            self.log.error(
+                "batch of %d exceeded its %.0f s deadline; workdirs "
+                "left to the abandoned runner", len(ok),
+                self.beam_deadline_s * len(ok))
+            d_miss = self._compile_misses_total() - misses0
+            for prepared in ok:
+                self._finish(
+                    prepared.ticket_id, "failed", t0,
+                    prepared.ticket.get("outdir", ""), error=str(e),
+                    attempts=int(prepared.ticket.get("attempts", 0)),
+                    compile_misses=d_miss)
+            return
+        except Exception as e:
+            import traceback
+            self.log.exception("batch of %d failed", len(ok))
+            err = f"{e}\n{traceback.format_exc()}"[:4000]
+            d_miss = self._compile_misses_total() - misses0
+            for prepared in ok:
+                prepared.cleanup()
+                self._finish(
+                    prepared.ticket_id, "failed", t0,
+                    prepared.ticket.get("outdir", ""), error=err,
+                    attempts=int(prepared.ticket.get("attempts", 0)),
+                    compile_misses=d_miss)
+            return
+        for prepared, (status, payload, path) in zip(ok, results):
+            prepared.cleanup()
+            att = int(prepared.ticket.get("attempts", 0))
+            outdir = prepared.ticket.get("outdir", "")
+            if status == "failed":
+                self._finish(prepared.ticket_id, "failed", t0, outdir,
+                             error=str(payload)[:4000], attempts=att,
+                             batch_path=path)
+            elif status == "skipped":
+                self._finish(prepared.ticket_id, "skipped", t0,
+                             outdir, attempts=att, batch_path=path)
+            else:
+                self._finish(prepared.ticket_id, "done", t0, outdir,
+                             attempts=att,
+                             compile_misses=payload.compile_misses,
+                             compile_hits=payload.compile_hits,
+                             candidates=len(payload.candidates),
+                             dm_trials=payload.num_dm_trials,
+                             batch_path=path,
+                             batch_beams=len(ok))
 
     @staticmethod
     def _compile_misses_total() -> int:

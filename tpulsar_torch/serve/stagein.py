@@ -1,7 +1,7 @@
 """Host-side stage-in prefetch for the resident server — counterpart
-of tpulsar/serve/stagein.py (PreparedBeam, prepare_beam and
-StageInPipeline; the batched pipeline waits for the batch-of-beams
-executor).
+of tpulsar/serve/stagein.py (PreparedBeam, prepare_beam,
+StageInPipeline, and the batched admission of ``serve --batch N``:
+PreparedBatch and BatchStageInPipeline).
 
 The process-per-beam path pays stage-in (copy raw files to the
 node-local workspace), Mock subband merge, and zaplist selection
@@ -104,6 +104,165 @@ def prepare_beam(ticket: dict, workdir_base: str | None = None,
     telemetry.serve_stagein_seconds().observe(dt)
     return PreparedBeam(ticket=ticket, workdir=workdir, ppfns=ppfns,
                         zaplist=zap, stagein_seconds=dt)
+
+
+@dataclasses.dataclass
+class PreparedBatch:
+    """A coalesced admission batch: up to N compatibility-claimed
+    tickets staged concurrently, handed to the device loop as one
+    unit.  Members keep full per-beam identity (ticket, workdir,
+    error) — the batch is a dispatch grouping, never a merged job."""
+    beams: list[PreparedBeam] = dataclasses.field(default_factory=list)
+
+    @property
+    def ticket_ids(self) -> list[str]:
+        return [b.ticket_id for b in self.beams]
+
+
+class BatchStageInPipeline:
+    """Batched admission for ``serve --batch N``: one background
+    thread claims up to N COMPATIBLE tickets in one tenant-policy
+    ordering pass (protocol.claim_batch), lingers a bounded window to
+    top up a partial batch (late-arriving compatible tickets join;
+    a partial batch dispatches at the deadline instead of starving),
+    stages every member CONCURRENTLY (stage-in is host/disk work —
+    batchmates' copies overlap), and hands the whole batch through
+    the same bounded queue contract as StageInPipeline.
+
+    ``claim_batch`` is ``callable(n, compat) -> list[ticket]``: the
+    server binds protocol.claim_batch with its spool/policy/worker
+    identity; ``compat=None`` lets the first claim fix the batch key,
+    a non-None value pins it for linger top-ups."""
+
+    def __init__(self, claim_batch, workdir_base: str | None = None,
+                 cfg=None, batch: int = 2, linger_s: float = 2.0,
+                 depth: int = 1, poll_s: float = 0.5, logger=None,
+                 journal: Callable | None = None):
+        self.claim_batch = claim_batch
+        self.workdir_base = workdir_base
+        self.cfg = cfg
+        self.batch = max(1, int(batch))
+        self.linger_s = max(0.0, float(linger_s))
+        self.poll_s = poll_s
+        self.log = logger or get_logger("serve.stagein")
+        self.journal = journal
+        self._out: queue.Queue[PreparedBatch] = queue.Queue(
+            maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._dropped: list[PreparedBeam] = []
+        self._dropped_lock = threading.Lock()
+
+    def start(self) -> "BatchStageInPipeline":
+        self._thread = threading.Thread(
+            target=self._run, name="serve-stagein-batch", daemon=True)
+        self._thread.start()
+        return self
+
+    def _claim(self, n: int, compat) -> list[dict]:
+        try:
+            return self.claim_batch(n, compat)
+        except Exception:
+            self.log.exception("batch ticket claim failed")
+            return []
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            batch = self._claim(self.batch, None)
+            if not batch:
+                self._stop.wait(self.poll_s)
+                continue
+            # linger window: a partial batch waits a BOUNDED time for
+            # compatible late arrivals, then dispatches partial — the
+            # no-starvation half of the coalescing bargain
+            deadline = time.time() + self.linger_s
+            compat = str(batch[0].get("compat", "") or "")
+            while len(batch) < self.batch and not self._stop.is_set():
+                left = deadline - time.time()
+                if left <= 0:
+                    break
+                more = self._claim(self.batch - len(batch), compat)
+                if more:
+                    batch.extend(more)
+                    continue
+                self._stop.wait(min(0.1, max(0.01, left)))
+            prepared = self._stage_all(batch)
+            while not self._stop.is_set():
+                try:
+                    self._out.put(prepared, timeout=0.25)
+                    break
+                except queue.Full:
+                    continue
+            else:
+                for b in prepared.beams:
+                    b.cleanup()
+                with self._dropped_lock:
+                    self._dropped.extend(prepared.beams)
+
+    def _stage_one(self, ticket: dict) -> PreparedBeam:
+        waited = time.time() - ticket.get("submitted_at", time.time())
+        telemetry.serve_admission_wait_seconds().observe(
+            max(0.0, waited))
+        # each staging thread stamps its OWN beam's trace id on the
+        # spans it records (thread-local context)
+        telemetry.trace.set_trace_id(ticket.get("trace_id", ""))
+        try:
+            prepared = prepare_beam(ticket, self.workdir_base,
+                                    self.cfg)
+        finally:
+            telemetry.trace.set_trace_id("")
+        if self.journal is not None:
+            if prepared.error:
+                self.journal(
+                    "stagein_failed", ticket,
+                    error=prepared.error.splitlines()[0][:200])
+            else:
+                self.journal(
+                    "stagein_done", ticket,
+                    seconds=round(prepared.stagein_seconds, 3))
+        return prepared
+
+    def _stage_all(self, batch: list[dict]) -> PreparedBatch:
+        if len(batch) == 1:
+            return PreparedBatch(beams=[self._stage_one(batch[0])])
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(
+                max_workers=len(batch),
+                thread_name_prefix="serve-stagein-batch") as pool:
+            beams = list(pool.map(self._stage_one, batch))
+        return PreparedBatch(beams=beams)
+
+    def next(self, timeout: float | None = None
+             ) -> PreparedBatch | None:
+        try:
+            return self._out.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def stop(self) -> list[PreparedBeam]:
+        """Stop and join; returns every prepared-but-unconsumed beam
+        (cleaned up; their claims stay in the spool for the caller's
+        requeue_own_claims — same contract as StageInPipeline)."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            if self._thread.is_alive():
+                self.log.warning("batch stage-in thread still "
+                                 "running after stop(); abandoning "
+                                 "it")
+        leftovers: list[PreparedBeam] = []
+        while True:
+            try:
+                b = self._out.get_nowait()
+            except queue.Empty:
+                break
+            for beam in b.beams:
+                beam.cleanup()
+                leftovers.append(beam)
+        with self._dropped_lock:
+            leftovers.extend(self._dropped)
+            self._dropped = []
+        return leftovers
 
 
 class StageInPipeline:
