@@ -72,6 +72,24 @@ these phases:
      that both results directories and both checkpoints' artifacts
      equal phase 4's, the pulsar in both, and that stage 1 launched
      once a pass for the group and stage 2's beam axis once a chunk.
+  8. stream: the streaming plane (tpulsar_torch/stream/) on a Mock
+     real-time session (960 channels, 65.476 us, 1024 DMs over 0-1000,
+     12 chunks of 16384 samples, spans of 4 chunks; seeded noise and
+     one dispersed pulse at DM 300).  In process: the chunks through
+     StreamDedisp on the card, the concatenated series torch.equal to
+     dedisperse_stream_batch and to the plain stage 2 over the block,
+     one stage-2 launch an emission, the streamed trigger set equal to
+     the batch series' spans and holding the pulse; one emission timed
+     against its bound and its plain version, with the window's H2D
+     copy, the block's D2H copy and one span search.  Served: the
+     session fed at the real-time rate with seq 5 left out, answered by
+     `python -m tpulsar_torch serve --stream --once` in a subprocess
+     (the same wrapper): done with one gap, the journal chain, the
+     triggers' digest equal to an in-process control's, the chunk
+     latencies against the ticket's slo_s, one launch an emission
+     after boot; then a second session's server SIGKILLed after three
+     acknowledged chunks and a new one resuming it: the control's
+     digest, at most one chunk replayed, the checkpoint cleaned.
 
 Phases 4-7 search with the zaplist the job picks under the default
 configuration (the packaged default.zaplist), as the server does.
@@ -85,6 +103,7 @@ it imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
@@ -1110,12 +1129,31 @@ def run_server(tmp: str, name: str, tickets: dict, args=()) -> dict:
     process's wall time and its log."""
     from tpulsar_torch.serve import protocol
 
-    spool = os.path.join(tmp, f"{name}_spool")
+    srv = server_setup(tmp, name)
     for tid, (files, outdir) in tickets.items():
-        protocol.write_ticket(spool, tid, files, outdir)
+        protocol.write_ticket(srv["spool"], tid, files, outdir)
         time.sleep(0.01)                  # FIFO by submission time
-    # the default configuration with every path under tmp (a python
-    # configuration file: the card's machine may have no YAML parser)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with open(srv["log"], "w") as logf:
+        rc = subprocess.run(srv["cmd"] + list(args), env=srv["env"],
+                            stdout=logf, stderr=subprocess.STDOUT,
+                            timeout=900).returncode
+    wall = time.time() - t0
+    counts = server_counts(srv, rc)
+    with open(srv["hb"]) as fh:
+        beat = json.load(fh)
+    return dict(spool=srv["spool"], wall_s=wall, counts=counts, beat=beat,
+                recs={t: protocol.read_result(srv["spool"], t)
+                      for t in tickets})
+
+
+def server_setup(tmp: str, name: str) -> dict:
+    """A server's spool, configuration (the default one with every
+    path under tmp, as a python file: the card's machine may have no
+    YAML parser), environment, log and counts files, and its command:
+    `python -m tpulsar_torch serve --once` through SERVE_WRAPPER."""
+    spool = os.path.join(tmp, f"{name}_spool")
     cfg = os.path.join(tmp, f"{name}_cfg.py")
     paths = {"processing": {"base_working_directory": "work",
                             "base_results_directory": "res"},
@@ -1129,33 +1167,29 @@ def run_server(tmp: str, name: str, tickets: dict, args=()) -> dict:
                                          for k, v in kv.items()}) + "\n")
     counts_path = os.path.join(tmp, f"{name}_counts.json")
     hb_path = os.path.join(tmp, f"{name}_stage_heartbeat.json")
-    log_path = os.path.join(tmp, f"{name}.log")
     env = dict(os.environ, SMOKE_COUNTS=counts_path,
                TPULSAR_STAGE_HEARTBEAT=hb_path,
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    torch.cuda.empty_cache()
-    t0 = time.time()
-    with open(log_path, "w") as logf:
-        rc = subprocess.run(
-            [sys.executable, "-c", SERVE_WRAPPER, "--config", cfg,
-             "serve", "--once", "--spool", spool, *args], env=env,
-            stdout=logf, stderr=subprocess.STDOUT, timeout=900).returncode
-    wall = time.time() - t0
-    with open(log_path) as fh:
+    return dict(spool=spool, counts=counts_path, hb=hb_path, env=env,
+                log=os.path.join(tmp, f"{name}.log"), name=name,
+                cmd=[sys.executable, "-c", SERVE_WRAPPER, "--config", cfg,
+                     "serve", "--once", "--spool", spool])
+
+
+def server_counts(srv: dict, rc: int) -> dict:
+    """Print a finished server's notable log lines; raise unless it
+    exited 0; return the wrapper's counts."""
+    with open(srv["log"]) as fh:
         text = fh.read()
     for line in text.splitlines():
         if re.search(r"serve: |boot took|ticket .* -> |stage-in failed|"
                      r"server stopped|\[batch\]|Error|Traceback", line):
-            log(f"  {name}: {line[:300]}")
+            log(f"  {srv['name']}: {line[:300]}")
     if rc != 0:
-        raise AssertionError(f"{name}: the server exited {rc}:\n"
+        raise AssertionError(f"{srv['name']}: the server exited {rc}:\n"
                              f"{text[-4000:]}")
-    with open(counts_path) as fh:
-        counts = json.load(fh)
-    with open(hb_path) as fh:
-        beat = json.load(fh)
-    return dict(spool=spool, wall_s=wall, counts=counts, beat=beat,
-                recs={t: protocol.read_result(spool, t) for t in tickets})
+    with open(srv["counts"]) as fh:
+        return json.load(fh)
 
 
 def check_journal(spool: str, tid: str, want: list[str], what: str
@@ -1338,6 +1372,456 @@ def batch_phase(fns: list[str], tmp: str, nsamp: int, plan,
                 peak_bytes=counts["peak_bytes"], stages=stages)
 
 
+#: phase 8's session: the full Mock beam's geometry as a real-time
+#: stream (the band runs from its first to its last channel centre),
+#: 1024 DM trials over 0-1000, chunks of 16384 samples (1.07 s of
+#: sky), spans of 4 chunks; the chunk count is not cut
+STREAM_GEOM = {"nchan": NCHAN, "dt": TSAMP, "f_lo_mhz": 1214.36,
+               "f_hi_mhz": 1536.64, "ndms": 1024, "dm_max": 1000.0,
+               "chunk_len": 16384, "span_chunks": 4}
+STREAM_CHUNKS = 12
+#: the dispersed pulse of phase 8's chunks (sample of its arrival at
+#: the top of the band, DM, amplitude a channel in noise units), and
+#: the seq the served sessions leave out as a gap
+STREAM_PULSE = dict(t=40_000, dm=300.0, amp=1.0)
+STREAM_GAP = 5
+
+
+def stream_chunks() -> np.ndarray:
+    """(nchan, STREAM_CHUNKS * chunk_len) float32: seeded numpy noise
+    plus one dispersed pulse of 3 samples."""
+    from tpulsar_torch.constants import dispersion_delay_s
+    from tpulsar_torch.stream.dedisp_state import geometry_freqs_dms
+
+    g = STREAM_GEOM
+    rng = np.random.default_rng(20261017)
+    data = rng.standard_normal(
+        (g["nchan"], STREAM_CHUNKS * g["chunk_len"]), dtype=np.float32)
+    freqs, _ = geometry_freqs_dms(g)
+    sh = np.round(dispersion_delay_s(STREAM_PULSE["dm"], freqs,
+                                     float(freqs[-1])) / g["dt"])
+    for c in range(g["nchan"]):
+        t = STREAM_PULSE["t"] + int(sh[c])
+        data[c, t:t + 3] += STREAM_PULSE["amp"]
+    return data
+
+
+def stream_control(chunks: list, device) -> tuple[str, list, list]:
+    """The in-process run of a session's frames (None = a gap,
+    zero-filled as the worker fills it) through StreamDedisp and
+    SpanTrigger on the torch backend -> (digest, records, the emitted
+    blocks)."""
+    from tpulsar_torch.stream.dedisp_state import StreamDedisp
+    from tpulsar_torch.stream.trigger import SpanTrigger, trigger_digest
+
+    sd = StreamDedisp(STREAM_GEOM, backend="torch", device=device)
+    tg = SpanTrigger(STREAM_GEOM, session="control", backend="torch",
+                     device=device)
+    recs, blocks = [], []
+    for ch in chunks:
+        if ch is None:
+            ch = np.zeros((sd.nchan, sd.chunk_len), np.float32)
+        blocks += sd.append(ch)
+    blocks += sd.flush()
+    for blk in blocks:
+        for _, r in tg.feed(blk):
+            recs += r
+    for _, r in tg.flush():
+        recs += r
+    return trigger_digest(recs), recs, blocks
+
+
+def _chunk(data: np.ndarray, k: int) -> np.ndarray:
+    cl = STREAM_GEOM["chunk_len"]
+    return data[:, k * cl:(k + 1) * cl]
+
+
+def _feed_at_cadence(sroot: str, session: str, data: np.ndarray,
+                     seqs, t0: float) -> None:
+    """Land chunk k at t0 + k chunk durations (the real-time rate),
+    with its ingest time stamped as it lands."""
+    from tpulsar_torch.stream import ingest
+
+    chunk_s = STREAM_GEOM["chunk_len"] * STREAM_GEOM["dt"]
+    for k in seqs:
+        wait = t0 + k * chunk_s - time.time()
+        if wait > 0:
+            time.sleep(wait)
+        ingest.append_chunk(sroot, session, k, _chunk(data, k))
+
+
+def _wait_events(spool: str, tid: str, event: str, n: int,
+                 proc, limit_s: float) -> None:
+    from tpulsar_torch.obs import journal
+
+    deadline = time.time() + limit_s
+    while sum(e["event"] == event for e in journal.read_events(
+            spool, ticket=tid)) < n:
+        if proc.poll() is not None:
+            raise AssertionError(f"phase 8: the server exited "
+                                 f"{proc.returncode} before {n} {event}")
+        if time.time() > deadline:
+            raise AssertionError(f"phase 8: no {n} {event} in "
+                                 f"{limit_s:.0f} s")
+        time.sleep(0.05)
+
+
+def stage2_kernel_ms(subb: torch.Tensor, plan, ndms: int) -> float:
+    """The stage-2 kernel alone on (nsub, T) subbands, its group
+    tables on the card already (the wrapper computes and uploads them
+    every call); these launches are not counted."""
+    lib = cuda_dd._load()
+    tables = torch.from_numpy(plan.tables).to(DEV)
+    out = torch.empty((ndms, subb.shape[1]), dtype=torch.float32,
+                      device=DEV)
+    stream = torch.cuda.current_stream(DEV).cuda_stream
+    return time_ms(lambda: cuda_dd._check(lib.dd_dedisperse(
+        subb.data_ptr(), 1, subb.shape[0], subb.shape[1],
+        tables.data_ptr(), ndms, plan.groups, plan.rows, plan.span,
+        out.data_ptr(), stream), "dd_dedisperse"))
+
+
+def stream_host_io(sd, data: np.ndarray) -> dict:
+    """Host clock of the stream worker's per-chunk I/O at this
+    geometry: one frame's verified read, and one carry checkpoint (the
+    worker's npz: the carry and a span's worth of pending series less
+    one chunk, through CheckpointStore.save)."""
+    from tpulsar_torch.stream import ingest
+
+    tmp = tempfile.mkdtemp(prefix="tpulsar_torch_stream_io_")
+    try:
+        ingest.open_session(tmp, "io", STREAM_GEOM)
+        ingest.append_chunk(tmp, "io", 0, _chunk(data, 0))
+        t0 = time.time()
+        ingest.read_chunk(tmp, "io", 0)
+        read_s = time.time() - t0
+        cl = STREAM_GEOM["chunk_len"]
+        pend = np.zeros((STREAM_GEOM["ndms"],
+                         (STREAM_GEOM["span_chunks"] - 1) * cl), np.float32)
+        carry = np.ascontiguousarray(data[:, :sd.maxshift])
+        store = ckpt.CheckpointStore(os.path.join(tmp, "ck"), "io")
+        t0 = time.time()
+        buf = io.BytesIO()
+        np.savez(buf, carry=carry, emitted=np.int64(0),
+                 ack_next=np.int64(1), sp_pend=pend,
+                 sp_next_span=np.int64(0))
+        blob = buf.getvalue()
+        store.save("stream_carry", blob, kind="stream", ext=".1.npz",
+                   ack_next=1)
+        ck_s = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(frame_read_s=read_s, checkpoint_s=ck_s,
+                checkpoint_mb=len(blob) / 1e6)
+
+
+def stream_served(tmp: str, name: str, data: np.ndarray,
+                  kill_after: int = 0) -> dict:
+    """A session fed at the real-time rate with seq STREAM_GAP left out,
+    answered by `python -m tpulsar_torch serve --stream --once` in a
+    subprocess on the card.  With kill_after, that server is SIGKILLed
+    once kill_after chunks are acknowledged, the rest of the frames
+    land at once, and a second server resumes the session."""
+    from tpulsar_torch.serve import protocol
+    from tpulsar_torch.stream import ingest
+
+    srv = server_setup(tmp, name)
+    sroot = os.path.join(tmp, f"{name}_sessions")
+    outdir = os.path.join(tmp, f"{name}_out")
+    os.makedirs(outdir)
+    session, tid = f"{name}_session", f"{name}_ticket"
+    ingest.open_session(sroot, session, STREAM_GEOM)
+    slo_s = STREAM_GEOM["chunk_len"] * STREAM_GEOM["dt"]
+    protocol.write_ticket(srv["spool"], tid, [], outdir, kind="stream",
+                          session=session, stream_root=sroot,
+                          slo_s=slo_s)
+    seqs = [k for k in range(STREAM_CHUNKS) if k != STREAM_GAP]
+    torch.cuda.empty_cache()
+
+    logs = []
+
+    def start(log_path: str):
+        logs.append(open(log_path, "w"))
+        return subprocess.Popen(srv["cmd"] + ["--stream"], env=srv["env"],
+                                stdout=logs[-1], stderr=subprocess.STDOUT)
+
+    resumed_log = os.path.join(tmp, f"{name}_resumed.log")
+    t_start = time.time()
+    proc = start(srv["log"])
+    try:
+        _wait_events(srv["spool"], tid, "stream_open", 1, proc, 300)
+        t_open = time.time() - t_start
+        if kill_after:
+            feeder = threading.Thread(target=_feed_at_cadence, args=(
+                sroot, session, data, seqs[:kill_after + 1], time.time()))
+            feeder.start()
+            _wait_events(srv["spool"], tid, "chunk_received", kill_after,
+                         proc, 120)
+            proc.kill()
+            proc.wait(timeout=60)
+            feeder.join()
+            if protocol.read_result(srv["spool"], tid) is not None:
+                raise AssertionError("phase 8: a killed server wrote a "
+                                     "result")
+            for k in seqs[kill_after + 1:]:
+                ingest.append_chunk(sroot, session, k, _chunk(data, k))
+            ingest.close_session(sroot, session, STREAM_CHUNKS)
+            proc = start(resumed_log)
+        else:
+            _feed_at_cadence(sroot, session, data, seqs, time.time())
+            ingest.close_session(sroot, session, STREAM_CHUNKS)
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        for fh in logs:
+            fh.close()
+    wall = time.time() - t_start
+    counts = server_counts(srv, rc) if not kill_after else {}
+    if kill_after:
+        with open(resumed_log) as fh:
+            text = fh.read()
+        if rc != 0:
+            raise AssertionError(f"{name}: the resumed server exited "
+                                 f"{rc}:\n{text[-4000:]}")
+    return dict(spool=srv["spool"], tid=tid, outdir=outdir, wall_s=wall,
+                open_s=t_open, counts=counts, slo_s=slo_s, sroot=sroot,
+                session=session,
+                rec=protocol.read_result(srv["spool"], tid))
+
+
+def stream_phase() -> dict:
+    """Phase 8: the streaming plane on the 960-channel Mock session, in
+    process (bit-identity with the batch and the plain version, the
+    kernel's launches, triggers against the batch spans, times) and
+    served by `serve --stream --once` (a gap, then a SIGKILL and a
+    resume)."""
+    from tpulsar_torch.obs import journal
+    from tpulsar_torch.stream.dedisp_state import (StreamDedisp,
+                                                   geometry_freqs_dms)
+    from tpulsar_torch.stream.trigger import (events_to_records,
+                                              search_span, trigger_digest)
+
+    g = STREAM_GEOM
+    cl, ndms, nchan = g["chunk_len"], g["ndms"], g["nchan"]
+    _, dms = geometry_freqs_dms(g)
+    t0 = time.time()
+    data = stream_chunks()
+    log(f"phase 8: {STREAM_CHUNKS} chunks of ({nchan}, {cl}) float32 "
+        f"synthesized in {time.time() - t0:.1f} s (pulse {STREAM_PULSE})")
+
+    # ---- in process: the stream against the batch and the plain
+    sd = StreamDedisp(g, backend="torch", device=DEV)
+    plan = cuda_dd.stage2_launch(sd.shifts)
+    log(f"phase 8: maxshift {sd.maxshift}, window ({nchan}, "
+        f"{sd.window_width}), stage-2 launch {plan.groups} groups x "
+        f"{plan.rows} rows, span {plan.span}, {plan.smem_bytes} B shared")
+    cuda_dd.reset_counts()
+    blocks, per_chunk = [], []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for k in range(STREAM_CHUNKS):
+        t1 = time.time()
+        blocks += sd.append(_chunk(data, k))
+        per_chunk.append(time.time() - t1)
+    blocks += sd.flush()
+    stream_s = time.time() - t0
+    launches = dict(cuda_dd.LAUNCHES)
+    emissions = len(blocks)
+    if launches["dedisperse_subbands"] != emissions or emissions != \
+            STREAM_CHUNKS or sum(launches.values()) != emissions:
+        raise AssertionError(f"phase 8: {emissions} emissions, launches "
+                             f"{launches}")
+    series = torch.from_numpy(np.concatenate(blocks, axis=1)).to(DEV)
+    data_dev = torch.from_numpy(data).to(DEV)
+    batch = dd.dedisperse_stream_batch(data_dev, sd.shifts)
+    if not torch.equal(series, batch):
+        raise AssertionError("phase 8: the streamed series differs from "
+                             "dedisperse_stream_batch")
+    del batch
+    t0 = time.time()
+    plain = cuda_dd.dedisperse_subbands_plain(data_dev, sd.shifts)
+    torch.cuda.synchronize()
+    plain_block_s = time.time() - t0
+    if not torch.equal(series, plain):
+        raise AssertionError("phase 8: the streamed series differs from "
+                             "the plain stage 2 over the block")
+    del plain, data_dev
+    log(f"phase 8: {emissions} emissions, {emissions} stage-2 launches; "
+        f"the streamed ({ndms}, {series.shape[1]}) series is torch.equal "
+        f"to dedisperse_stream_batch and to the plain stage 2 over the "
+        f"block on the card ({plain_block_s:.3f} s)")
+
+    # ---- triggers: streamed spans against the batch series' spans
+    t0 = time.time()
+    digest, recs, _ = stream_control([_chunk(data, k) for k in
+                                      range(STREAM_CHUNKS)], DEV)
+    control_s = time.time() - t0
+    span_len = g["span_chunks"] * cl
+    host = series.cpu().numpy()
+    brecs = []
+    for i, s0 in enumerate(range(0, host.shape[1], span_len)):
+        ev = search_span(host[:, s0:s0 + span_len], dms, g["dt"],
+                         backend="torch", device=DEV)
+        brecs += events_to_records(ev, "control", i, s0, g["dt"])
+    if trigger_digest(brecs) != digest:
+        raise AssertionError(f"phase 8: streamed triggers ({len(recs)}) "
+                             f"!= the batch spans' ({len(brecs)})")
+    step = float(dms[1] - dms[0])
+    hits = [r for r in recs if abs(r["dm"] - STREAM_PULSE["dm"]) <= step
+            and abs(r["sample"] - STREAM_PULSE["t"]) <= 32]
+    if not hits:
+        raise AssertionError(f"phase 8: the pulse was not triggered "
+                             f"({len(recs)} triggers)")
+    top = max(hits, key=lambda r: r["sigma"])
+    log(f"phase 8: {len(recs)} triggers, equal to the batch spans'; the "
+        f"pulse at DM {top['dm']} sample {top['sample']} width "
+        f"{top['width']} sigma {top['sigma']}")
+
+    # ---- times: one emission, its copies, one span search
+    sd2 = StreamDedisp(g, backend="torch", device=DEV)
+    window = np.zeros((nchan, sd2.window_width), np.float32)
+    need = cl + sd2.maxshift
+    window[:, :need] = data[:, :need]
+    win = torch.from_numpy(window).to(DEV)
+    out = dd.dedisperse_stream_step(win, sd2.shifts, cl)
+    ref = cuda_dd.dedisperse_subbands_plain(win, sd2.shifts)[:, :cl]
+    err = float((out - ref).abs().max())
+    if not torch.equal(out, ref):
+        raise AssertionError(f"phase 8: an emission differs from its "
+                             f"plain version by {err}")
+    del ref
+    ms = time_ms(lambda: dd.dedisperse_stream_step(win, sd2.shifts, cl))
+    plain_ms = time_ms(lambda: cuda_dd.dedisperse_subbands_plain(
+        win, sd2.shifts)[:, :cl], runs=1)
+    # the emission's function: chunk_len columns of ndms sums over
+    # nchan channels (the kernel computes all W columns, twice that)
+    nops = float(ndms) * nchan * cl
+    nbytes = 4.0 * (nchan * need + ndms * cl)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    # the call's parts: the launch arithmetic on the host (the group
+    # tables, recomputed every call), and the kernel alone on tables
+    # already on the card
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plan = cuda_dd.stage2_launch(sd2.shifts)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    launch_host_ms = statistics.median(host_ms)
+    kernel_ms = stage2_kernel_ms(win, plan, ndms)
+    h2d_ms = time_ms(lambda: torch.from_numpy(window).to(DEV))
+    d2h_ms = time_ms(lambda: out.cpu())
+    span_dev = series[:, :span_len].contiguous()
+    from tpulsar_torch.kernels import singlepulse as sp_mod
+    span_ms = time_ms(lambda: sp_mod.single_pulse_search(
+        span_dev, dms, g["dt"], threshold=6.0))
+    del series, span_dev, win, out
+    io_s = stream_host_io(sd2, data)
+    log(f"phase 8 emission: {ms:.3f} ms (plain {plain_ms:.3f} ms), bound "
+        f"{b_ms:.3f} ms by {b_by} ({nops:.3e} adds of the kept "
+        f"{cl} columns; the kernel computes {sd2.window_width}), share "
+        f"{b_ms / ms:.3f}; of which the host's launch arithmetic "
+        f"{launch_host_ms:.3f} ms and the kernel alone {kernel_ms:.3f} ms "
+        f"(share {b_ms / kernel_ms:.3f}); H2D of the window {h2d_ms:.3f} "
+        f"ms, D2H of the "
+        f"block {d2h_ms:.3f} ms; span search ({ndms}, {span_len}) "
+        f"{span_ms:.3f} ms; in process {STREAM_CHUNKS} chunks "
+        f"({cl * g['dt']:.4f} s of sky each) dedispersed in "
+        f"{stream_s:.3f} s ({STREAM_CHUNKS / stream_s:.3f} chunks/s; "
+        f"append p50 {statistics.median(per_chunk) * 1e3:.1f} ms, max "
+        f"{max(per_chunk) * 1e3:.1f} ms), dedispersed and span-searched "
+        f"in {control_s:.3f} s ({STREAM_CHUNKS / control_s:.3f} "
+        f"chunks/s); the worker's host I/O a chunk: frame read and "
+        f"verify {io_s['frame_read_s']:.3f} s, carry checkpoint "
+        f"({io_s['checkpoint_mb']:.1f} MB npz) {io_s['checkpoint_s']:.3f} "
+        f"s")
+
+    tmp = tempfile.mkdtemp(prefix="tpulsar_torch_stream_")
+    try:
+        gapped = [None if k == STREAM_GAP else _chunk(data, k)
+                  for k in range(STREAM_CHUNKS)]
+        gdigest, grecs, _ = stream_control(gapped, DEV)
+        # ---- served: a gap
+        run = stream_served(tmp, "stream", data)
+        r = run["rec"]
+        want = dict(status="done", n_chunks=STREAM_CHUNKS,
+                    chunks=STREAM_CHUNKS - 1, gaps=1, replayed=0,
+                    emitted_samples=STREAM_CHUNKS * cl,
+                    trigger_digest=gdigest)
+        if r is None or any(r.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"phase 8: served result {r} (want "
+                                 f"{want})")
+        evs = journal.read_events(run["spool"], ticket=run["tid"])
+        names = [e["event"] for e in evs if e["event"] in (
+            "stream_open", "chunk_received", "chunk_gap", "stream_closed")]
+        if names != ["stream_open"] + ["chunk_received"] * STREAM_GAP + [
+                "chunk_gap"] + ["chunk_received"] * (
+                STREAM_CHUNKS - STREAM_GAP - 1) + ["stream_closed"]:
+            raise AssertionError(f"phase 8: journal chain {names}")
+        chain = check_journal(run["spool"], run["tid"],
+                              ["claimed", "stream_open", "stream_closed",
+                               "result"], "phase 8")
+        lat = sorted(e["latency_s"] for e in evs
+                     if e["event"] == "chunk_received")
+        proc_s = sorted(e["proc_s"] for e in evs
+                        if e["event"] == "chunk_received")
+        p50 = statistics.median(lat)
+        p95 = lat[min(len(lat) - 1, math.ceil(0.95 * len(lat)) - 1)]
+        served = run["counts"]["served"]
+        if served["dedisperse_subbands"] != STREAM_CHUNKS or \
+                sum(served.values()) != STREAM_CHUNKS:
+            raise AssertionError(f"phase 8: served launches {served}")
+        boot = run["counts"]["boot"]
+        log(f"phase 8 served: {r['chunks']} chunks + {r['gaps']} gap, "
+            f"{r['triggers']} triggers, digest equal to the in-process "
+            f"control's; chain {json.dumps(chain)}; launches after boot "
+            f"{served} (boot {boot}, {run['counts']['boot_seconds']:.3f} "
+            f"s); chunk latency p50 {p50:.3f} s, p95 {p95:.3f} s, max "
+            f"{lat[-1]:.3f} s against slo_s {run['slo_s']:.4f} s; "
+            f"proc_s p50 {statistics.median(proc_s):.3f} s, max "
+            f"{proc_s[-1]:.3f} s; session open {run['open_s']:.1f} s "
+            f"after the server started, server process "
+            f"{run['wall_s']:.1f} s")
+        # ---- served: a SIGKILL after 3 acknowledged chunks, resumed
+        kill = stream_served(tmp, "killed", data, kill_after=3)
+        r2 = kill["rec"]
+        if r2 is None or r2.get("status") != "done" or \
+                r2.get("trigger_digest") != gdigest or \
+                r2.get("replayed", 9) > 1 or r2.get("gaps") != 1 or \
+                r2.get("chunks") != STREAM_CHUNKS - 1:
+            raise AssertionError(f"phase 8: resumed result {r2}")
+        kevs = journal.read_events(kill["spool"], ticket=kill["tid"])
+        acked = sorted(e["seq"] for e in kevs
+                       if e["event"] == "chunk_received")
+        opens = [e for e in kevs if e["event"] == "stream_open"]
+        if acked != [k for k in range(STREAM_CHUNKS) if k != STREAM_GAP] \
+                or [e.get("resumed") for e in opens] != [0, 1]:
+            raise AssertionError(f"phase 8: resumed chain acks {acked}, "
+                                 f"opens {opens}")
+        if os.path.isdir(ckpt.default_root(kill["outdir"])):
+            raise AssertionError("phase 8: the checkpoint was not cleaned")
+        log(f"phase 8 kill/resume: SIGKILL after 3 acknowledged chunks, "
+            f"resumed at seq {opens[1].get('ack')}, replayed "
+            f"{r2['replayed']}, digest equal to the control's, every seq "
+            f"acknowledged once, checkpoint cleaned (kept copy "
+            f"{os.path.isdir(kill['outdir'] + '.checkpoint')})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(name="stream", emissions=emissions, launches=launches,
+                launches_served=served, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                launch_host_ms=launch_host_ms, kernel_ms=kernel_ms,
+                h2d_ms=h2d_ms, d2h_ms=d2h_ms, span_search_ms=span_ms,
+                **io_s,
+                plain_block_s=plain_block_s,
+                chunks_per_s=STREAM_CHUNKS / stream_s,
+                chunks_per_s_with_triggers=STREAM_CHUNKS / control_s,
+                latency_p50_s=p50, latency_p95_s=p95,
+                latency_max_s=lat[-1], slo_s=run["slo_s"],
+                replayed=r2["replayed"], triggers=len(recs))
+
+
 def report_stages(path: str) -> dict:
     """Stage seconds of a beam's .report (its 'Total time' as
     'total')."""
@@ -1499,6 +1983,7 @@ def main() -> None:
         log(f"NSAMP CUT: {nsamp} samples instead of {NSAMP} "
             f"(TPULSAR_SMOKE_NSAMP); channels, nsub and plan unchanged")
     res = slice_phase(nsamp)
+    stream = stream_phase()
     rows = kernel_rows(s1, s2, s2b, res["n1"], res["n2"])
     for r in rows:
         # each path counted from 0: the full beam (phase 4), the
@@ -1508,7 +1993,15 @@ def main() -> None:
         r["launches_resumed"] = res["resume"]["launches"][name]
         r["launches_served"] = res["serve"]["launches"][name]
         r["launches_batch"] = res["batch"]["launches"][name]
-        if name in SOLO_KERNELS:
+        # and the served stream session of phase 8 (after boot)
+        r["launches_stream"] = stream["launches_served"][name]
+        if name == "dedisperse_subbands":
+            r["launches"] = res["launches"][name]
+            paths = ("launches", "launches_resumed", "launches_served",
+                     "launches_batch", "launches_stream")
+            r["stream"] = {k: v for k, v in stream.items()
+                           if k not in ("launches", "launches_served")}
+        elif name in SOLO_KERNELS:
             r["launches"] = res["launches"][name]
             paths = ("launches", "launches_resumed", "launches_served",
                      "launches_batch")

@@ -425,3 +425,25 @@ def test_cuda_stage1_many_channels_per_subband(cuda_device):
     sh = rng.integers(0, 50, 600).astype(np.int32)
     got = cuda_dd.form_subbands(data, sh, 1, 2)
     assert torch.equal(got, cuda_dd.form_subbands_plain(data, sh, 1, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_stream_step_matches_plain(cuda_device):
+    """A stream emission on the card is one stage-2 launch with the
+    240 channels as subbands; its first chunk_len columns equal the
+    plain window scan exactly (dedisperse_stream_step's CPU route)."""
+    from tpulsar_torch.stream.dedisp_state import StreamDedisp
+
+    geom = dict(nchan=240, chunk_len=4096, ndms=100, dt=65.476e-6,
+                f_lo_mhz=1214.36, f_hi_mhz=1536.64, dm_max=200.0,
+                span_chunks=4)
+    sd = StreamDedisp(geom, device=cuda_device)
+    rng = np.random.default_rng(8)
+    win = torch.from_numpy(rng.standard_normal(
+        (240, sd.window_width), dtype=np.float32)).to(cuda_device)
+    before = cuda_dd.LAUNCHES["dedisperse_subbands"]
+    got = tdd.dedisperse_stream_step(win, sd.shifts, sd.chunk_len)
+    assert cuda_dd.LAUNCHES["dedisperse_subbands"] == before + 1
+    assert got.shape == (100, 4096)
+    assert torch.equal(got, tdd.dedisperse_window_scan(win, sd.shifts,
+                                                       sd.chunk_len))

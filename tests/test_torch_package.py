@@ -45,6 +45,9 @@ import tpulsar_torch.orchestrate.zaplists
 import tpulsar_torch.orchestrate.transports
 import tpulsar_torch.native, tpulsar_torch.kernels.tree_dd
 import tpulsar_torch.kernels.beam_batch
+import tpulsar_torch.stream, tpulsar_torch.stream.ingest
+import tpulsar_torch.stream.dedisp_state, tpulsar_torch.stream.trigger
+import tpulsar_torch.stream.worker
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tpulsar" or m.startswith("tpulsar."))
@@ -165,17 +168,16 @@ def test_later_slices_are_refused_by_name(change, word, monkeypatch):
 
 
 @pytest.mark.parametrize("option, word", [
-    (dict(stream=True), "stream"),
     (dict(queue_url="sqlite:q.db"), "sqlite_queue.py"),
     ("TPULSAR_DATA_URL", "dataplane/blobstore.py"),
     ("TPULSAR_BLOB_ROOT", "dataplane/blobstore.py"),
 ])
 def test_serve_refuses_later_slices_by_name(option, word, tmp_path,
                                             monkeypatch):
-    """Stream mode, the sqlite queue and the blob data plane raise
+    """The sqlite queue and the blob data plane raise
     NotImplementedError naming what they need, when
     the server is built (a blob ticket fails its own stage-in:
-    test_torch_serve.py)."""
+    test_torch_serve.py; stream mode runs: test_torch_stream.py)."""
     from tpulsar_torch.config import TpulsarConfig
     from tpulsar_torch.serve.server import SearchServer
 
@@ -209,14 +211,13 @@ def test_blob_tickets_are_refused_by_name(tmp_path):
 
 
 @pytest.mark.parametrize("flag, word", [
-    (["--stream"], "stream/"),
     (["--queue", "sqlite:q.db"], "sqlite_queue.py"),
 ])
 def test_serve_cli_refuses_later_slices_by_name(flag, word, tmp_path,
                                                 capsys, monkeypatch):
-    """`serve --stream` and a sqlite queue exit 2 with the refusal,
-    before anything is claimed (`serve --batch 2` runs:
-    test_torch_beam_batch.py)."""
+    """A sqlite queue exits 2 with the refusal, before anything is
+    claimed (`serve --batch 2` runs: test_torch_beam_batch.py;
+    `serve --stream`: test_torch_stream.py)."""
     from tpulsar_torch.cli import main as tmain
     from tpulsar_torch.config import TpulsarConfig, set_settings
 

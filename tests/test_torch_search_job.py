@@ -161,41 +161,62 @@ def test_job_without_gpu_fails_instead_of_using_the_cpu(tmp_path,
     assert not out.exists() and not (tmp_path / "w").exists()
 
 
+#: checkpoint writes the job makes up to its first pass artifact: the
+#: rfifind mask, then pass 0
+WRITES_TO_FIRST_PASS = 2
+
+
 def test_sigterm_unwinds_and_removes_the_workspace(tmp_path):
     """A queue manager's plain TERM mid-search exits 128+15 through
     the job's try/finally: the tpulsar_* workspace is removed, the
-    checkpoint (durable resume state) is kept."""
+    checkpoint (durable resume state) is kept.
+
+    The job is parked where the signal must land: every checkpoint
+    write after the first pass's sleeps 300 s first, so the TERM
+    arrives mid-search however slowly the test process is scheduled
+    (it used to race a 0.4 s delay on every write)."""
     fns = _subband_pair(tmp_path / "beam", seed=5)
     cfg = _config_file(tmp_path, dm_max=40.0)
     out = tmp_path / "out"
     env = dict(os.environ, PYTHONPATH=ROOT, TPULSAR_CONFIG=cfg,
                DATAFILES=";".join(fns), OUTDIR=str(out),
                OMP_NUM_THREADS="1",
-               TPULSAR_FAULTS="checkpoint.write:delay:seconds=0.4")
+               TPULSAR_FAULTS=f"checkpoint.write:delay:after="
+                              f"{WRITES_TO_FIRST_PASS},seconds=300")
     proc = subprocess.Popen(
         [sys.executable, "-m", "tpulsar_torch.cli.search_job",
          "--device", "cpu", "--no-accel", "--qid", "q17"],
         env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
         start_new_session=True)
     ckdir = tckpt.default_root(str(out))
+    stderr = ""
+
+    def why() -> str:
+        return f"rc {proc.returncode}; the job's stderr:\n{stderr[-3000:]}"
+
     try:
         deadline = time.time() + 240
         while not _pass_keys(ckdir):
-            assert proc.poll() is None, proc.stderr.read().decode()
+            assert proc.poll() is None, \
+                f"the job ended first: rc {proc.returncode}"
             assert time.time() < deadline, "no pass checkpointed in time"
             time.sleep(0.05)
+        assert proc.poll() is None, \
+            f"the job ended before the signal: rc {proc.returncode}"
         work = os.listdir(tmp_path / "work")
-        assert len(work) == 1 and work[0].startswith("tpulsar_")
+        assert len(work) == 1 and work[0].startswith("tpulsar_"), work
         proc.send_signal(signal.SIGTERM)
         proc.wait(timeout=120)
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait(timeout=60)
+        stderr = proc.stderr.read().decode(errors="replace")
         proc.stderr.close()
-    assert proc.returncode == 128 + signal.SIGTERM
-    assert os.listdir(tmp_path / "work") == []
-    assert _pass_keys(ckdir)
+    assert proc.returncode == 128 + signal.SIGTERM, why()
+    assert os.listdir(tmp_path / "work") == [], why()
+    # parked at the write after pass 0's: no later pass is durable
+    assert len(_pass_keys(ckdir)) == 1, why()
 
 
 @pytest.mark.parametrize("job", [jjob, tjob], ids=["jax", "torch"])

@@ -9,13 +9,14 @@ device: dedispersion, single-pulse search, the zero-accel and hi-accel
 folding and plots, with pass-level checkpoint/resume, the per-beam
 job a queue runs (``python -m tpulsar_torch.cli.search_job``) and the
 resident server (``python -m tpulsar_torch serve``, ``--batch N`` for
-coalesced groups of beams).  Plain tensor code is PyTorch (FFTs through
+coalesced groups of beams, ``--stream`` for real-time sessions through
+the streaming plane, ``stream/``).  Plain tensor code is PyTorch (FFTs through
 ``torch.fft``, cuFFT on the GPU); the two Pallas kernels of the
 reference (stage-1 subband formation and stage-2 shift-and-sum
 dedispersion) are CUDA kernels written for Hopper
 (``tpulsar_torch/csrc/dedisperse.cu``, bound in
-``tpulsar_torch/kernels/cuda_dd.py``), which the search, refinement
-and folding all call.
+``tpulsar_torch/kernels/cuda_dd.py``), which the search, refinement,
+folding and the stream's emissions all call.
 
 Every public entry point takes ``device=`` (the job: ``--device``) and
 defaults to ``"cuda"``.  Without a GPU the caller must pass

@@ -8,7 +8,9 @@ Subcommands so far:
           device-owning process drains the spool admission queue,
           paying process start, kernel build and device set-up once
           per boot instead of once per beam (``--batch N`` searches
-          up to N compatible beams as one coalesced group).  It takes
+          up to N compatible beams as one coalesced group;
+          ``--stream`` claims stream session tickets instead and
+          runs them through the streaming plane, stream/).  It takes
           the JAX package's ``tpulsar serve`` flags plus ``--device`` (cuda,
           the default, or cpu; without a GPU it fails unless
           ``--device cpu`` is given).
@@ -61,9 +63,10 @@ def _default_queue_url() -> str:
 
 def cmd_serve(args) -> int:
     """Resident search server (serve/): build and load the kernels and
-    warm the device once, then process beams from the spool admission
-    queue until drained (SIGTERM) — or, with --once, until the
-    spool's current contents are processed."""
+    warm the device once, then process beams (or, with --stream,
+    stream sessions) from the spool admission queue until drained
+    (SIGTERM) — or, with --once, until the spool's current contents
+    are processed."""
     from tpulsar_torch.config import settings
     from tpulsar_torch.serve.server import SearchServer
 
@@ -99,6 +102,7 @@ def cmd_serve(args) -> int:
           + (f"class {args.worker_class} " if args.worker_class
              else "")
           + f"device {server.device} "
+          + ("mode stream " if server.stream else "")
           + (f"batch {server.batch_size} " if server.batch_size > 1
              else "")
           + f"(depth {server.max_queue_depth}, "
@@ -174,8 +178,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "for late-arriving compatible tickets "
                          "before dispatching partial")
     sp.add_argument("--stream", action="store_true",
-                    help="streaming search mode (not ported yet: it "
-                         "needs the streaming plane)")
+                    help="streaming search mode: claim stream session "
+                         "tickets (kind=stream, fed through "
+                         "tpulsar_torch.stream.ingest) and run each "
+                         "through the streaming plane — chunked "
+                         "dedispersion on the CUDA stage-2 kernel + "
+                         "span single-pulse triggers, exactly-once "
+                         "with a checkpointed carry; beam tickets "
+                         "fail")
     sp.add_argument("--device", default="cuda",
                     help="where every beam runs: cuda (default) or "
                          "cpu; the server never moves to the CPU by "

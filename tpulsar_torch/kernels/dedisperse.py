@@ -12,7 +12,9 @@ lib/python/PALFA2_presto_search.py:506-529):
 Both stages run as the hand-written CUDA kernels of
 tpulsar_torch/kernels/cuda_dd.py on a CUDA tensor, and as their plain
 PyTorch versions on a CPU tensor.  This is the direct stage-2
-family; the shift-tree family is kernels/tree_dd.py.  All delays are relative to the *highest* frequency in the
+family; the shift-tree family is kernels/tree_dd.py.  The streaming
+plane's emissions (stream_* below) are stage 2 with the channels as
+subbands.  All delays are relative to the *highest* frequency in the
 band (delay >= 0), matching the synthesizer and the reference.
 """
 
@@ -154,3 +156,90 @@ def dedisperse_exact(data: np.ndarray, freqs_mhz: np.ndarray,
         arr = arr[:, : (T // downsamp) * downsamp]
         arr = arr.reshape(arr.shape[0], -1, downsamp).sum(-1)
     return arr
+
+
+# ----------------------------------------------------------- streaming entry
+#
+# The streaming plane (tpulsar_torch/stream/) dedisperses chunk at a
+# time against carried channel state.  An emission computes
+#
+#     out[d, t] = sum_c window[c, t + shift[d, c]],   t < chunk_len,
+#
+# summed in channel order from zero: the stage-2 function with the
+# channels as "subbands".  On the card it is one launch of the CUDA
+# stage-2 kernel (cuda_dd.dedisperse_subbands), whose edge clamp at
+# W - 1 is never reached inside the window (chunk_len + maxshift <= W);
+# on the CPU it is the plain dedisperse_window_scan.  Both sum in the
+# reference's order, so every emitted sample is bit-identical to the
+# batch dedispersion of the whole block.
+
+def stream_shift_table(freqs_mhz, dms, dt: float) -> np.ndarray:
+    """(ndms, nchan) int32 per-channel shifts for DIRECT streaming
+    dedispersion (no subbands), delays relative to the highest
+    frequency (the reference's stream_shift_table)."""
+    freqs_mhz = np.asarray(freqs_mhz, dtype=np.float64)
+    band_ref = float(freqs_mhz[-1])
+    return np.stack([
+        shift_samples(float(dm), freqs_mhz, band_ref, dt)
+        for dm in np.atleast_1d(np.asarray(dms, dtype=np.float64))
+    ]).astype(np.int32)
+
+
+def stream_window_width(chunk_len: int, maxshift: int) -> int:
+    """Width of the streaming emission window: chunk_len output
+    samples plus the power-of-two shift bucket (columns past
+    chunk_len + maxshift are never read)."""
+    return chunk_len + _pad_bucket(maxshift)
+
+
+def dedisperse_window_scan(ext: torch.Tensor, sub_shifts,
+                           out_len: int) -> torch.Tensor:
+    """Plain PyTorch shift-and-sum over a pre-extended window (no edge
+    handling), the reference's dedisperse_window_scan:
+
+        out[d, t] = sum_s ext[s, t + sub_shifts[d, s]],  t < out_len
+
+    accumulated in s order from zero.  Callers guarantee
+    max(sub_shifts) + out_len <= ext.shape[1]."""
+    sh = np.asarray(sub_shifts, dtype=np.int64)
+    if sh.size and int(sh.max()) + out_len > ext.shape[1]:
+        raise ValueError(f"dedisperse_window_scan: shift {int(sh.max())} "
+                         f"+ {out_len} samples > window {ext.shape[1]}")
+    acc = torch.zeros((sh.shape[0], out_len), dtype=torch.float32,
+                      device=ext.device)
+    for s in range(ext.shape[0]):
+        row = ext[s]
+        acc += torch.stack([row[int(x): int(x) + out_len]
+                            for x in sh[:, s]])
+    return acc
+
+
+def dedisperse_stream_step(window: torch.Tensor, shifts,
+                           chunk_len: int) -> torch.Tensor:
+    """One streaming emission: (nchan, W) float32 window + (ndms,
+    nchan) shifts -> (ndms, chunk_len).  A CUDA window goes through
+    one launch of the stage-2 kernel, which computes all W columns;
+    the first chunk_len are kept (a view).  A CPU window goes through
+    the plain dedisperse_window_scan."""
+    sh = cuda_dd._host_shifts(shifts, 2, "dedisperse_stream_step")
+    if sh.size and int(sh.max()) + chunk_len > window.shape[1]:
+        raise ValueError(f"dedisperse_stream_step: shift {int(sh.max())} "
+                         f"+ {chunk_len} samples > window "
+                         f"{window.shape[1]}")
+    if cuda_dd._check_device(window, "dedisperse_stream_step"):
+        return cuda_dd.dedisperse_subbands(window, sh)[:, :chunk_len]
+    return dedisperse_window_scan(window, sh, chunk_len)
+
+
+def dedisperse_stream_batch(data: torch.Tensor, shifts) -> torch.Tensor:
+    """Batch reference of the streaming plane: the whole (nchan, T)
+    float32 block dedispersed in one call, edge-padded as the chunked
+    path's session close pads it, by the same route as an emission
+    (the stage-2 kernel on the card, dedisperse_window_scan on the
+    CPU).  A chunked run must match this bit for bit."""
+    sh = cuda_dd._host_shifts(shifts, 2, "dedisperse_stream_batch")
+    T = data.shape[1]
+    ext = _edge_pad(data, _pad_bucket(int(sh.max(initial=0))))
+    if cuda_dd._check_device(ext, "dedisperse_stream_batch"):
+        return cuda_dd.dedisperse_subbands(ext.contiguous(), sh)[:, :T]
+    return dedisperse_window_scan(ext, sh, T)

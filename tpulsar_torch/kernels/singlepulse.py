@@ -81,6 +81,14 @@ def detrend_normalize(series: torch.Tensor, detrend_block: int = 1000,
     return detrended / std
 
 
+def normalize_series(series: torch.Tensor, detrend_block: int = 1000,
+                     estimator: str = "median") -> torch.Tensor:
+    """Remove a piecewise-constant baseline and scale to unit
+    variance, per DM series: the standalone SP detrend pass (the
+    reference's normalize_series; the body is detrend_normalize)."""
+    return detrend_normalize(series, detrend_block, estimator)
+
+
 _ESTIMATORS = ("median", "median_sub4", "clipped_mean")
 
 
@@ -126,9 +134,25 @@ def device_search(series: torch.Tensor,
                   estimator: str | None = None):
     """The device half of the SP search: normalize + boxcar top-k.
     Returns the (snrs, idx) tensors without moving them to the host."""
-    norm = detrend_normalize(series,
-                             estimator=detrend_estimator(estimator))
+    norm = normalize_series(series,
+                            estimator=detrend_estimator(estimator))
     return boxcar_search(norm, tuple(widths), topk)
+
+
+def single_pulse_search(series: torch.Tensor, dms: np.ndarray, dt: float,
+                        threshold: float = 5.0,
+                        widths: tuple[int, ...] = DEFAULT_WIDTHS,
+                        topk: int = DEFAULT_TOPK,
+                        estimator: str | None = None) -> np.ndarray:
+    """Full SP search of a (ndms, T) DM-series block, on the device
+    the tensor lies on.
+
+    Returns a structured array of events (dm, sigma, time_s, sample,
+    downfact), deduplicated so each (dm, sample-cluster) keeps its
+    best width (PRESTO single_pulse_search columns)."""
+    snrs, idx = device_search(series, widths, topk, estimator)
+    return events_from_topk(snrs.cpu().numpy(), idx.cpu().numpy(), dms,
+                            dt, threshold, widths)
 
 
 def events_from_topk(snrs, idx, dms: np.ndarray, dt: float,

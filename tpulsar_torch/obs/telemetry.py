@@ -272,6 +272,42 @@ def queue_op_seconds() -> metrics.Histogram:
         labelnames=("backend", "op"), buckets=QUEUE_OP_BUCKETS)
 
 
+STREAM_LATENCY_BUCKETS = (0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0,
+                          2.5, 5.0, 15.0, 60.0)
+
+
+def stream_latency_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_stream_latency_seconds",
+        "per-chunk ingest->trigger latency of the streaming plane "
+        "(frame t_ingest to chunk acknowledgment, spans searched "
+        "and triggers published) — THE stream SLO series; the "
+        "stream_latency_burn alert rule burns against the same "
+        "samples from the journal",
+        buckets=STREAM_LATENCY_BUCKETS)
+
+
+def stream_chunks_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_stream_chunks_total",
+        "stream chunks acknowledged, by outcome (received = "
+        "dedispersed+searched exactly once, gap = missing seq "
+        "zero-filled and journaled, replayed = reprocessed after a "
+        "resume without re-acknowledgment) — gap or replayed at a "
+        "sustained rate means a sick ingest path",
+        labelnames=("outcome",))
+
+
+def stream_triggers_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_stream_triggers_total",
+        "single-pulse trigger records published by the streaming "
+        "plane (post span search, post dedup) — the science output "
+        "rate; zero over a session with injected pulses is a "
+        "detection regression, not quiet sky",
+    )
+
+
 # --------------------------------------------------------------------
 # the shared heartbeat/progress event shape
 # --------------------------------------------------------------------

@@ -10,9 +10,11 @@ every degrade path reproduces on the CPU.
 The point catalog and the grammar are the JAX package's, point for
 point, so one ``TPULSAR_FAULTS`` value (set by a queue backend for
 either package) parses in both.  In this package the instrumented
-sites so far are ``checkpoint.write`` and ``checkpoint.load``
-(checkpoint/store.py); the other points name sites of modules still
-to be ported.
+sites are ``checkpoint.write``/``checkpoint.load`` (checkpoint/
+store.py), ``spool.io``, ``journal.append``, ``blackbox.dump``,
+``dataplane.io``, ``serve.beam``, ``fleet.worker`` and
+``stream.ingest`` (stream/ingest.py); the other points name sites of
+modules still to be ported.
 
 Spec grammar (``;``-separated specs, ``,``-separated options)::
 

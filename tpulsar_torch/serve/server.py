@@ -39,9 +39,14 @@ Properties the batch path cannot offer:
 
 Per-beam results are produced by the same ``cli.search_job``
 library functions the per-beam job runs, so the output directory
-layout is identical.  Refused by name (NotImplementedError): stream
-mode (``stream=True``, the streaming plane) and the blob data plane
-(``TPULSAR_DATA_URL`` / ``TPULSAR_BLOB_ROOT``).
+layout is identical.
+
+Stream mode (``stream=True``, ``serve --stream``): the loop claims
+``kind: "stream"`` session tickets instead of beams and runs each
+through the streaming plane (stream/worker.py) on the server's
+device, and boot warms one stream emission at STREAM_PROFILE instead
+of the beam search.  Refused by name (NotImplementedError): the blob
+data plane (``TPULSAR_DATA_URL`` / ``TPULSAR_BLOB_ROOT``).
 """
 
 from __future__ import annotations
@@ -102,11 +107,6 @@ class SearchServer:
                  batch_linger_s: float = 2.0,
                  stream: bool = False,
                  beam_fn=None, batch_fn=None, logger=None, device=None):
-        if stream:
-            raise NotImplementedError(
-                "tpulsar_torch serve has no stream mode yet: it needs "
-                "the streaming plane (stream/), a later slice of the "
-                "port")
         for knob in ("TPULSAR_DATA_URL", "TPULSAR_BLOB_ROOT"):
             if os.environ.get(knob):
                 raise NotImplementedError(
@@ -192,6 +192,11 @@ class SearchServer:
                 workdir_base=cfg.processing.base_working_directory,
                 cfg=cfg, depth=prefetch_depth, poll_s=poll_s,
                 logger=self.log, journal=self._journal)
+        #: stream mode (``serve --stream``): the loop claims stream
+        #: session tickets instead of beams and runs them through the
+        #: streaming plane (stream/worker.py) on self.device; boot has
+        #: already built the kernels and run one emission
+        self.stream = bool(stream)
         self._drain = threading.Event()
         self._stopped = threading.Event()
         self._hb_thread: threading.Thread | None = None
@@ -249,15 +254,21 @@ class SearchServer:
                 len(requeued), ", ".join(requeued))
         # the whole point of residency: one kernel build and load and
         # one device set-up for EVERY beam this process will search
-        # (the native unpack the reads use, too)
-        native.load()
+        # (the native unpack the reads use, too; a stream reads none)
+        if not self.stream:
+            native.load()
         if self.device.type == "cuda":
             cuda_dd._load()
             cuda_dd._prepare(self.device)
         if self.warm_boot:
-            self.log.info("warm boot (scale %g) ...", self.warm_boot_scale)
+            self.log.info("warm boot (%s) ...", "stream profile"
+                          if self.stream else
+                          f"scale {self.warm_boot_scale:g}")
             try:
-                self._warm_search()
+                if self.stream:
+                    self._warm_stream()
+                else:
+                    self._warm_search()
             except Exception:
                 # a failed warm search is a degraded boot, not a fatal
                 # one: beams still run (and fail loudly through crash
@@ -288,6 +299,28 @@ class SearchServer:
             block, freqs, MOCK_TSAMP, ddplan.survey_plan("pdev"),
             executor.SearchParams.from_config(self.cfg.searching),
             device=self.device)
+
+    def _warm_stream(self) -> None:
+        """One stream emission at STREAM_PROFILE on the device (one
+        launch of the stage-2 kernel) and the search of the block it
+        emits, from seeded noise: the kernel's launch path, the span
+        search's ops and the device allocator are warm before the
+        first session."""
+        from tpulsar_torch.stream import STREAM_PROFILE
+        from tpulsar_torch.stream.dedisp_state import (StreamDedisp,
+                                                       geometry_freqs_dms)
+        from tpulsar_torch.stream.trigger import search_span
+
+        sd = StreamDedisp(STREAM_PROFILE, backend="torch",
+                          device=self.device)
+        rng = np.random.default_rng(0)
+        blocks = []
+        while not blocks:
+            blocks = sd.append(rng.standard_normal(
+                (sd.nchan, sd.chunk_len)).astype(np.float32))
+        search_span(blocks[0], geometry_freqs_dms(STREAM_PROFILE)[1],
+                    STREAM_PROFILE["dt"], backend="torch",
+                    device=self.device)
 
     def _heartbeat(self, status: str, force: bool = False) -> None:
         now = time.time()
@@ -347,6 +380,8 @@ class SearchServer:
             self._heartbeat("stopped", force=True)
             raise
         self.blackbox.arm()
+        if self.stream:
+            return self._serve_stream(once)
         self.pipeline.start()
         try:
             while not self.draining:
@@ -371,7 +406,61 @@ class SearchServer:
             self._shutdown()
         return 0
 
-    def _shutdown(self) -> None:
+    def _serve_stream(self, once: bool) -> int:
+        """The stream-mode loop: claim session tickets, run each to
+        its terminal result through the streaming plane's
+        exactly-once machinery (stream/worker.py) on the server's
+        device.  A drain mid-session checkpoints the carry and
+        requeues the claim — the next worker (of either package)
+        resumes without reprocessing an acknowledged chunk."""
+        from tpulsar_torch.stream import worker as stream_worker
+
+        def beat(status: str = "running") -> None:
+            try:
+                self._heartbeat(status)
+            except OSError:
+                pass
+
+        try:
+            while not self.draining:
+                beat()
+                try:
+                    rec = self.queue.claim_next(
+                        self.worker_id, policy=self.claim_policy,
+                        worker_class=self.worker_class)
+                except OSError:
+                    time.sleep(self.poll_s)
+                    continue
+                if rec is None:
+                    if once and self.queue.pending_count() == 0 \
+                            and self.queue.claimed_count() == 0:
+                        break
+                    time.sleep(self.poll_s)
+                    continue
+                self.blackbox.note("claim",
+                                   ticket=rec.get("ticket", "?"))
+                if (rec.get("kind") or "") != "stream":
+                    self.queue.write_result(
+                        rec.get("ticket", "?"), "failed", rc=1,
+                        error="a stream server claims only stream "
+                              "tickets (serve without --stream for "
+                              "beams)", worker=self.worker_id)
+                    self.beams["skipped"] += 1
+                    continue
+                status = stream_worker.process_stream_ticket(
+                    self.queue, rec, jroot=self.jroot,
+                    worker_id=self.worker_id, backend="torch",
+                    device=self.device, box=self.blackbox,
+                    poll_s=min(self.poll_s, 0.05), beat=beat,
+                    should_drain=lambda: self.draining)
+                if status:
+                    self.beams["done" if status == "done"
+                               else "failed"] += 1
+        finally:
+            self._shutdown(pipeline=False)
+        return 0
+
+    def _shutdown(self, pipeline: bool = True) -> None:
         t0 = time.time()
         # a drain that reaches here is the clean exit path: the
         # atexit dump must not leave wreckage for a healthy shutdown
@@ -383,8 +472,9 @@ class SearchServer:
         # the handoff queue (and any it was mid-stage on) hold claims
         # this worker must give back — then requeue every claim this
         # pid still owns, attempt-neutral (a drain is not a crash; the
-        # returned beams are not suspects).
-        leftovers = self.pipeline.stop()
+        # returned beams are not suspects).  Stream mode never started
+        # the pipeline, but its session claims requeue the same way.
+        leftovers = self.pipeline.stop() if pipeline else []
         try:
             requeued = self.queue.requeue_own_claims()
         except OSError as e:
