@@ -20,6 +20,18 @@ these phases:
      the bf16 plane against the f32 plane on the card, the card against
      the CPU's plain f32 on one row, the time a DM row (correlation and
      harmonic sums split) against its bound, and peak memory;
+  ladder: the hi stage's degradation ladder on that chunk
+     (ladder_phase): (a) forced per-DM (TPULSAR_ACCEL_BATCH=0) against
+     the batched run; (b) a ballast tensor that leaves room for one row
+     but not for one planned batch, so every batch raises a real
+     OutOfMemoryError, is retried once and degrades, its rows searched
+     per-DM on the card equal to (a), the batch breaker pinning the
+     per-DM path; (c) TPULSAR_FAULTS accel.row_dispatch:unimplemented:
+     count=4, two rows refused twice and the ladder ending on the card
+     (no host rescue for spectra on the card): the two rows zero-filled
+     and recorded as lost, the rest equal to (a); (d) a poisoned
+     session on a 2-row slice through executor._hi_accel_pass: the
+     chunk's hi stage skipped loudly, its rows counted as lost;
   tree: the tree stage-2 family (TPULSAR_DD_FAMILY=tree) on the
      plan's first pass at full width (ds 1, all 76 DM rows), at the
      default level budget and at 16 GiB, against the CUDA direct
@@ -115,6 +127,7 @@ import sys
 import tarfile
 import tempfile
 import time
+import warnings
 
 import threading
 
@@ -132,13 +145,16 @@ from tpulsar_torch import native  # noqa: E402
 from tpulsar_torch.cli import search_job  # noqa: E402
 from tpulsar_torch.io import accelcands, psrfits, synth  # noqa: E402
 from tpulsar_torch.kernels import accel  # noqa: E402
+from tpulsar_torch.kernels import accel_batch  # noqa: E402
 from tpulsar_torch.kernels import cuda_dd  # noqa: E402
 from tpulsar_torch.kernels import dedisperse as dd  # noqa: E402
 from tpulsar_torch.kernels import fold_batch  # noqa: E402
 from tpulsar_torch.kernels import fourier as fr  # noqa: E402
 from tpulsar_torch.kernels import singlepulse as sp_k  # noqa: E402
 from tpulsar_torch.kernels import tree_dd  # noqa: E402
+from tpulsar_torch.obs import telemetry  # noqa: E402
 from tpulsar_torch.plan import ddplan  # noqa: E402
+from tpulsar_torch.resilience import faults  # noqa: E402
 from tpulsar_torch.search import degraded, executor  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -560,7 +576,266 @@ def hi_phase(data, freqs: np.ndarray) -> dict:
         f"GiB held before the call)")
     return dict(row_ms=row_ms, corr_row_ms=t_corr / b,
                 harm_row_ms=t_harm / b, bound_row_ms=bnd, bound_by=by,
-                batch_rows=b, peak_bytes=peak, peak_above_bytes=peak - base)
+                batch_rows=b, peak_bytes=peak, peak_above_bytes=peak - base,
+                wspec=wspec, res_bf=res_bf,
+                dms=[float(d) for d in ppass.dms[:nrows]],
+                T_s=nfft * TSAMP)
+
+
+#: the hi stage's bf16-vs-f32 rule (hi_phase): the same top (r, z)
+#: cell of each stage and row, the top power within 1%
+BF16_RULE = 0.01
+
+
+def _top_cells(res: dict, rows) -> dict:
+    """{(stage, row): (r bin, z, power)} of each row's top cell."""
+    out = {}
+    for h, (v, r, z) in res.items():
+        for d in rows:
+            i = int(np.argmax(v[d]))
+            out[h, d] = (int(r[d, i]), float(z[d, i]), float(v[d, i]))
+    return out
+
+
+def _rule_worst(got: dict, want: dict, rows, what: str) -> float:
+    """Hold rows of `got` to `want` by the bf16-vs-f32 rule; the worst
+    relative power difference of the top cells."""
+    a, b = _top_cells(got, rows), _top_cells(want, rows)
+    worst = 0.0
+    for key in a:
+        if a[key][:2] != b[key][:2]:
+            raise AssertionError(f"{what}: stage {key[0]} row {key[1]} "
+                                 f"top cell {a[key][:2]} vs {b[key][:2]}")
+        worst = max(worst, abs(a[key][2] / b[key][2] - 1.0))
+    if worst > BF16_RULE:
+        raise AssertionError(f"{what}: top power off by {worst:.5f} "
+                             f"(limit {BF16_RULE})")
+    return worst
+
+
+def _rows_equal(got: dict, want: dict, rows) -> bool:
+    rows = list(rows)
+    return all(np.array_equal(np.asarray(x)[rows], np.asarray(y)[rows])
+               for h in want for x, y in zip(got[h], want[h]))
+
+
+def _ladder_counts() -> dict:
+    out = {f"trials_{p}": telemetry.accel_batch_trials_total().value(path=p)
+           for p in ("batched", "per_dm", "rescued")}
+    for o in ("rescued", "lost"):
+        out[f"rows_{o}"] = telemetry.rescue_rows_total().value(outcome=o)
+    out["ooms"] = torch.cuda.memory_stats().get("num_ooms", 0)
+    return out
+
+
+def _delta(before: dict) -> dict:
+    now = _ladder_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def ladder_phase(hi: dict) -> dict:
+    """The hi stage's degradation ladder at full width, on hi_phase's
+    38-row ds-1 chunk: (a) the forced per-DM path against the batched
+    run; (b) a real out-of-memory refusal of every batch (a ballast
+    tensor leaves room for one row but not for one planned batch),
+    degraded to per-DM rows on the card equal to (a); (c) two rows
+    refused twice by an injected fault: the ladder ends on the card,
+    the rows are zero-filled and recorded as lost; (d) a poisoned
+    session on a 2-row slice through the executor's _hi_accel_pass:
+    the chunk's hi stage is skipped loudly.  No work moves to the CPU:
+    the host rescue runs only for spectra already there."""
+    t_phase = time.time()
+    wspec, res_b = hi["wspec"], hi["res_bf"]
+    nrows, nbins = wspec.shape
+    bank = executor._get_bank(PARAMS.hi_accel_zmax)
+    nz = len(bank.zs)
+    mh, topk = PARAMS.hi_accel_numharm, PARAMS.topk_per_stage
+    rows = range(nrows)
+
+    def search(specs):
+        out = accel.accel_search_batch(specs, bank, max_numharm=mh,
+                                       topk=topk)
+        torch.cuda.synchronize()
+        return out
+
+    # ---- (a) clean, forced per-DM
+    accel._reset_batch_state()
+    degraded.reset()
+    os.environ["TPULSAR_ACCEL_BATCH"] = "0"
+    try:
+        c0 = _ladder_counts()
+        t0 = time.time()
+        res_a = search(wspec)
+        t_a = time.time() - t0
+        d_a = _delta(c0)
+    finally:
+        del os.environ["TPULSAR_ACCEL_BATCH"]
+        accel._reset_batch_state()
+    if degraded.snapshot() != {"accel_batch_pinned": "TPULSAR_ACCEL_BATCH"
+                               "=0 (per-DM accel path)"} or \
+            degraded.provenance_snapshot() or d_a["trials_per_dm"] != nrows:
+        raise AssertionError(f"ladder (a): ledgers {degraded.snapshot()} "
+                             f"{degraded.provenance_snapshot()}, counts "
+                             f"{d_a}")
+    worst_a = _rule_worst(res_a, res_b, rows, "ladder (a) per-DM vs "
+                          "batched")
+    same_a = _rows_equal(res_a, res_b, rows)
+    perdm_row_ms = t_a / nrows * 1e3
+    log(f"ladder (a): forced per-DM ({nrows} rows x {nbins} bins): the "
+        f"batched run's top (r, z) cell in every stage and row, top "
+        f"powers within {worst_a:.2e} (limit {BF16_RULE}; top-k arrays "
+        f"{'identical' if same_a else 'not identical'} to the batched "
+        f"run's); {perdm_row_ms:.3f} ms a per-DM row on the card "
+        f"(batched {hi['row_ms']:.3f} ms a row); ledger: only the pin's "
+        f"own note")
+
+    # ---- (b) a real out-of-memory refusal of every batch
+    b = accel.plane_dm_chunk(nbins, nz, device=DEV)
+    plan = accel_batch.plan_batches(nrows, b)
+    bank_fft = torch.from_numpy(bank.bank_fft).to(DEV)
+    block = accel._pad_block(wspec, plan.padded_rows)
+    block_bytes = block.numel() * block.element_size()
+
+    def peak_of(fn) -> int:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    kw = dict(seg=bank.seg, step=bank.step, width=bank.width, nz=nz,
+              max_numharm=mh, topk=topk)
+    batch_peak = peak_of(lambda: accel.accel_chunk_topk(
+        block, bank_fft, 0, nrows=plan.b, **kw))
+    row_peak = peak_of(lambda: accel.accel_row_topk(block, bank_fft, 0,
+                                                    **kw))
+    del block, bank_fft
+    if not row_peak < batch_peak:
+        raise AssertionError(f"ladder (b): a row ({row_peak} B) does not "
+                             f"need less than a batch ({batch_peak} B)")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    # room for the padded block the call makes and one row, not a batch
+    room = block_bytes + (row_peak + batch_peak) // 2
+    ballast = torch.empty(free0 - room, dtype=torch.uint8, device=DEV)
+    accel._reset_batch_state()
+    degraded.reset()
+    try:
+        c0 = _ladder_counts()
+        t0 = time.time()
+        res_oom = search(wspec)
+        t_b = time.time() - t0
+        d_b = _delta(c0)
+        snap = degraded.snapshot()
+        pinned = accel._BATCH_OK is False
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+        accel._reset_batch_state()
+    thresh = accel._batch_breaker_threshold()
+    refused = min(thresh, plan.nbatches)
+    if not snap.get("accel_batches_refused", "").startswith(
+            f"{refused}/{plan.nbatches} ") or \
+            pinned != (refused >= thresh) or \
+            ("accel_batch_downgraded" in snap) != pinned or \
+            "accel_rows_zero_filled" in snap or \
+            d_b["ooms"] != 2 * refused or \
+            d_b["trials_per_dm"] != nrows or d_b["trials_batched"] != 0 \
+            or d_b["rows_rescued"] or d_b["rows_lost"]:
+        raise AssertionError(f"ladder (b): ledger {snap}, pinned {pinned}, "
+                             f"counts {d_b} (expected {refused} refused "
+                             f"batches, {2 * refused} OOMs)")
+    if not _rows_equal(res_oom, res_a, rows):
+        raise AssertionError("ladder (b): the degraded rows differ from "
+                             "the forced per-DM run (a)")
+    log(f"ladder (b): peaks above the allocation: a batch of {plan.b} "
+        f"rows {batch_peak / 2**30:.3f} GiB, a row {row_peak / 2**30:.3f} "
+        f"GiB; ballast {(free0 - room) / 2**30:.3f} GiB left "
+        f"{room / 2**30:.3f} GiB free; {d_b['ooms']} OutOfMemoryErrors "
+        f"({refused} batches each refused on dispatch and on its "
+        f"retry), the batched path "
+        f"{'pinned' if pinned else 'not pinned'} (breaker {thresh}, "
+        f"TPULSAR_ACCEL_BATCH_BREAKER), all {nrows} rows per-DM on the "
+        f"card, np.array_equal to (a); {t_b:.3f} s ({t_a:.3f} s in (a)); "
+        f"ledger {json.dumps({k: v.split(';')[0] for k, v in snap.items()})}")
+
+    # ---- (c) two rows refused twice: the ladder ends on the card
+    degraded.reset()
+    faults.configure("accel.row_dispatch:unimplemented:count=4")
+    try:
+        c0 = _ladder_counts()
+        t0 = time.time()
+        res_c = search(wspec)
+        t_c = time.time() - t0
+        d_c = _delta(c0)
+        fired = faults.fired("accel.row_dispatch")
+    finally:
+        faults.reset()
+        accel._reset_batch_state()
+    lost_c = degraded.counts().get("accel_rows_zero_filled", (0, 0, 0))
+    if fired != 4 or d_c["rows_lost"] != 2 or d_c["rows_rescued"] or \
+            tuple(lost_c[:2]) != (2, nrows) or \
+            degraded.provenance_snapshot() or d_c["trials_rescued"] or \
+            d_c["trials_per_dm"] != nrows - 2:
+        raise AssertionError(f"ladder (c): fired {fired}, counts {d_c}, "
+                             f"loss ledger {lost_c}, provenance "
+                             f"{degraded.provenance_snapshot()}")
+    if not _rows_equal(res_c, res_a, range(2, nrows)):
+        raise AssertionError("ladder (c): the rows not refused differ "
+                             "from (a)")
+    if any(np.asarray(res_c[h][0])[:2].any() for h in res_c):
+        raise AssertionError("ladder (c): the lost rows are not "
+                             "zero-filled")
+    log(f"ladder (c): 4 injected refusals = rows 0 and 1 refused twice; "
+        f"the ladder ended on the card (no host rescue for spectra on "
+        f"the card): both rows zero-filled, loss ledger "
+        f"accel_rows_zero_filled {lost_c[0]}/{lost_c[1]}, "
+        f"rescue_rows_total{{outcome=lost}} +{d_c['rows_lost']}; rows "
+        f"2..{nrows - 1} np.array_equal to (a); call {t_c:.3f} s")
+
+    # ---- (d) a poisoned session on a 2-row slice, through the executor
+    sl = wspec[:2]
+    dms = hi["dms"][:2]
+    degraded.reset()
+    faults.configure("accel.row_dispatch:poison")
+    try:
+        c0 = _ladder_counts()
+        t0 = time.time()
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            cands_d = executor._hi_accel_pass(sl, dms, hi["T_s"], PARAMS)
+        t_d = time.time() - t0
+        d_d = _delta(c0)
+    finally:
+        faults.reset()
+        accel._reset_batch_state()
+    skipped = degraded.counts().get("accel_hi_chunk_skipped", (0, 0, 0))
+    if cands_d or tuple(skipped[:2]) != (2, 2) or \
+            d_d["rows_lost"] != 2 or d_d["rows_rescued"] or \
+            d_d["trials_rescued"] or degraded.provenance_snapshot() or \
+            not any("hi-accel chunk skipped" in str(w.message)
+                    for w in warned):
+        raise AssertionError(f"ladder (d): {len(cands_d)} candidates; "
+                             f"counts {d_d}; ledger "
+                             f"{degraded.snapshot()} "
+                             f"{degraded.provenance_snapshot()}")
+    log(f"ladder (d): a poisoned session refused every dispatch of a "
+        f"2-row slice; AccelStageRefused reached _hi_accel_pass, which "
+        f"skipped the chunk's hi stage loudly on the card "
+        f"(accel_hi_chunk_skipped {skipped[0]}/{skipped[1]}, "
+        f"rescue_rows_total{{outcome=lost}} +{d_d['rows_lost']}, no "
+        f"host recompute); {t_d:.3f} s")
+    wall = time.time() - t_phase
+    log(f"ladder phase wall {wall:.1f} s")
+    return dict(perdm_row_ms=perdm_row_ms, batched_row_ms=hi["row_ms"],
+                perdm_vs_batched_worst=worst_a,
+                perdm_equals_batched=same_a,
+                batch_peak_bytes=batch_peak, row_peak_bytes=row_peak,
+                oom_refused_batches=refused, ooms=d_b["ooms"],
+                oom_call_s=t_b, lost_rows_call_s=t_c,
+                chunk_skip_s=t_d, wall_s=wall)
 
 
 def hi_row_bound_ms(nbins: int, nz: int, bank) -> tuple[float, str]:
@@ -1973,7 +2248,10 @@ def main() -> None:
     data = torch.randint(0, 256, (NCHAN, NSAMP), generator=gen,
                          device=DEV, dtype=torch.uint8)
     s1, s2, s2b, _rows_report = kernel_phase(data, freqs, regs)
-    hi_phase(data, freqs)
+    hi = hi_phase(data, freqs)
+    ladder = ladder_phase(hi)
+    del hi
+    log("ladder: " + json.dumps(ladder))
     tree_phase(data, freqs)
     del data
     small_parity_phase()

@@ -181,6 +181,28 @@ def test_jax_summarize_reproduces_the_port_report(traced):
     assert "hi-accelsearch" in report and "read" in report
 
 
+def test_ladder_families_match_the_jax_catalog():
+    """The hi stage's ladder families (the rescue outcome counter and
+    the breaker-skipped overlay, beside the path-labelled trials and
+    seconds) are in the port's catalog with the JAX catalog's type,
+    help, labels and buckets."""
+    from tpulsar.obs import telemetry as jtelemetry
+    from tpulsar_torch.obs import telemetry as ttelemetry
+
+    catalog = _catalog(jtelemetry)
+    port = _catalog(ttelemetry)
+    for name in ("tpulsar_rescue_rows_total",
+                 "tpulsar_accel_undispatched_rows_total",
+                 "tpulsar_accel_batch_trials_total",
+                 "tpulsar_accel_stage_seconds",
+                 "tpulsar_circuit_transitions_total",
+                 "tpulsar_retry_attempts_total"):
+        assert name in port, name
+        for key in ("type", "help", "labelnames", "buckets"):
+            assert port[name].get(key) == catalog[name].get(key), (name,
+                                                                   key)
+
+
 def test_stage_timer_is_one_span_and_one_observation():
     ttrace.start(clear=True)
     try:

@@ -41,6 +41,7 @@ import tpulsar_torch.frontdoor.queue, tpulsar_torch.frontdoor.tenancy
 import tpulsar_torch.obs.journal, tpulsar_torch.obs.health
 import tpulsar_torch.obs.fleetview, tpulsar_torch.obs.log
 import tpulsar_torch.dataplane.index, tpulsar_torch.resilience.policy
+import tpulsar_torch.resilience.rescue
 import tpulsar_torch.orchestrate.zaplists
 import tpulsar_torch.orchestrate.transports
 import tpulsar_torch.native, tpulsar_torch.kernels.tree_dd

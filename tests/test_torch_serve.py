@@ -408,6 +408,24 @@ def test_serve_once_processes_spool(tmp_path, cfg):
                                        "server.json"))
 
 
+def test_heartbeat_reports_the_accel_batch_pin(tmp_path, cfg,
+                                               monkeypatch):
+    """The hi stage's batch breaker pins the per-DM path for the life
+    of the process; the server's heartbeat says so, so that an operator
+    sees why later beams run slower and restarts the worker."""
+    from tpulsar_torch.kernels import accel
+
+    srv = _server(tmp_path / "spool", cfg)
+    monkeypatch.setattr(accel, "_BATCH_OK", None)
+    srv._heartbeat("running", force=True)
+    assert tprotocol.read_heartbeat(str(tmp_path / "spool"))[
+        "accel_batch_pinned"] is False
+    monkeypatch.setattr(accel, "_BATCH_OK", False)
+    srv._heartbeat("running", force=True)
+    assert tprotocol.read_heartbeat(str(tmp_path / "spool"))[
+        "accel_batch_pinned"] is True
+
+
 def test_drain_completes_inflight_beam(tmp_path, cfg):
     """SIGTERM mid-beam: the in-flight beam finishes and its result
     is durable; unstarted tickets go back to incoming; the final
@@ -727,7 +745,9 @@ def test_progress_beat_outside_scope_is_noop(report):
 def test_hi_stage_beats_once_per_drained_dm_batch(monkeypatch, tmp_path):
     """The port's accel_search_batch beats the heartbeat once for each
     DM batch it drains, with the JAX package's 'accel window dm
-    done/total' text."""
+    done/total' text (the torch consumer); the native CPU consumer
+    beats before each batch, with the JAX package's 'accel native dm
+    start/total' text."""
     import numpy as np
 
     from tpulsar_torch.kernels import accel
@@ -744,13 +764,23 @@ def test_hi_stage_beats_once_per_drained_dm_batch(monkeypatch, tmp_path):
     spec = torch.from_numpy((rng.standard_normal((5, 4096))
                              + 1j * rng.standard_normal((5, 4096)))
                             .astype(np.complex64))
-    with treport.StageTimers().timing("hi-accelsearch"):
-        accel.accel_search_batch(spec, bank, max_numharm=2, topk=4,
-                                 dm_chunk=2)
-    infos = [a[2] for a in beats if a[1] == "progress"]
-    assert infos == ["accel window dm 2/5", "accel window dm 4/5",
-                     "accel window dm 5/5"]
-    assert _read(hb)["event"] == "end"
+    usable = accel._native_cpu_path_usable
+    for native, want in ((False, ["accel window dm 2/5",
+                                  "accel window dm 4/5",
+                                  "accel window dm 5/5"]),
+                         (True, ["accel native dm 0/5",
+                                 "accel native dm 2/5",
+                                 "accel native dm 3/5"])):
+        monkeypatch.setattr(
+            accel, "_native_cpu_path_usable",
+            (lambda dev, _n=native: _n and usable(dev)))
+        beats.clear()
+        with treport.StageTimers().timing("hi-accelsearch"):
+            accel.accel_search_batch(spec, bank, max_numharm=2, topk=4,
+                                     dm_chunk=2)
+        infos = [a[2] for a in beats if a[1] == "progress"]
+        assert infos == want
+        assert _read(hb)["event"] == "end"
 
 
 # ------------------------------------------------- the zaplist refresh

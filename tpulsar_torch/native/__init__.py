@@ -1,23 +1,32 @@
-"""Native (C++) PSRFITS bit-unpacking, bound via ctypes — counterpart
-of the unpack half of tpulsar/native/__init__.py.
+"""Native (C++) host kernels, bound via ctypes — counterpart of
+tpulsar/native/__init__.py.
 
-``unpack.cpp`` (a copy of the JAX package's) holds the host hot loop
-of every beam read: packed bytes -> samples through 256-entry lookup
-tables, fused with the per-channel calibration (float32) or with the
-calibration and the uint8 requantization of ``read_all_uint8``.
+Two sources, copies of the JAX package's:
+
+  * ``unpack.cpp`` holds the host hot loop of every beam read: packed
+    bytes -> samples through 256-entry lookup tables, fused with the
+    per-channel calibration (float32) or with the calibration and the
+    uint8 requantization of ``read_all_uint8``;
+  * ``accel_host.cpp`` is the CPU consumer of the hi-accel stage's
+    correlation pieces: harmonic-stage sums, z maxima and the
+    block-max top-k in one cache-tiled pass, bit-identical to the
+    torch consumer of kernels/accel.py on the same f32 pieces (the
+    same float32 addition order and tie rules).  kernels/accel.py
+    feeds it every batched hi stage on the CPU.
 
 The library is compiled with g++ at first use into
 ``tpulsar_torch/_build/`` (a name keyed by the host's CPU flags, the
-source and the flags: ``-march=native`` makes a CPU-specific binary)
+sources and the flags: ``-march=native`` makes a CPU-specific binary)
 under a thread lock and a file lock, so the server's prefetch thread,
 the search and a second process never build or load a half-written
 file.  ``-ffp-contract=off`` keeps g++ from contracting ``a*b+c`` into
-an FMA, which would change the float rounding against the NumPy path.
+an FMA, which would change the float rounding against the NumPy and
+torch paths.
 
 There is no fallback here: when the library cannot be built or
 loaded, ``load`` raises with the compiler's output.  The NumPy unpack
-of io/psrfits.py is the plain version, and a caller picks it
-explicitly (``SpectraInfo(..., unpack="numpy")``).
+of io/psrfits.py (``SpectraInfo(..., unpack="numpy")``) is the plain
+version of the unpack, and a caller picks it explicitly.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_HERE, "unpack.cpp")]
+SOURCES = [os.path.join(_HERE, "unpack.cpp"),
+           os.path.join(_HERE, "accel_host.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 CXX = "g++"
 #: the JAX package's flags; the second set is its retry for a
@@ -70,7 +80,7 @@ def library_path() -> str:
             h.update(fh.read())
     return os.path.join(
         BUILD_DIR,
-        f"libtpulsar_unpack_{_host_tag()}_{h.hexdigest()[:12]}.so")
+        f"libtpulsar_native_{_host_tag()}_{h.hexdigest()[:12]}.so")
 
 
 def _build(path: str) -> None:
@@ -93,7 +103,7 @@ def _build(path: str) -> None:
             return
         logs.append(f"$ {' '.join(cmd)}\n(exit {r.returncode})\n"
                     f"{r.stdout}{r.stderr}")
-    raise RuntimeError("the native unpack library did not build:\n"
+    raise RuntimeError("the native library did not build:\n"
                        + "\n".join(logs))
 
 
@@ -108,7 +118,7 @@ def load() -> ctypes.CDLL:
 
         path = library_path()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(os.path.join(BUILD_DIR, ".unpack.lock"), "w") as lk:
+        with open(os.path.join(BUILD_DIR, ".native.lock"), "w") as lk:
             fcntl.flock(lk, fcntl.LOCK_EX)
             try:
                 if not os.path.exists(path):
@@ -130,6 +140,14 @@ def load() -> ctypes.CDLL:
         lib.tpulsar_unpack4_q8.argtypes = [
             u8p, u8p, ctypes.c_size_t, ctypes.c_size_t, f32p, f32p]
         lib.tpulsar_unpack4_q8.restype = None
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        lib.tpulsar_accel_stage_topk_zsegs.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, i32p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, f32p, i32p, i32p]
+        lib.tpulsar_accel_stage_topk_zsegs.restype = None
         _lib = lib
         return _lib
 
@@ -185,4 +203,62 @@ def unpack4_calibrate(raw: np.ndarray, scales: np.ndarray,
     scales, offsets = _affine("unpack4_calibrate", scales, offsets, nchan)
     out = np.empty((nspec, nchan), dtype=np.float32)
     lib.tpulsar_unpack4_cal(raw, out, nspec, nchan, scales, offsets)
+    return out
+
+
+def _stages_arg(stages) -> np.ndarray:
+    stages = np.ascontiguousarray(stages, dtype=np.int32)
+    if stages.size == 0 or stages[0] != 1:
+        # the kernel seeds its accumulator at stage 1
+        raise ValueError(f"harmonic stages must start at 1, got "
+                         f"{stages.tolist()}")
+    return stages
+
+
+def _f32(name: str, a: np.ndarray, ndim: int) -> np.ndarray:
+    if a.dtype != np.float32 or a.ndim != ndim:
+        raise ValueError(f"{name}: a float32 array of {ndim} axes "
+                         f"expected, got {a.dtype} {a.shape}")
+    return np.ascontiguousarray(a)
+
+
+def _topk_out(nd: int, ns: int, topk: int):
+    return (np.empty((nd, ns, topk), np.float32),
+            np.empty((nd, ns, topk), np.int32),
+            np.empty((nd, ns, topk), np.int32))
+
+
+def accel_stage_topk_zsegs(pieces: list, width: int, nr: int,
+                           stages, block_r: int, topk: int):
+    """Harmonic-stage sums, z maxima and the per-stage block-max top-k
+    of a DM block, read from the correlation's power pieces still split
+    by z chunk: one (nd, nsegs, zc, 2*step) float32 buffer per chunk of
+    the correlation's
+    z loop (kernels/accel._corr_piece_list), addressed through a
+    pointer table, so no full plane is ever assembled.  Every chunk but
+    the last has zc rows; the last holds the remainder, 1..zc rows (a
+    taller one would index past the pointer table).  Raises ValueError
+    on an inconsistent layout.  Returns (vals, rbins, zidx), each
+    (nd, nstages, topk)."""
+    lib = load()
+    stages = _stages_arg(stages)
+    if not pieces:
+        raise ValueError("accel_stage_topk_zsegs: no pieces")
+    arrs = [_f32("accel_stage_topk_zsegs", p, 4) for p in pieces]
+    nd, nsegs, zchunk, two_step = arrs[0].shape
+    nz = 0
+    for i, p in enumerate(arrs):
+        if (p.shape[0], p.shape[1], p.shape[3]) != (nd, nsegs, two_step) \
+                or (i < len(arrs) - 1 and p.shape[2] != zchunk) \
+                or not 1 <= p.shape[2] <= zchunk:
+            raise ValueError(f"accel_stage_topk_zsegs: piece {i} of shape "
+                             f"{p.shape} does not follow "
+                             f"{arrs[0].shape}")
+        nz += p.shape[2]
+    out = _topk_out(nd, int(stages.size), topk)
+    table = (ctypes.c_void_p * len(arrs))(*[p.ctypes.data for p in arrs])
+    lib.tpulsar_accel_stage_topk_zsegs(
+        table, len(arrs), int(zchunk), nd, nsegs, int(nz),
+        int(two_step), int(width), int(nr), stages, int(stages.size),
+        int(block_r), int(topk), *out)
     return out

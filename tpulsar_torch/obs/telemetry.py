@@ -6,8 +6,10 @@ whichever package searched it.
   * ``trace`` / ``metrics`` — the span tracer (obs/trace.py) and the
     process-wide metrics registry (obs/metrics.py), re-exported;
   * the instruments the executor, the stage timers, the hi-accel
-    stage and the checkpoint store record, the tree family's gauges
-    and the batch-of-beams families;
+    stage (its path-labelled trials and seconds, and the ladder's
+    rescued/lost rows and breaker-skipped rows) and the checkpoint
+    store record, the tree family's gauges and the batch-of-beams
+    families;
   * the resident server's: the serve family, the spool's queue-op
     latency, the tenant quota gauge, the retry/backoff/circuit
     counters of resilience/policy.py;
@@ -90,6 +92,24 @@ def dedisp_residual_fraction() -> metrics.Gauge:
         "the per-trial residual layer (the rest is the shared "
         "merge levels every trial reuses); near 1.0 means the grid "
         "shares almost nothing and direct would do as well")
+
+
+def rescue_rows_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_rescue_rows_total",
+        "refused accel rows by FINAL outcome — rescued (host "
+        "recompute) or lost (zero-filled); disjoint, so the outcome "
+        "series sum to the refused row count",
+        labelnames=("outcome",))
+
+
+def accel_undispatched_rows_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_accel_undispatched_rows_total",
+        "accel rows never dispatched because the open breaker routed "
+        "them straight to rescue (diagnostic overlay: these rows ALSO "
+        "appear in tpulsar_rescue_rows_total under their final "
+        "outcome)")
 
 
 def accel_batch_trials_total() -> metrics.Counter:

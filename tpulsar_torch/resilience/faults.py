@@ -189,6 +189,16 @@ _SCHED_ACTIVE: dict[int, dict[str, FaultSpec]] = {}
 _SCHED_MERGED: dict[str, FaultSpec] = {}
 
 
+class DispatchRefused(RuntimeError):
+    """An injected refusal of device work: the UNIMPLEMENTED-shaped
+    error that ``fire`` raises at a site that gives no ``make_exc``.
+    The JAX package raises its runtime's own error class there; this
+    package has none, and a plain RuntimeError would be
+    indistinguishable from a CUDA error that poisons the context (an
+    illegal address, a launch failure), which must never be retried.
+    The hi stage's refusal set (kernels/accel.py) names this class."""
+
+
 class SessionPoisoned(RuntimeError):
     """A `poison` fault fired earlier: the simulated session refuses
     everything from here on (the wedged-chip failure mode)."""
@@ -400,10 +410,9 @@ def fired(point: str) -> int:
 
 
 def _default_exc(msg: str) -> Exception:
-    """UNIMPLEMENTED-shaped runtime error (the JAX package raises the
-    runtime's own error class here; this package has no such class,
-    so a plain RuntimeError carries the same message)."""
-    return RuntimeError(msg)
+    """UNIMPLEMENTED-shaped refusal (a RuntimeError, so every site that
+    catches RuntimeError still catches it)."""
+    return DispatchRefused(msg)
 
 
 def fire(point: str, make_exc=None, detail: str = "") -> None:

@@ -1305,14 +1305,24 @@ def _dedisperse_single(data, freqs, nsub, dm, dt) -> torch.Tensor:
 def _hi_accel_pass(wspec, dm_chunk, T_s, params: SearchParams
                    ) -> list[sifting.Candidate]:
     """accelsearch zmax > 0 over a DM chunk of already-whitened complex
-    spectra (the spectrum is shared with the lo stage)."""
+    spectra (the spectrum is shared with the lo stage).  When every
+    row was refused and the per-row rescue recovered none
+    (AccelStageRefused), a CPU run recomputes the whole chunk on the
+    host before its hi stage is skipped loudly; on the card the chunk
+    is skipped loudly at once."""
     bank = _get_bank(params.hi_accel_zmax)
-    res = accel_k.accel_search_batch(
-        wspec, bank, max_numharm=params.hi_accel_numharm,
-        topk=params.topk_per_stage)
-    # the chunk's trials feed the denominator: the count of DM trials
-    # that went through the hi stage (n stays 0: nothing is skipped)
-    degraded.count("accel_hi_chunk_skipped", 0, len(dm_chunk))
+    try:
+        res = accel_k.accel_search_batch(
+            wspec, bank, max_numharm=params.hi_accel_numharm,
+            topk=params.topk_per_stage)
+    except accel_k.AccelStageRefused as exc:
+        res = _hi_chunk_rescue(exc, wspec, dm_chunk, bank, params)
+        if res is None:
+            return []
+    else:
+        # the chunk's trials feed the denominator: the count of DM
+        # trials that went through the hi stage (n stays 0)
+        degraded.count("accel_hi_chunk_skipped", 0, len(dm_chunk))
     # z~0 rows are the lo search's (z_min_abs); the plane is on the
     # half-bin grid (bin_scale)
     return sifting.make_candidates(
@@ -1320,6 +1330,68 @@ def _hi_accel_pass(wspec, dm_chunk, T_s, params: SearchParams
         _hi_sigma_fn(wspec.shape[-1], len(bank.zs)),
         sigma_min=params.sifting.sigma_threshold,
         z_min_abs=accel_k.DZ / 2, bin_scale=0.5)
+
+
+def _hi_chunk_rescue(exc, wspec, dm_chunk, bank, params: SearchParams):
+    """The executor's last resort before losing a chunk's hi science
+    (the JAX package's, tpulsar/search/executor.py): recompute the
+    WHOLE chunk on the host CPU — slower, but a complete beam.  Only
+    for spectra already on the CPU (no work moves off the card), and
+    skipped when the kernel's own per-row rescue already ran on these
+    spectra and recovered nothing (``rescue_exhausted``).  Returns the
+    stage dict, or None after recording the chunk's hi stage as
+    skipped (the beam keeps its SP, lo, fold and other chunks' hi
+    science)."""
+    import time as _time
+
+    from tpulsar_torch.resilience import rescue
+
+    chunk_res = None
+    t_rescue = _time.perf_counter()
+    if not getattr(exc, "rescue_exhausted", False) \
+            and rescue.available(wspec.device):
+        with telemetry.trace.span("accel_chunk_rescue", n=len(dm_chunk)):
+            chunk_res = rescue.rescue_accel_chunk(
+                wspec, bank, max_numharm=params.hi_accel_numharm,
+                topk=params.topk_per_stage)
+    if chunk_res is None:
+        degraded.count("accel_hi_chunk_skipped", len(dm_chunk),
+                       len(dm_chunk), extra=str(exc)[:160])
+        telemetry.rescue_rows_total().inc(len(dm_chunk), outcome="lost")
+        warnings.warn(f"hi-accel chunk skipped: {exc}")
+        return None
+    # observed only when the rescue delivered rows: the trials counter
+    # and this histogram describe the same calls
+    telemetry.accel_stage_seconds().observe(
+        _time.perf_counter() - t_rescue, path="rescued")
+    res, lost_rows = chunk_res
+    n_ok = len(dm_chunk) - len(lost_rows)
+    telemetry.rescue_rows_total().inc(n_ok, outcome="rescued")
+    if n_ok:
+        # the kernel raised before its own trials accounting, so the
+        # chunk-rescued rows are counted here, once
+        telemetry.accel_batch_trials_total().inc(n_ok, path="rescued")
+    if lost_rows:
+        telemetry.rescue_rows_total().inc(len(lost_rows), outcome="lost")
+    degraded.provenance_count(
+        "accel_rows_rescued", n_ok, len(dm_chunk),
+        extra="whole chunk refused by the runtime; recomputed on "
+              "the host CPU backend — rescued rows were slower "
+              "but complete")
+    # a partial chunk rescue is partial coverage, never dressed as
+    # complete: lost rows feed the loss ledger
+    degraded.count(
+        "accel_rows_zero_filled", len(lost_rows), len(dm_chunk),
+        extra="chunk-rescue recompute failed for these rows; "
+              "powers zero-filled — hi-accel coverage is PARTIAL")
+    degraded.count("accel_hi_chunk_skipped", 0, len(dm_chunk))
+    warnings.warn(
+        f"hi-accel chunk refused by the runtime and recomputed "
+        f"on the host CPU backend ({n_ok}/{len(dm_chunk)} rows"
+        + (f"; {len(lost_rows)} rows lost and zero-filled"
+           if lost_rows else "")
+        + f"; provenance recorded): {exc}")
+    return res
 
 
 _BANK_CACHE: dict[int, accel_k.TemplateBank] = {}

@@ -67,6 +67,7 @@ from tpulsar_torch.cli import search_job
 from tpulsar_torch.dataplane import index as dp_index
 from tpulsar_torch.frontdoor import queue as frontdoor_queue
 from tpulsar_torch.frontdoor.tenancy import TenantPolicy
+from tpulsar_torch.kernels import accel as accel_k
 from tpulsar_torch.kernels import cuda_dd
 from tpulsar_torch.obs import fleetview, health, journal, telemetry
 from tpulsar_torch.obs.log import get_logger
@@ -333,6 +334,9 @@ class SearchServer:
             worker_id=self.worker_id, status=status,
             queue_depth=depth, max_queue_depth=self.max_queue_depth,
             beams=dict(self.beams), started_at=self.started_at,
+            # the hi stage's batch breaker pins the per-DM path for the
+            # life of the process (slower beams until a restart)
+            accel_batch_pinned=accel_k.batch_path_pinned(),
             **({"worker_class": self.worker_class}
                if self.worker_class else {}))
         # every heartbeat also drops this worker's registry snapshot
