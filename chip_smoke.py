@@ -63,20 +63,28 @@ these phases:
      (tools/torch_results_diff.py: timing-bearing files by presence,
      .npz by arrays, tarballs by members), that the pulsar is
      recovered and folded, and that the checkpoint is gone;
-  6. serve: two tickets written to a spool through the port's
-     serve/protocol.py — the beam and a poisoned ticket (a datafile
-     truncated mid-header) — answered by
-     `python -m tpulsar_torch serve --once` in a subprocess on the card
-     (default device, warm boot on; the smoke's wrapper turns plots
-     off, as in phase 4, and counts the kernels' launches after boot).
-     It checks that the server exits 0, that the beam is done and warm
-     (no compile) and the poisoned one failed in its stage-in,
-     the server's counts, the final 'stopped' heartbeat, each ticket's
-     journal chain, that the results directory equals phase 4's, the
-     pulsar, the candidate index's rows, and that the served beam
-     launched each kernel exactly as often as phase 4.  (Phase 6
-     served the beam twice until the batch phase took the second
-     full beam of the smoke's time.)
+  6. serve, through the front door and the blob data plane: a token'd
+     gateway (`python -m tpulsar_torch gateway`) on a sqlite: queue
+     with a content-addressed store; the beam uploaded by
+     `python -m tpulsar_torch blob put` (its seconds printed); the
+     resident server (`serve --queue sqlite:...` in a subprocess on
+     the card, TPULSAR_DATA_URL at the gateway; default device, warm
+     boot on; the smoke's wrapper turns plots off, as in phase 4, and
+     counts the kernels' launches after boot) started, and once it
+     advertises capacity the beam submitted by digest
+     (client.submit_beam with blobs=) and a poisoned ticket (a
+     datafile truncated mid-header) by path; both answered over HTTP,
+     then the server drained by SIGTERM.  It checks that the server
+     exits 0, that the beam is done and warm (no compile) and the
+     poisoned one failed in its stage-in, the final 'stopped'
+     heartbeat, each ticket's journal chain (the stage-in by digest
+     and the artifact push included), that the results directory
+     equals phase 4's, the pulsar, the candidate index's rows,
+     /v1/candidates answered from the index with the pulsar in it,
+     every artifact fetched by `blob get` byte-identical to the
+     outdir's copy, and that the served beam launched each kernel
+     exactly as often as phase 4; it prints the blob PUT, the
+     stage-in and beam_seconds.
   7. batch: two tickets for the beam into two output directories,
      answered by `python -m tpulsar_torch serve --once --batch 2` in a
      subprocess on the card (the same wrapper).  It checks that both
@@ -99,9 +107,13 @@ these phases:
      (the same wrapper): done with one gap, the journal chain, the
      triggers' digest equal to an in-process control's, the chunk
      latencies against the ticket's slo_s, one launch an emission
-     after boot; then a second session's server SIGKILLed after three
-     acknowledged chunks and a new one resuming it: the control's
-     digest, at most one chunk replayed, the checkpoint cleaned.
+     after boot; then a second session, opened and fed over HTTP
+     through a token'd gateway over the server's spool
+     (`POST /v1/stream/<s>/open|chunks|close`), its server SIGKILLed
+     after three acknowledged chunks and a new one resuming it: the
+     control's digest, at most one chunk replayed, the checkpoint
+     cleaned, the triggers read back through
+     `GET /v1/stream/<s>/triggers` with the control's digest.
 
 Phases 4-7 search with the zaplist the job picks under the default
 configuration (the packaged default.zaplist), as the server does.
@@ -121,6 +133,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1446,7 +1459,7 @@ def server_setup(tmp: str, name: str) -> dict:
                TPULSAR_STAGE_HEARTBEAT=hb_path,
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     return dict(spool=spool, counts=counts_path, hb=hb_path, env=env,
-                log=os.path.join(tmp, f"{name}.log"), name=name,
+                log=os.path.join(tmp, f"{name}.log"), name=name, cfg=cfg,
                 cmd=[sys.executable, "-c", SERVE_WRAPPER, "--config", cfg,
                      "serve", "--once", "--spool", spool])
 
@@ -1490,75 +1503,270 @@ def stagein_seconds(spool: str, tid: str):
         spool, ticket=tid) if e["event"] == "stagein_done"), None)
 
 
-def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
-    """Phase 6: the resident server answers two spool tickets (the
-    beam, then a poisoned ticket) in a subprocess on the card."""
-    from tpulsar_torch.dataplane import index as dp_index
+#: the bearer token of the smoke's gateways (phases 6 and 8)
+GATEWAY_TOKEN = "chip-smoke"
 
+
+def start_gateway(srv: dict, queue_url: str, *args) -> tuple:
+    """`python -m tpulsar_torch gateway --queue QUEUE_URL --port 0`
+    in a subprocess with srv's configuration and a bearer token; its
+    output goes to a log file, from which its URL is read.  Returns
+    (process, url, log path)."""
+    log_path = os.path.join(os.path.dirname(srv["log"]),
+                            f"{srv['name']}_gateway.log")
+    fh = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpulsar_torch", "--config", srv["cfg"],
+         "gateway", "--queue", queue_url, "--port", "0", *args],
+        env=dict(srv["env"], TPULSAR_GATEWAY_TOKEN=GATEWAY_TOKEN),
+        stdout=fh, stderr=subprocess.STDOUT)
+    fh.close()
+    deadline = time.time() + 120
+    while True:
+        with open(log_path) as lf:
+            m = re.search(r"^gateway: (http://\S+) ", lf.read(), re.M)
+        if m:
+            return proc, m.group(1), log_path
+        if proc.poll() is not None or time.time() > deadline:
+            proc.kill()
+            with open(log_path) as lf:
+                raise AssertionError(f"{srv['name']}: the gateway did not "
+                                     f"start:\n{lf.read()[-4000:]}")
+        time.sleep(0.1)
+
+
+def stop_gateway(proc, log_path: str, what: str) -> None:
+    """SIGTERM a gateway; it must stop with exit 0."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        with open(log_path) as fh:
+            raise AssertionError(f"{what}: the gateway exited "
+                                 f"{proc.returncode}:\n{fh.read()[-4000:]}")
+
+
+def http(method: str, url: str, data: bytes | None = None,
+         token: str = GATEWAY_TOKEN) -> tuple[int, dict]:
+    """One gateway request with the bearer token: (status, JSON
+    body); an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=data, method=method,
+        headers={"Authorization": f"Bearer {token}"} if token else {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
+    """Phase 6: the front door and the blob data plane.  A token'd
+    gateway (`python -m tpulsar_torch gateway`) on a sqlite queue with
+    a CAS; the beam uploaded by `python -m tpulsar_torch blob put`;
+    the resident server (`serve --queue sqlite:...`, TPULSAR_DATA_URL
+    at the gateway) started, and once it advertises capacity the beam
+    submitted by digest (client.submit_beam with blobs=) and a
+    poisoned ticket by path; both answered over HTTP, then the server
+    drained by SIGTERM."""
+    from tpulsar_torch.dataplane import index as dp_index
+    from tpulsar_torch.frontdoor import client
+    from tpulsar_torch.frontdoor import queue as fq
+
+    du = shutil.disk_usage(tmp)
+    log(f"phase 6: disk {du.free / 1e9:.1f} GB free of "
+        f"{du.total / 1e9:.1f} GB before the blob path (the beam is "
+        f"{os.path.getsize(fns[0]) / 1e9:.3f} GB; the CAS and the "
+        f"workspace each take a copy)")
+    srv = server_setup(tmp, "serve")
+    gwdir = os.path.join(tmp, "serve_gateway")
+    os.makedirs(gwdir)
+    db, cas = os.path.join(gwdir, "queue.db"), os.path.join(gwdir, "cas")
+    queue_url = f"sqlite:{db}"
     outs = {t: os.path.join(tmp, f"served_{t}") for t in ("t0", "t2")}
     poison = os.path.join(tmp, "poison", os.path.basename(fns[0]))
     os.makedirs(os.path.dirname(poison))
     with open(fns[0], "rb") as src, open(poison, "wb") as dst:
         dst.write(src.read(1500))         # FITS headers are 2880 bytes
-    run = run_server(tmp, "serve", {"t0": (fns, outs["t0"]),
-                                    "t2": ([poison], outs["t2"])})
-    spool, recs, counts = run["spool"], run["recs"], run["counts"]
-    r = recs["t0"]
-    if r is None or r["status"] != "done":
-        raise AssertionError(f"phase 6: t0 not done: {r}")
-    if not r["warm"] or r["compile_misses"] != 0:
-        raise AssertionError(f"phase 6: t0 paid a compile: {r}")
-    bad = recs["t2"]
-    if bad is None or bad["status"] != "failed" \
-            or "stage-in failed" not in bad["error"]:
-        raise AssertionError(f"phase 6: the poisoned ticket: {bad}")
-    from tpulsar_torch.serve import protocol
-    hb = protocol.read_heartbeat(spool)
-    if hb["status"] != "stopped" or hb["beams"] != {
-            "done": 1, "failed": 1, "skipped": 0}:
-        raise AssertionError(f"phase 6: final heartbeat {hb}")
-    chains = {"t0": check_journal(spool, "t0", ["claimed", "search_start",
-                                                "result"], "phase 6"),
-              "t2": check_journal(spool, "t2", ["claimed", "stagein_failed",
-                                                "result"], "phase 6")}
-    problems = results_diff().diff_results(outs["t0"], p4["resultsdir"])
-    if problems:
-        raise AssertionError("phase 6: t0's results differ from phase "
-                             "4's: " + "; ".join(problems[:10]))
-    log(f"phase 6: t0's results directory equals phase 4's "
-        f"({len(os.listdir(outs['t0']))} files)")
-    check_pulsar(outs["t0"], p4["basenm"], "phase 6 t0")
-    stages = report_stages(os.path.join(outs["t0"],
-                                        f"{p4['basenm']}.report"))
-    idx = dp_index.CandidateIndex(dp_index.index_path(spool))
-    rows = idx.candidate_rows("t0")
-    if not rows or rows != dp_index.candidate_rows(outs["t0"]):
-        raise AssertionError("phase 6: t0's index rows do not match its "
-                             ".accelcands")
-    if idx.tickets() != ["t0"]:
-        raise AssertionError(f"phase 6: index tickets {idx.tickets()}")
-    served = counts["served"]
-    if served != p4["launches"]:
-        raise AssertionError(f"phase 6: served launches {served} != "
-                             f"phase 4's {p4['launches']}")
-    stagein = stagein_seconds(spool, "t0")
-    log(f"phase 6: boot {counts['boot_seconds']:.3f} s (boot launches "
-        f"{counts['boot']}); beam_seconds t0 {r['beam_seconds']:.3f} s "
-        f"(phase 4 search_beam {p4['wall_s']:.3f} s); stage-in t0 "
-        f"{stagein} s; t2 {bad['beam_seconds']:.3f} s; peak device memory "
-        f"after boot {counts['peak_bytes'] / 2**30:.3f} GiB; server process "
-        f"{run['wall_s']:.3f} s")
-    log(f"phase 6: served launches {served} (phase 4's); journal chains "
-        f"{json.dumps(chains)}")
-    log(f"phase 6: the stage heartbeat's last record: "
-        f"{json.dumps(run['beat'])}")
-    log("phase 6 stage seconds (the beam's .report), t0 / phase 4: "
-        + json.dumps({k: [v, round(p4["stages"].get(k, 0.0), 2)]
-                      for k, v in stages.items()}))
+    os.environ["TPULSAR_GATEWAY_TOKEN"] = GATEWAY_TOKEN
+    gw, url, gw_log = start_gateway(srv, queue_url, "--blob-root", cas)
+    proc = None
+    try:
+        log(f"phase 6: gateway {url} on {queue_url}, CAS {cas}")
+        t0 = time.time()
+        ckpt.sha256_file(fns[0])
+        hash_s = time.time() - t0
+        t0 = time.time()
+        put = subprocess.run(
+            [sys.executable, "-m", "tpulsar_torch", "--config",
+             srv["cfg"], "blob", "put", fns[0], "--url", url,
+             "--token", GATEWAY_TOKEN],
+            env=srv["env"], capture_output=True, text=True, timeout=900)
+        put_s = time.time() - t0
+        if put.returncode != 0:
+            raise AssertionError(f"phase 6: blob put exited "
+                                 f"{put.returncode}: {put.stderr[-2000:]}")
+        digest = put.stdout.split()[0]
+        name = os.path.basename(fns[0])
+        log(f"phase 6: blob put {name} -> {digest[:16]}.. in {put_s:.3f} s "
+            f"({os.path.getsize(fns[0]) / 1e9 / put_s:.3f} GB/s: client "
+            f"hash, localhost stream, gateway re-hash)")
+
+        torch.cuda.empty_cache()
+        env = dict(srv["env"], TPULSAR_DATA_URL=url,
+                   TPULSAR_GATEWAY_TOKEN=GATEWAY_TOKEN)
+        t_start = time.time()
+        with open(srv["log"], "w") as logf:
+            # not --once: the gateway admits a beam only while a
+            # worker advertises capacity (it load-sheds otherwise)
+            proc = subprocess.Popen(
+                [c for c in srv["cmd"] if c != "--once"]
+                + ["--queue", queue_url],
+                env=env, stdout=logf, stderr=subprocess.STDOUT)
+        deadline = time.time() + 300
+        while client.capacity(url)["capacity"] <= 0:
+            if proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(
+                    f"phase 6: the server never advertised capacity "
+                    f"(exit {proc.poll()})")
+            time.sleep(0.2)
+        t_ready = time.time() - t_start
+        tids = {
+            "t0": client.submit_beam(url, [name], outdir=outs["t0"],
+                                     blobs={name: digest},
+                                     job_id=0)["ticket"],
+            "t2": client.submit_beam(url, [poison], outdir=outs["t2"],
+                                     job_id=2)["ticket"]}
+        recs = {t: client.wait_for_result(url, tid, timeout_s=900,
+                                          poll_s=1.0)
+                for t, tid in tids.items()}
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        wall = time.time() - t_start
+        counts = server_counts(srv, rc)
+        r = recs["t0"]
+        if r["status"] != "done":
+            raise AssertionError(f"phase 6: t0 not done: {r}")
+        if not r["warm"] or r["compile_misses"] != 0:
+            raise AssertionError(f"phase 6: t0 paid a compile: {r}")
+        bad = recs["t2"]
+        if bad["status"] != "failed" \
+                or "stage-in failed" not in bad["error"]:
+            raise AssertionError(f"phase 6: the poisoned ticket: {bad}")
+        q = fq.get_ticket_queue(queue_url)
+        hb = q.read_heartbeat("")
+        if hb["status"] != "stopped" or hb["beams"] != {
+                "done": 1, "failed": 1, "skipped": 0}:
+            raise AssertionError(f"phase 6: final heartbeat {hb}")
+        chains = {
+            "t0": check_journal(gwdir, tids["t0"], [
+                "received", "submitted", "claimed", "stagein_done",
+                "search_start", "artifact_push", "result"], "phase 6"),
+            "t2": check_journal(gwdir, tids["t2"], [
+                "received", "claimed", "stagein_failed", "result"],
+                "phase 6")}
+        problems = results_diff().diff_results(outs["t0"], p4["resultsdir"])
+        if problems:
+            raise AssertionError("phase 6: t0's results differ from phase "
+                                 "4's: " + "; ".join(problems[:10]))
+        log(f"phase 6: t0's results directory equals phase 4's "
+            f"({len(os.listdir(outs['t0']))} files)")
+        check_pulsar(outs["t0"], p4["basenm"], "phase 6 t0")
+        stages = report_stages(os.path.join(outs["t0"],
+                                            f"{p4['basenm']}.report"))
+        idx = dp_index.CandidateIndex(dp_index.index_path(gwdir))
+        rows = idx.candidate_rows(tids["t0"])
+        if not rows or rows != dp_index.candidate_rows(outs["t0"]):
+            raise AssertionError("phase 6: t0's index rows do not match "
+                                 "its .accelcands")
+        if idx.tickets() != [tids["t0"]]:
+            raise AssertionError(f"phase 6: index tickets {idx.tickets()}")
+        cands = client.query_candidates(url, ticket=tids["t0"], limit=200)
+        hits = [c for c in cands["candidates"]
+                if abs(c["period_s"] - PSR_PERIOD) / PSR_PERIOD < 1e-3
+                and abs(c["dm"] - PSR_DM) < 5.0]
+        if cands["source"] != "index" or not hits or cands["total"] != \
+                sum(row["sigma"] >= 0.0 for row in rows):
+            head = {k: v for k, v in cands.items() if k != "candidates"}
+            raise AssertionError(f"phase 6: /v1/candidates {head}, "
+                                 f"{len(hits)} rows of the pulsar")
+        arts = r.get("artifacts") or {}
+        if sorted(arts) != sorted(n for n in os.listdir(outs["t0"])
+                                  if n.endswith(".accelcands")):
+            raise AssertionError(f"phase 6: artifacts {arts}")
+        for aname, adigest in arts.items():
+            dest = os.path.join(tmp, f"fetched_{aname}")
+            got = subprocess.run(
+                [sys.executable, "-m", "tpulsar_torch", "--config",
+                 srv["cfg"], "blob", "get", adigest, "--url", url,
+                 "--out", dest], env=srv["env"], capture_output=True,
+                text=True, timeout=120)
+            with open(dest, "rb") as fa, \
+                    open(os.path.join(outs["t0"], aname), "rb") as fb:
+                same = fa.read() == fb.read()
+            if got.returncode != 0 or not same:
+                raise AssertionError(f"phase 6: blob get {aname}: rc "
+                                     f"{got.returncode}, identical {same}")
+        served = counts["served"]
+        if served != p4["launches"]:
+            raise AssertionError(f"phase 6: served launches {served} != "
+                                 f"phase 4's {p4['launches']}")
+        stagein = stagein_seconds(gwdir, tids["t0"])
+        log(f"phase 6: /v1/candidates from the index ({cands['total']} "
+            f"rows, {len(hits)} of the pulsar, best sigma "
+            f"{max(c['sigma'] for c in hits):.2f}); {len(arts)} artifact(s) "
+            f"fetched by digest byte-identical to the outdir's")
+        log(f"phase 6: blob put {put_s:.3f} s; stage-in t0 {stagein} s "
+            f"(by digest over HTTP, verified, then staged; phase 4's "
+            f"native read {p4['read']['native_s']:.3f} s); beam_seconds "
+            f"t0 {r['beam_seconds']:.3f} s (phase 4 search_beam "
+            f"{p4['wall_s']:.3f} s, served / solo "
+            f"{r['beam_seconds'] / p4['wall_s']:.4f}); t2 "
+            f"{bad['beam_seconds']:.3f} s; boot "
+            f"{counts['boot_seconds']:.3f} s (boot launches "
+            f"{counts['boot']}), capacity advertised {t_ready:.1f} s after "
+            f"start; peak device memory after boot "
+            f"{counts['peak_bytes'] / 2**30:.3f} GiB; server process "
+            f"{wall:.3f} s")
+        log(f"phase 6: served launches {served} (phase 4's); journal chains "
+            f"{json.dumps(chains)}")
+        with open(srv["hb"]) as fh:
+            log(f"phase 6: the stage heartbeat's last record: "
+                f"{fh.read().strip()}")
+        log("phase 6 stage seconds (the beam's .report), t0 / phase 4: "
+            + json.dumps({k: [v, round(p4["stages"].get(k, 0.0), 2)]
+                          for k, v in stages.items()}))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        stop_gateway(gw, gw_log, "phase 6")
+        os.environ.pop("TPULSAR_GATEWAY_TOKEN", None)
+        # the CAS's and the workspace's copies of the beam
+        shutil.rmtree(cas, ignore_errors=True)
+        shutil.rmtree(os.path.join(tmp, "serve_work"), ignore_errors=True)
+    # the gateway's side of the upload: its registry, exported on exit
+    with open(os.path.join(tmp, "serve_logs", "metrics",
+                           "gateway.prom")) as fh:
+        m = re.search(r'^tpulsar_dataplane_transfer_seconds_sum'
+                      r'\{op="put"\} (\S+)', fh.read(), re.M)
+    ingest_s = float(m.group(1)) if m else float("nan")
+    log(f"phase 6: the blob put's {put_s:.3f} s: the file's sha256 alone "
+        f"{hash_s:.3f} s in this process (page cache warm); the gateway's "
+        f"put_stream (receive, hash, write, fsync, re-hash off disk) "
+        f"{ingest_s:.3f} s, the beam and the artifact")
     return dict(launches=served, boot=counts["boot"],
-                boot_s=counts["boot_seconds"], wall_s=run["wall_s"],
+                boot_s=counts["boot_seconds"], wall_s=wall,
                 beam_s={t: recs[t]["beam_seconds"] for t in outs},
-                stagein_s=stagein, stages=stages,
+                stagein_s=stagein, put_s=put_s, hash_s=hash_s,
+                ingest_s=ingest_s, stages=stages,
                 peak_bytes=counts["peak_bytes"])
 
 
@@ -1711,18 +1919,15 @@ def _chunk(data: np.ndarray, k: int) -> np.ndarray:
     return data[:, k * cl:(k + 1) * cl]
 
 
-def _feed_at_cadence(sroot: str, session: str, data: np.ndarray,
-                     seqs, t0: float) -> None:
-    """Land chunk k at t0 + k chunk durations (the real-time rate),
-    with its ingest time stamped as it lands."""
-    from tpulsar_torch.stream import ingest
-
+def _feed_at_cadence(land, seqs, t0: float) -> None:
+    """land(k) chunk k at t0 + k chunk durations (the real-time
+    rate)."""
     chunk_s = STREAM_GEOM["chunk_len"] * STREAM_GEOM["dt"]
     for k in seqs:
         wait = t0 + k * chunk_s - time.time()
         if wait > 0:
             time.sleep(wait)
-        ingest.append_chunk(sroot, session, k, _chunk(data, k))
+        land(k)
 
 
 def _wait_events(spool: str, tid: str, event: str, n: int,
@@ -1794,22 +1999,58 @@ def stream_served(tmp: str, name: str, data: np.ndarray,
                   kill_after: int = 0) -> dict:
     """A session fed at the real-time rate with seq STREAM_GAP left out,
     answered by `python -m tpulsar_torch serve --stream --once` in a
-    subprocess on the card.  With kill_after, that server is SIGKILLed
-    once kill_after chunks are acknowledged, the rest of the frames
-    land at once, and a second server resumes the session."""
+    subprocess on the card, its frames landed by
+    stream/ingest.append_chunk.  With kill_after, the session is fed
+    over HTTP instead, through a token'd gateway over the server's
+    spool (`POST /v1/stream/<s>/open|chunks|close`), that server is
+    SIGKILLed once kill_after chunks are acknowledged, the rest of the
+    frames land at once, a second server resumes the session, and the
+    triggers are read back through `GET /v1/stream/<s>/triggers`."""
     from tpulsar_torch.serve import protocol
     from tpulsar_torch.stream import ingest
 
     srv = server_setup(tmp, name)
-    sroot = os.path.join(tmp, f"{name}_sessions")
     outdir = os.path.join(tmp, f"{name}_out")
     os.makedirs(outdir)
-    session, tid = f"{name}_session", f"{name}_ticket"
-    ingest.open_session(sroot, session, STREAM_GEOM)
+    session = f"{name}_session"
     slo_s = STREAM_GEOM["chunk_len"] * STREAM_GEOM["dt"]
-    protocol.write_ticket(srv["spool"], tid, [], outdir, kind="stream",
-                          session=session, stream_root=sroot,
-                          slo_s=slo_s)
+    gw = None
+    if kill_after:
+        gw, url, gw_log = start_gateway(srv, f"spool:{srv['spool']}")
+        su = f"{url}/v1/stream/{session}"
+        code, rec = http("POST", su + "/open", json.dumps(
+            {"geometry": STREAM_GEOM, "outdir": outdir,
+             "slo_s": slo_s}).encode())
+        if code != 201:
+            raise AssertionError(f"phase 8: open over HTTP: {code} {rec}")
+        tid, sroot = rec["ticket"], os.path.join(srv["spool"], "stream")
+
+        def land(k):
+            code, rec = http("POST", su + "/chunks", ingest.encode_frame(
+                k, _chunk(data, k), time.time()))
+            if code != 201 or rec["seq"] != k:
+                raise AssertionError(f"phase 8: frame {k} over HTTP: "
+                                     f"{code} {rec}")
+
+        def close():
+            code, rec = http("POST", su + "/close", json.dumps(
+                {"n_chunks": STREAM_CHUNKS}).encode())
+            if code != 200:
+                raise AssertionError(f"phase 8: close over HTTP: {code} "
+                                     f"{rec}")
+    else:
+        sroot = os.path.join(tmp, f"{name}_sessions")
+        tid = f"{name}_ticket"
+        ingest.open_session(sroot, session, STREAM_GEOM)
+        protocol.write_ticket(srv["spool"], tid, [], outdir, kind="stream",
+                              session=session, stream_root=sroot,
+                              slo_s=slo_s)
+
+        def land(k):
+            ingest.append_chunk(sroot, session, k, _chunk(data, k))
+
+        def close():
+            ingest.close_session(sroot, session, STREAM_CHUNKS)
     seqs = [k for k in range(STREAM_CHUNKS) if k != STREAM_GAP]
     torch.cuda.empty_cache()
 
@@ -1828,7 +2069,7 @@ def stream_served(tmp: str, name: str, data: np.ndarray,
         t_open = time.time() - t_start
         if kill_after:
             feeder = threading.Thread(target=_feed_at_cadence, args=(
-                sroot, session, data, seqs[:kill_after + 1], time.time()))
+                land, seqs[:kill_after + 1], time.time()))
             feeder.start()
             _wait_events(srv["spool"], tid, "chunk_received", kill_after,
                          proc, 120)
@@ -1839,19 +2080,27 @@ def stream_served(tmp: str, name: str, data: np.ndarray,
                 raise AssertionError("phase 8: a killed server wrote a "
                                      "result")
             for k in seqs[kill_after + 1:]:
-                ingest.append_chunk(sroot, session, k, _chunk(data, k))
-            ingest.close_session(sroot, session, STREAM_CHUNKS)
+                land(k)
+            close()
             proc = start(resumed_log)
         else:
-            _feed_at_cadence(sroot, session, data, seqs, time.time())
-            ingest.close_session(sroot, session, STREAM_CHUNKS)
+            _feed_at_cadence(land, seqs, time.time())
+            close()
         rc = proc.wait(timeout=600)
+        triggers = None
+        if gw is not None:
+            code, triggers = http("GET", su + "/triggers", token="")
+            if code != 200:
+                raise AssertionError(f"phase 8: triggers over HTTP: "
+                                     f"{code} {triggers}")
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=60)
         for fh in logs:
             fh.close()
+        if gw is not None:
+            stop_gateway(gw, gw_log, "phase 8")
     wall = time.time() - t_start
     counts = server_counts(srv, rc) if not kill_after else {}
     if kill_after:
@@ -1862,7 +2111,7 @@ def stream_served(tmp: str, name: str, data: np.ndarray,
                                  f"{rc}:\n{text[-4000:]}")
     return dict(spool=srv["spool"], tid=tid, outdir=outdir, wall_s=wall,
                 open_s=t_open, counts=counts, slo_s=slo_s, sroot=sroot,
-                session=session,
+                session=session, triggers=triggers,
                 rec=protocol.read_result(srv["spool"], tid))
 
 
@@ -2076,10 +2325,18 @@ def stream_phase() -> dict:
                                  f"opens {opens}")
         if os.path.isdir(ckpt.default_root(kill["outdir"])):
             raise AssertionError("phase 8: the checkpoint was not cleaned")
-        log(f"phase 8 kill/resume: SIGKILL after 3 acknowledged chunks, "
+        got = kill["triggers"]
+        if not got["closed"] or got["n"] != r2["triggers"] or \
+                trigger_digest(got["triggers"]) != gdigest:
+            raise AssertionError(f"phase 8: GET triggers: closed "
+                                 f"{got['closed']}, {got['n']} records "
+                                 f"(result {r2['triggers']})")
+        log(f"phase 8 kill/resume: fed over HTTP (gateway over the spool), "
+            f"SIGKILL after 3 acknowledged chunks, "
             f"resumed at seq {opens[1].get('ack')}, replayed "
             f"{r2['replayed']}, digest equal to the control's, every seq "
-            f"acknowledged once, checkpoint cleaned (kept copy "
+            f"acknowledged once, {got['n']} triggers read back over HTTP "
+            f"with the control's digest, checkpoint cleaned (kept copy "
             f"{os.path.isdir(kill['outdir'] + '.checkpoint')})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

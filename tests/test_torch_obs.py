@@ -203,6 +203,31 @@ def test_ladder_families_match_the_jax_catalog():
                                                                    key)
 
 
+@pytest.mark.parametrize("name", [
+    "tpulsar_gateway_requests_total",
+    "tpulsar_gateway_request_seconds",
+    "tpulsar_gateway_submissions_total",
+    "tpulsar_frontdoor_host_capacity",
+    "tpulsar_frontdoor_routed_total",
+    "tpulsar_dataplane_bytes_total",
+    "tpulsar_dataplane_blobs_total",
+    "tpulsar_dataplane_verify_failures_total",
+    "tpulsar_dataplane_transfer_seconds",
+])
+def test_front_door_and_data_plane_families_match_the_jax_catalog(name):
+    """The gateway's, the federation router's and the blob data
+    plane's families are in the port's catalog with the JAX catalog's
+    type, help, labels and buckets."""
+    from tpulsar.obs import telemetry as jtelemetry
+    from tpulsar_torch.obs import telemetry as ttelemetry
+
+    catalog = _catalog(jtelemetry)
+    port = _catalog(ttelemetry)
+    assert name in port, name
+    for key in ("type", "help", "labelnames", "buckets"):
+        assert port[name].get(key) == catalog[name].get(key), key
+
+
 def test_stage_timer_is_one_span_and_one_observation():
     ttrace.start(clear=True)
     try:

@@ -41,6 +41,10 @@ import tpulsar_torch.frontdoor.queue, tpulsar_torch.frontdoor.tenancy
 import tpulsar_torch.obs.journal, tpulsar_torch.obs.health
 import tpulsar_torch.obs.fleetview, tpulsar_torch.obs.log
 import tpulsar_torch.dataplane.index, tpulsar_torch.resilience.policy
+import tpulsar_torch.dataplane.blobstore, tpulsar_torch.dataplane.transfer
+import tpulsar_torch.frontdoor.sqlite_queue, tpulsar_torch.frontdoor.results
+import tpulsar_torch.frontdoor.federation, tpulsar_torch.frontdoor.client
+import tpulsar_torch.frontdoor.gateway
 import tpulsar_torch.resilience.rescue
 import tpulsar_torch.orchestrate.zaplists
 import tpulsar_torch.orchestrate.transports
@@ -168,72 +172,26 @@ def test_later_slices_are_refused_by_name(change, word, monkeypatch):
                          params, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("option, word", [
-    (dict(queue_url="sqlite:q.db"), "sqlite_queue.py"),
-    ("TPULSAR_DATA_URL", "dataplane/blobstore.py"),
-    ("TPULSAR_BLOB_ROOT", "dataplane/blobstore.py"),
-])
-def test_serve_refuses_later_slices_by_name(option, word, tmp_path,
-                                            monkeypatch):
-    """The sqlite queue and the blob data plane raise
-    NotImplementedError naming what they need, when
-    the server is built (a blob ticket fails its own stage-in:
-    test_torch_serve.py; stream mode runs: test_torch_stream.py)."""
-    from tpulsar_torch.config import TpulsarConfig
-    from tpulsar_torch.serve.server import SearchServer
-
-    kw = {}
-    if isinstance(option, dict):
-        kw = option
-    else:
-        monkeypatch.setenv(option, str(tmp_path / "blobs"))
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=word):
-        SearchServer(spool=str(tmp_path / "spool"), cfg=TpulsarConfig(),
-                     device="cpu", warm_boot=False, **kw)
-    assert not (tmp_path / "q.db").exists()
-
-
-def test_blob_tickets_are_refused_by_name(tmp_path):
-    """A ticket with blobs: refs fails its own stage-in, naming the
-    blob data plane; nothing is left in the workspace."""
+def test_blob_tickets_are_refused_by_name(tmp_path, monkeypatch):
+    """A ticket with blobs: refs and no data plane configured fails
+    its own stage-in with the reference's error, naming the two knobs
+    (tests/test_dataplane.py's no-source case); nothing is left in the
+    workspace."""
     from tpulsar_torch.config import TpulsarConfig
     from tpulsar_torch.serve import stagein
 
+    for knob in ("TPULSAR_DATA_URL", "TPULSAR_BLOB_ROOT"):
+        monkeypatch.delenv(knob, raising=False)
     cfg = TpulsarConfig()
     cfg.processing.base_working_directory = str(tmp_path / "work")
     out = stagein.prepare_beam(
         {"ticket": "b", "datafiles": [], "blobs": {"a.fits": "0" * 64}},
         cfg=cfg)
     assert out.error.startswith("stage-in failed")
-    assert "NotImplementedError" in out.error
-    assert "dataplane/blobstore.py" in out.error
+    assert "no data plane is configured" in out.error
+    assert "TPULSAR_DATA_URL" in out.error
+    assert "TPULSAR_BLOB_ROOT" in out.error
     assert os.listdir(tmp_path / "work") == []
-
-
-@pytest.mark.parametrize("flag, word", [
-    (["--queue", "sqlite:q.db"], "sqlite_queue.py"),
-])
-def test_serve_cli_refuses_later_slices_by_name(flag, word, tmp_path,
-                                                capsys, monkeypatch):
-    """A sqlite queue exits 2 with the refusal, before anything is
-    claimed (`serve --batch 2` runs: test_torch_beam_batch.py;
-    `serve --stream`: test_torch_stream.py)."""
-    from tpulsar_torch.cli import main as tmain
-    from tpulsar_torch.config import TpulsarConfig, set_settings
-
-    cfg = TpulsarConfig()
-    cfg.basic.log_dir = str(tmp_path / "logs")
-    set_settings(cfg)
-    monkeypatch.chdir(tmp_path)
-    try:
-        rc = tmain.main(["serve", "--once", "--device", "cpu",
-                         "--spool", str(tmp_path / "spool"), *flag])
-    finally:
-        set_settings(None)
-    assert rc == 2
-    assert word in capsys.readouterr().err
-    assert not (tmp_path / "spool").exists()
 
 
 def _tiny_pulsar_block():

@@ -244,6 +244,20 @@ class _PortSpool:
         tprotocol._atomic_write_json(path, rec)
 
 
+class _PortSqlite:
+    name = "sqlite"
+
+    def url(self, tmp_path):
+        return f"sqlite:{tmp_path / 'q.db'}"
+
+    def make(self, tmp_path):
+        return tfq.get_ticket_queue(self.url(tmp_path))
+
+    def forge_claim_owner(self, q, tid, pid, worker=""):
+        jax_contracts._SqliteBackend().forge_claim_owner(q, tid, pid,
+                                                         worker)
+
+
 class _PortMemory:
     name = "memory"
 
@@ -282,8 +296,8 @@ def _contract(name: str):
                               fn.__defaults__, fn.__closure__)
 
 
-@pytest.fixture(params=[_PortSpool(), _PortMemory()],
-                ids=["spool", "memory"])
+@pytest.fixture(params=[_PortSpool(), _PortMemory(), _PortSqlite()],
+                ids=["spool", "memory", "sqlite"])
 def backend(request):
     return request.param
 
@@ -359,9 +373,108 @@ def test_contract_sigkill_mid_claim_exactly_once_takeover(tmp_path):
               "takeover")(_PortSpool(), tmp_path)
 
 
-def test_sqlite_queue_is_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="sqlite_queue.py"):
-        tfq.get_ticket_queue(f"sqlite:{tmp_path / 'q.db'}")
+def test_contract_sqlite_sigkill_mid_claim_exactly_once_takeover(
+        tmp_path):
+    """The same SIGKILL takeover on the port's sqlite backend: a port
+    process claims from the database and is killed; the port's
+    janitor pass recovers the beam exactly once."""
+    _contract("test_contract_sigkill_mid_claim_exactly_once_"
+              "takeover")(_PortSqlite(), tmp_path)
+
+
+@pytest.mark.parametrize("durable", [_PortSpool(), _PortSqlite()],
+                         ids=["spool", "sqlite"])
+def test_queue_fsck_clean_and_orphan_reporting(durable, tmp_path):
+    _contract("test_queue_fsck_clean_and_orphan_reporting")(
+        durable, tmp_path)
+
+
+def test_sqlite_corrupt_database_refused_loudly(tmp_path):
+    """A database that fails its integrity check is refused at open
+    with a journaled queue_corrupt event (test_frontdoor.py's test on
+    the port's backend)."""
+    from tpulsar_torch.frontdoor import sqlite_queue
+    db = tmp_path / "q.db"
+    db.write_bytes(b"not a sqlite database " * 64)
+    with pytest.raises(sqlite_queue.QueueCorrupt):
+        tfq.get_ticket_queue(f"sqlite:{db}")
+    evs = tjournal.read_events(str(tmp_path))
+    assert [e["event"] for e in evs] == ["queue_corrupt"]
+    assert evs[0]["path"] == str(db)
+
+
+def test_sqlite_busy_and_fault_injection_shapes(tmp_path):
+    """The queue.db fault point fires before statements: an injected
+    failure is an EIO-shaped OSError with a journaled submit_failed
+    head; delay mode succeeds (test_frontdoor.py's test on the port's
+    backend)."""
+    q = tfq.get_ticket_queue(f"sqlite:{tmp_path / 'q.db'}")
+    tfaults.configure("queue.db:unimplemented:rate=1.0")
+    try:
+        with pytest.raises(OSError):
+            q.submit("t1", ["/x"], "/o")
+    finally:
+        tfaults.reset()
+    names = [e["event"] for e in q.read_events(ticket="t1")]
+    assert names == ["submitted", "submit_failed"]
+    tfaults.configure("queue.db:delay:seconds=0.01,count=2")
+    try:
+        q.submit("t2", ["/x"], "/o")
+    finally:
+        tfaults.reset()
+    assert q.ticket_state("t2") == "incoming"
+
+
+def test_sqlite_busy_timeout_knob_is_the_reference_one(monkeypatch):
+    from tpulsar.frontdoor import sqlite_queue as jsq
+    from tpulsar_torch.frontdoor import sqlite_queue as tsq
+    assert tsq.busy_timeout_s() == jsq.busy_timeout_s()
+    monkeypatch.setenv("TPULSAR_QUEUE_BUSY_TIMEOUT_S", "2.5")
+    assert tsq.busy_timeout_s() == jsq.busy_timeout_s() == 2.5
+
+
+@pytest.mark.parametrize("writer,claimer", [("jax", "torch"),
+                                            ("torch", "jax")])
+def test_sqlite_database_across_packages(tmp_path, writer, claimer):
+    """A database one package's SqliteTicketQueue wrote is claimed,
+    completed and fsck'd by the other's: the same schema, the same
+    table names, the same journal artifact beside it.  The writer
+    also records an elective kill the claimer's ledger must see."""
+    from tpulsar.frontdoor import queue as jfq
+    queues = {"jax": jfq, "torch": tfq}
+    url = f"sqlite:{tmp_path / 'q.db'}"
+    w = queues[writer].get_ticket_queue(url)
+    w.submit("x1", ["/data/a.fits"], str(tmp_path / "o1"), job_id=1,
+             tenant="ops", blobs={"a.fits": "a" * 64})
+    w.submit("x2", ["/data/b.fits"], str(tmp_path / "o2"), job_id=2)
+    w.heartbeat("w-writer", status="running", max_queue_depth=4)
+    w.record_elective_kill("w-gone", 4242)
+    c = queues[claimer].get_ticket_queue(url)
+    assert c.pending_count() == 2
+    assert c.pending_by_tenant() == w.pending_by_tenant()
+    assert ("w-gone", 4242) in c.elective_kills()
+    rec = c.claim_next("w-claimer")
+    assert rec["ticket"] == "x1" and rec["blobs"] == {"a.fits": "a" * 64}
+    c.write_result("x1", "done", rc=0, worker="w-claimer",
+                   outdir=rec["outdir"], trace_id=rec["trace_id"])
+    rec2 = w.claim_next("w-writer")
+    w.write_result("x2", "failed", rc=1, worker="w-writer",
+                   trace_id=rec2["trace_id"])
+    for q in (w, c):
+        assert q.read_result("x1")["status"] == "done"
+        assert q.read_result("x2")["status"] == "failed"
+        assert sorted(q.list_tickets("done")) == ["x1", "x2"]
+        report = q.fsck()
+        assert report["findings"] == [], report
+        assert report["counts"]["done"] == 2
+        for tid in ("x1", "x2"):
+            evs = q.read_events(ticket=tid)
+            assert jjournal.validate_chain(evs) == [], evs
+    assert w.read_events() == c.read_events()
+    from tpulsar.cli.main import main as jmain
+    from tpulsar_torch.cli.main import main as tmain
+    assert jmain(["queue", "fsck", url]) == 0
+    assert tmain(["queue", "fsck", url]) == 0
 
 
 # ------------------------------------------------------------ the loop
@@ -487,9 +600,9 @@ def test_poisoned_beam_isolation(tmp_path, cfg, monkeypatch):
 
 
 def test_stagein_failure_fails_only_that_ticket(tmp_path, cfg):
-    """A missing file and a ticket with blobs: refs (the blob data
-    plane is not ported) each fail their own stage-in; the server
-    serves the good ticket."""
+    """A missing file and a ticket with blobs: refs but no data plane
+    configured each fail their own stage-in, with the reference's
+    error; the server serves the good ticket."""
     spool = tmp_path / "spool"
     tprotocol.write_ticket(str(spool), "bad", ["/nonexistent.fits"],
                            str(tmp_path / "outbad"), job_id=1)
@@ -505,7 +618,7 @@ def test_stagein_failure_fails_only_that_ticket(tmp_path, cfg):
     assert bad["status"] == "failed" and "stage-in failed" in bad["error"]
     blob = tprotocol.read_result(str(spool), "blob")
     assert blob["status"] == "failed"
-    assert "dataplane/blobstore.py" in blob["error"]
+    assert "no data plane is configured" in blob["error"]
     assert tprotocol.read_result(str(spool), "good")["status"] == "done"
     assert [e["event"] for e in tjournal.read_events(
         str(spool), ticket="bad")] == ["submitted", "claimed",

@@ -10,16 +10,22 @@ folding and plots, with pass-level checkpoint/resume, the per-beam
 job a queue runs (``python -m tpulsar_torch.cli.search_job``) and the
 resident server (``python -m tpulsar_torch serve``, ``--batch N`` for
 coalesced groups of beams, ``--stream`` for real-time sessions through
-the streaming plane, ``stream/``).  Plain tensor code is PyTorch (FFTs through
-``torch.fft``, cuFFT on the GPU); the two Pallas kernels of the
+the streaming plane, ``stream/``), and the network front door in
+front of it (``python -m tpulsar_torch gateway``: HTTP submission, a
+SQLite ticket queue, the content-addressed blob store a beam is
+staged from by digest and its candidates are published to).  Plain
+tensor code is PyTorch (FFTs through ``torch.fft``, cuFFT on the
+GPU); the two Pallas kernels of the
 reference (stage-1 subband formation and stage-2 shift-and-sum
 dedispersion) are CUDA kernels written for Hopper
 (``tpulsar_torch/csrc/dedisperse.cu``, bound in
 ``tpulsar_torch/kernels/cuda_dd.py``), which the search, refinement,
 folding and the stream's emissions all call.
 
-Every public entry point takes ``device=`` (the job: ``--device``) and
-defaults to ``"cuda"``.  Without a GPU the caller must pass
+Every public entry point that computes takes ``device=`` (the job:
+``--device``) and defaults to ``"cuda"``; the control plane (the
+gateway, the queues, the blob store, the client) touches no tensor
+and never initializes CUDA.  Without a GPU the caller must pass
 ``device="cpu"`` explicitly: the package never moves to the CPU on its
 own.
 """

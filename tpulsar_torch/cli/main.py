@@ -1,24 +1,35 @@
 """The operator CLI — counterpart of tpulsar/cli/main.py.
 
-    python -m tpulsar_torch [--config PATH] serve [options]
+    python -m tpulsar_torch [--config PATH] <subcommand> [options]
 
 Subcommands so far:
 
-  serve — the resident search server (serve/server.py): one
-          device-owning process drains the spool admission queue,
-          paying process start, kernel build and device set-up once
-          per boot instead of once per beam (``--batch N`` searches
-          up to N compatible beams as one coalesced group;
-          ``--stream`` claims stream session tickets instead and
-          runs them through the streaming plane, stream/).  It takes
-          the JAX package's ``tpulsar serve`` flags plus ``--device`` (cuda,
-          the default, or cpu; without a GPU it fails unless
-          ``--device cpu`` is given).
+  serve   — the resident search server (serve/server.py): one
+            device-owning process drains the admission queue, paying
+            process start, kernel build and device set-up once per
+            boot instead of once per beam (``--batch N`` searches up
+            to N compatible beams as one coalesced group; ``--stream``
+            claims stream session tickets instead and runs them
+            through the streaming plane, stream/).  It takes the JAX
+            package's ``serve`` flags plus ``--device`` (cuda, the
+            default, or cpu; without a GPU it fails unless ``--device
+            cpu`` is given).
+  gateway — the network front door (frontdoor/gateway.py) over a
+            ticket queue, or with ``--federate`` a router over member
+            gateways; mounts the blob store (``--blob-root``).
+  submit  — submit a beam over HTTP (exit 0 done, 1 failed, 2 refused
+            and retryable, 3 load-shed).
+  blob    — put/get/gc/stats on the content-addressed store, local
+            (``--root``) or through a gateway (``--url``).
+  queue   — ``queue fsck`` of a spool or sqlite queue.
+  index   — rebuild/fsck/query the candidate index.
 
-The per-beam job keeps its own entry point,
-``python -m tpulsar_torch.cli.search_job``.  The JAX CLI's other
-subcommands (downloader, jobpool, uploader, fleet, gateway, ...)
-are not ported yet.
+The gateway, submit, blob, queue and index commands are control plane:
+they touch no tensor and take no ``--device``; the gateway starts and
+serves on a host with no GPU.  The per-beam job keeps its own entry
+point, ``python -m tpulsar_torch.cli.search_job``.  The JAX CLI's
+other subcommands (downloader, jobpool, uploader, fleet, obs,
+doctor, ...) are not ported yet.
 """
 
 from __future__ import annotations
@@ -89,9 +100,9 @@ def cmd_serve(args) -> int:
             batch_linger_s=args.batch_linger,
             stream=args.stream,
             device=args.device)
-    except (RuntimeError, NotImplementedError) as e:
-        # no GPU without --device cpu, or an option of a later slice:
-        # refused before anything is claimed
+    except RuntimeError as e:
+        # no GPU without --device cpu, or a queue database that fails
+        # its integrity check: refused before anything is claimed
         print(f"serve: {e}", file=sys.stderr)
         return 2
     server.install_signal_handlers()
@@ -114,6 +125,268 @@ def cmd_serve(args) -> int:
     finally:
         _export_metrics("serve")
     return rc
+
+
+def cmd_gateway(args):
+    """The network front door (frontdoor/): an HTTP gateway
+    accepting beam submissions (trace id minted at the edge),
+    streaming per-ticket status from the journal, and serving the
+    result store's candidate query API — or, with federation members
+    configured, a router load-balancing submissions across hosts by
+    advertised capacity."""
+    import signal
+    import threading
+
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.frontdoor.federation import FederationRouter
+    from tpulsar_torch.frontdoor.gateway import GatewayServer
+    from tpulsar_torch.frontdoor.queue import get_ticket_queue
+    from tpulsar_torch.frontdoor.tenancy import TenantPolicy
+
+    cfg = settings()
+    fd = cfg.frontdoor
+    host = args.host or fd.gateway_host
+    port = args.port if args.port is not None else fd.gateway_port
+    policy = TenantPolicy.from_config(cfg)
+    federate = args.federate or fd.federate
+    if federate:
+        gw = GatewayServer(router=FederationRouter(federate),
+                           policy=policy, host=host, port=port,
+                           token=args.token)
+        role = f"router over {federate}"
+    else:
+        queue = get_ticket_queue(args.queue or _default_queue_url()
+                                 or _serve_spool(cfg))
+        gw = GatewayServer(
+            queue=queue, policy=policy, host=host, port=port,
+            outdir_base=args.outdir_base or os.path.join(
+                cfg.processing.base_results_directory, "gateway"),
+            default_depth=cfg.jobpooler.serve_queue_depth,
+            query_limit=fd.results_query_limit,
+            blob_root=args.blob_root, token=args.token)
+        role = f"front of {queue!r}"
+    gw.start()
+    print(f"gateway: {gw.url} ({role})", flush=True)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *a: stop.set())
+    try:
+        while not stop.wait(1.0):
+            pass
+    finally:
+        gw.stop()
+        _export_metrics("gateway")
+    print("gateway: stopped")
+    return 0
+
+
+def cmd_submit(args):
+    """Submit a beam over HTTP to a front-door gateway (and with
+    --wait, poll until its terminal result).  Exit codes: 0 done or
+    skipped, 1 failed, 2 refused (quota/backpressure — retryable),
+    3 load-shed (submit to another host)."""
+    import json
+
+    from tpulsar_torch.frontdoor import client
+
+    files = [os.path.abspath(f) for f in args.files]
+    try:
+        rec = client.submit_beam(
+            args.gateway, files, outdir=args.outdir,
+            tenant=args.tenant, priority=args.priority,
+            job_id=args.job_id, retries=args.retries)
+    except client.ClientError as e:
+        print(json.dumps({"code": e.code, **e.payload}),
+              file=sys.stderr)
+        return 3 if e.code == 503 else 2 if e.code == 429 else 1
+    print(json.dumps(rec))
+    if not args.wait:
+        return 0
+    try:
+        result = client.wait_for_result(args.gateway, rec["ticket"],
+                                        timeout_s=args.timeout)
+    except TimeoutError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    print(json.dumps(result))
+    return 0 if result.get("status") in ("done", "skipped") else 1
+
+
+def _index_queue(args, spool):
+    """Resolve an index ``--queue`` URL to (backend, journal root):
+    reads route through the TicketQueue so ``sqlite:`` fleets are
+    first-class, and the index (``<root>/candidates.db``) follows the
+    backend's journal_root.  The bare token 'sqlite' expands to
+    sqlite:<spool>/queue.db, as the JAX CLI's commands do."""
+    url = getattr(args, "queue", "") or ""
+    if not url:
+        return None, spool
+    if url == "sqlite":
+        url = f"sqlite:{os.path.join(spool, 'queue.db')}"
+    from tpulsar_torch.frontdoor.queue import get_ticket_queue
+    q = get_ticket_queue(url)
+    return q, q.journal_root or spool
+
+
+def cmd_queue(args):
+    """Ticket-queue maintenance (frontdoor/).
+
+    fsck — offline health check of a queue backend: PRAGMA
+    integrity_check + a truncating WAL checkpoint for
+    ``sqlite:<path>``, an orphan side-file sweep for a spool, plus
+    per-state counts either way.  Exit 1 on ANY finding (or a
+    database so corrupt the backend refuses to open it)."""
+    from tpulsar_torch.frontdoor.queue import get_ticket_queue
+    from tpulsar_torch.frontdoor.sqlite_queue import QueueCorrupt
+
+    if args.queue_cmd != "fsck":
+        return 2
+    try:
+        q = get_ticket_queue(args.url)
+        report = q.fsck()
+    except QueueCorrupt as e:
+        # the backend refused to even open it — that IS the finding
+        print(f"fsck: CORRUPT — {e}")
+        return 1
+    except (OSError, ValueError) as e:
+        print(f"fsck: {e}", file=sys.stderr)
+        return 2
+    print(f"fsck {report['backend']}: {report['target']}")
+    counts = report.get("counts") or {}
+    print("  counts: " + " ".join(
+        f"{k}={v}" for k, v in sorted(counts.items())))
+    findings = report.get("findings") or []
+    for f in findings:
+        print(f"  FINDING {f.get('what', '?')}: "
+              f"{f.get('detail', '')}")
+    print("fsck: clean" if not findings
+          else f"fsck: {len(findings)} finding(s)")
+    return 1 if findings else 0
+
+
+def _blob_target(args):
+    """Resolve a blob command's target: ``--url`` (a gateway's blob
+    routes, digest-verified both ends) beats ``--root`` beats the
+    TPULSAR_BLOB_ROOT / <serve spool>/blobs convention."""
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.dataplane import blobstore
+
+    url = getattr(args, "url", "") or os.environ.get(
+        "TPULSAR_DATA_URL", "")
+    if url:
+        return url, None
+    root = getattr(args, "root", "") or \
+        blobstore.default_blob_root(_serve_spool(settings()))
+    return "", blobstore.BlobStore(root)
+
+
+def cmd_blob(args):
+    """Content-addressed artifact store (dataplane/):
+
+      put FILE...  — ingest files, print ``<sha256>  <path>`` per
+                     file (dedup is free: a re-put of identical
+                     bytes is a no-op that returns the same digest)
+      get DIGEST   — fetch one blob, verified against its digest
+      gc           — drop unreferenced objects older than --ttl and
+                     orphaned ingest temps
+      stats        — object/byte counts for the store
+
+    ``--url`` talks to a gateway's ``/v1/blobs/<digest>`` routes
+    (token from --token / TPULSAR_GATEWAY_TOKEN); ``--root`` (or
+    TPULSAR_BLOB_ROOT) addresses a local store directly."""
+    import json
+
+    from tpulsar_torch.dataplane import transfer
+
+    if getattr(args, "token", ""):
+        os.environ["TPULSAR_GATEWAY_TOKEN"] = args.token
+    try:
+        url, store = _blob_target(args)
+        if args.blob_cmd == "put":
+            for path in args.files:
+                if url:
+                    digest = transfer.put_file(url, path)
+                else:
+                    digest = store.put_file(path)
+                    if getattr(args, "ref", ""):
+                        store.add_ref(digest, args.ref)
+                print(f"{digest}  {path}")
+            return 0
+        if args.blob_cmd == "get":
+            dest = args.out or args.digest[:12]
+            if url:
+                n = transfer.get_to_file(url, args.digest, dest)
+            else:
+                n = store.fetch_to(args.digest, dest)
+            print(f"{dest}  {n} B")
+            return 0
+        if args.blob_cmd == "gc":
+            if url:
+                print("blob gc is local-only: pass --root (the "
+                      "store owner collects; a client must not)",
+                      file=sys.stderr)
+                return 2
+            print(json.dumps(store.gc(ttl_s=args.ttl)))
+            return 0
+        if args.blob_cmd == "stats":
+            if url:
+                print("blob stats is local-only: pass --root",
+                      file=sys.stderr)
+                return 2
+            print(json.dumps(store.stats()))
+            return 0
+    except FileNotFoundError as e:
+        print(f"blob: {e}", file=sys.stderr)
+        return 1
+    except (OSError, ValueError, transfer.TransferError) as e:
+        print(f"blob: {e}", file=sys.stderr)
+        return 1
+    return 2
+
+
+def cmd_index(args):
+    """Persistent candidate index (dataplane/index.py):
+
+      rebuild — re-derive every row from the done outdirs' parse
+                (the outdirs are the source of truth; the index is
+                a cache a crash can never make authoritative)
+      fsck    — PRAGMA integrity_check + truncating WAL checkpoint
+      query   — the indexed /v1/candidates answer from the CLI
+
+    Reads resolve like obs: ``--queue`` routes through a ticket
+    backend ('sqlite' expands to sqlite:<spool>/queue.db)."""
+    import json
+
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.dataplane import index as dp_index
+
+    spool = args.spool or _serve_spool(settings())
+    queue, root = _index_queue(args, spool)
+    idx = dp_index.CandidateIndex(dp_index.index_path(root))
+    try:
+        if args.index_cmd == "rebuild":
+            if queue is None:
+                from tpulsar_torch.frontdoor.queue import get_ticket_queue
+                queue = get_ticket_queue(spool)
+            print(json.dumps(idx.rebuild(queue)))
+            return 0
+        if args.index_cmd == "fsck":
+            print(json.dumps(idx.fsck()))
+            return 0
+        if args.index_cmd == "query":
+            print(json.dumps(idx.query(
+                ticket=args.ticket or None,
+                min_sigma=args.min_sigma, limit=args.limit)))
+            return 0
+    except ValueError as e:
+        print(f"index: {e}", file=sys.stderr)
+        return 1
+    except (OSError, dp_index.IndexCorrupt) as e:
+        print(f"index: {e}", file=sys.stderr)
+        return 1
+    finally:
+        idx.close()
+    return 2
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -140,7 +413,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "or <base_working_directory>/.serve_spool)")
     sp.add_argument("--queue", default="",
                     help="ticket-queue backend URL (spool:<dir> / "
-                         "memory:; sqlite: is not ported yet); "
+                         "sqlite:<path> / memory:); "
                          "default: TPULSAR_QUEUE_URL or the spool "
                          "itself.  The spool stays the worker's "
                          "scratch/log root either way")
@@ -191,6 +464,166 @@ def build_parser() -> argparse.ArgumentParser:
                          "cpu; the server never moves to the CPU by "
                          "itself")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser(
+        "gateway",
+        help="network front door: HTTP beam submission + status "
+             "streaming + candidate query API over a ticket queue — "
+             "or a federation router over member gateways "
+             "(--federate / frontdoor.federate)")
+    sp.add_argument("--host", default=None,
+                    help="bind address (default: "
+                         "frontdoor.gateway_host)")
+    sp.add_argument("--port", type=int, default=None,
+                    help="bind port (default: frontdoor.gateway_port;"
+                         " 0 = ephemeral, printed at boot)")
+    sp.add_argument("--spool", "--queue", dest="queue", default=None,
+                    help="ticket queue: a spool dir (default: the "
+                         "serve spool), sqlite:<path> or "
+                         "memory:<name>")
+    sp.add_argument("--federate", default=None, metavar="N=URL,...",
+                    help="run as a federation ROUTER over these "
+                         "member gateways instead of fronting a "
+                         "local queue")
+    sp.add_argument("--outdir-base", default=None,
+                    help="results dir root for submissions that "
+                         "name no outdir (default: "
+                         "<base_results_directory>/gateway)")
+    sp.add_argument("--blob-root", default=None,
+                    help="mount the content-addressed blob store at "
+                         "this directory (default: TPULSAR_BLOB_ROOT "
+                         "or <spool>/blobs; router mode proxies and "
+                         "never stores)")
+    sp.add_argument("--token", default=None,
+                    help="shared-secret bearer token required on "
+                         "mutating routes (default: "
+                         "TPULSAR_GATEWAY_TOKEN; empty = open)")
+    sp.set_defaults(fn=cmd_gateway)
+
+    sp = sub.add_parser(
+        "submit",
+        help="submit a beam over HTTP to a front-door gateway")
+    sp.add_argument("files", nargs="+", help="beam data files")
+    sp.add_argument("--gateway", default="http://127.0.0.1:8970",
+                    metavar="URL")
+    sp.add_argument("--outdir", default=None,
+                    help="results dir (default: gateway derives one)")
+    sp.add_argument("--tenant", default="")
+    sp.add_argument("--priority", default=None,
+                    help="low|normal|high or an integer (capped at "
+                         "the tenant's class)")
+    sp.add_argument("--job-id", type=int, default=None)
+    sp.add_argument("--wait", action="store_true",
+                    help="poll until the terminal result and exit "
+                         "by its status")
+    sp.add_argument("--timeout", type=float, default=600.0,
+                    help="--wait timeout seconds")
+    sp.add_argument("--retries", type=int, default=0,
+                    help="resubmit after a retryable 429 refusal up "
+                         "to N times, sleeping the gateway's "
+                         "jittered Retry-After hint between tries")
+    sp.set_defaults(fn=cmd_submit)
+
+    sp = sub.add_parser(
+        "queue",
+        help="ticket-queue maintenance: fsck runs the backend's "
+             "integrity audit (sqlite PRAGMA integrity_check + WAL "
+             "checkpoint, spool orphan-sidefile sweep) and prints "
+             "per-state counts; exit 1 on findings")
+    qsub = sp.add_subparsers(dest="queue_cmd", required=True)
+    qp = qsub.add_parser(
+        "fsck", help="audit a queue backend's on-disk state")
+    qp.add_argument("url",
+                    help="queue URL: sqlite:<path>, spool:<dir>, or "
+                         "a bare spool directory path")
+    qp.set_defaults(fn=cmd_queue)
+
+    sp = sub.add_parser(
+        "blob",
+        help="content-addressed artifact store: put/get blobs by "
+             "sha256 (local --root or a gateway --url, verified "
+             "both ends), gc unreferenced objects, print stats")
+    bsub = sp.add_subparsers(dest="blob_cmd", required=True)
+
+    def _blob_common(bp):
+        bp.add_argument("--root", default="",
+                        help="local store dir (default: "
+                             "TPULSAR_BLOB_ROOT or <spool>/blobs)")
+        bp.add_argument("--url", default="",
+                        help="gateway base URL — route through its "
+                             "/v1/blobs/<digest> API instead of a "
+                             "local store (default: "
+                             "TPULSAR_DATA_URL)")
+        bp.add_argument("--token", default="",
+                        help="bearer token for --url puts (default: "
+                             "TPULSAR_GATEWAY_TOKEN)")
+
+    bp = bsub.add_parser("put", help="ingest files; print "
+                                     "'<sha256>  <path>' per file")
+    bp.add_argument("files", nargs="+")
+    bp.add_argument("--ref", default="",
+                    help="also pin a named reference on each blob "
+                         "(local store only; gc keeps referenced "
+                         "objects)")
+    _blob_common(bp)
+    bp.set_defaults(fn=cmd_blob)
+    bp = bsub.add_parser("get", help="fetch one blob, verified "
+                                     "against its digest")
+    bp.add_argument("digest")
+    bp.add_argument("--out", default="",
+                    help="destination path (default: the digest's "
+                         "first 12 hex chars in the cwd)")
+    _blob_common(bp)
+    bp.set_defaults(fn=cmd_blob)
+    bp = bsub.add_parser(
+        "gc", help="drop unreferenced objects older than --ttl and "
+                   "orphaned ingest temps (local store only)")
+    bp.add_argument("--ttl", type=float, default=7 * 86400.0,
+                    help="age floor in seconds before an "
+                         "unreferenced object is collected")
+    _blob_common(bp)
+    bp.set_defaults(fn=cmd_blob)
+    bp = bsub.add_parser("stats", help="object/byte counts")
+    _blob_common(bp)
+    bp.set_defaults(fn=cmd_blob)
+
+    sp = sub.add_parser(
+        "index",
+        help="persistent candidate index: rebuild from the done "
+             "outdirs' parse, fsck the sqlite file, or query "
+             "candidates without touching any outdir")
+    isub = sp.add_subparsers(dest="index_cmd", required=True)
+
+    def _index_common(ip):
+        ip.add_argument("--spool", default=None,
+                        help="spool dir (default: the serve spool); "
+                             "the index lives at "
+                             "<spool>/candidates.db")
+        ip.add_argument("--queue", default="",
+                        help="route reads through this ticket-queue "
+                             "backend URL ('sqlite' expands to "
+                             "sqlite:<spool>/queue.db)")
+
+    ip = isub.add_parser(
+        "rebuild", help="re-derive every row from the done outdirs "
+                        "(outdirs are the source of truth; the "
+                        "index is only their cache)")
+    _index_common(ip)
+    ip.set_defaults(fn=cmd_index)
+    ip = isub.add_parser("fsck", help="integrity-check + WAL "
+                                      "checkpoint; exit 1 on damage")
+    _index_common(ip)
+    ip.set_defaults(fn=cmd_index)
+    ip = isub.add_parser(
+        "query", help="the indexed /v1/candidates answer, from the "
+                      "CLI")
+    ip.add_argument("--ticket", default="",
+                    help="restrict to one ticket id")
+    ip.add_argument("--min-sigma", type=float, default=0.0)
+    ip.add_argument("--limit", type=int, default=200)
+    _index_common(ip)
+    ip.set_defaults(fn=cmd_index)
+
     return p
 
 

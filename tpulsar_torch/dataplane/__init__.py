@@ -1,3 +1,3 @@
-"""The data plane — counterpart of tpulsar/dataplane/: so far the
-persistent candidate index (index.py).  The blob store and its
-transfer client are not ported yet."""
+"""The data plane — counterpart of tpulsar/dataplane/: the
+content-addressed blob store (blobstore.py), its HTTP client
+(transfer.py) and the persistent candidate index (index.py)."""

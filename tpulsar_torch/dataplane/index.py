@@ -1,8 +1,8 @@
 """Persistent candidate index — the query half of the data plane;
 counterpart of tpulsar/dataplane/index.py (a copy, with the outdir
 parse of the JAX package's frontdoor/results.py ``_candidate_rows``
-carried here as ``candidate_rows``; the gateway that queries the
-index is not ported yet).
+carried here as ``candidate_rows``, which frontdoor/results.py
+reuses).
 
 Before this module ``/v1/candidates`` re-parsed every done ticket's
 ``*.accelcands`` files on every query (frontdoor/results.py): O(beams

@@ -1,7 +1,7 @@
 """The pluggable TicketQueue interface: the ticket lifecycle as a
 contract, not a directory layout — counterpart of
 tpulsar/frontdoor/queue.py (a copy of the interface, the spool and
-the in-memory backends; the sqlite backend is not ported yet).
+the in-memory backends; the sqlite backend is sqlite_queue.py).
 
 The serve spool is an exactly-once ticket protocol on a shared
 filesystem; this module extracts that lifecycle behind an interface
@@ -43,9 +43,9 @@ tests/test_frontdoor.py and tests/test_torch_serve.py):
 ``get_ticket_queue`` resolves backend URLs: a bare path or
 ``spool:<dir>`` is the filesystem backend; ``memory:`` or
 ``memory:<name>`` a (named, process-global) in-memory queue;
-``sqlite:<path>`` the JAX package's durable WAL-mode SQLite backend
-(frontdoor/sqlite_queue.py), which this package does not have yet: it
-is refused by name.
+``sqlite:<path>`` the durable WAL-mode SQLite backend
+(frontdoor/sqlite_queue.py) — same contract, no shared-filesystem
+assumption.
 """
 
 from __future__ import annotations
@@ -883,18 +883,22 @@ def memory_queue(name: str = "") -> MemoryTicketQueue:
 
 def get_ticket_queue(url: str) -> TicketQueue:
     """Backend resolution: ``memory:`` / ``memory:<name>`` -> the
-    named in-memory queue; ``spool:<dir>`` or a bare directory path ->
-    the filesystem spool backend; ``sqlite:<path>`` raises
-    NotImplementedError naming frontdoor/sqlite_queue.py."""
+    named in-memory queue; ``sqlite:<path>`` -> the durable SQLite
+    backend; ``spool:<dir>`` or a bare directory path -> the
+    filesystem spool backend."""
     if url.startswith("memory:"):
         return memory_queue(url[len("memory:"):].lstrip("/"))
     if url == "memory":
         return memory_queue()
     if url.startswith("sqlite:"):
-        raise NotImplementedError(
-            "tpulsar_torch has no sqlite ticket queue yet: it needs "
-            "frontdoor/sqlite_queue.py, a later slice of the port "
-            "(use spool:<dir> or memory:)")
+        # imported lazily: sqlite_queue imports this module for the
+        # TicketQueue base class
+        from tpulsar_torch.frontdoor import sqlite_queue
+        path = url[len("sqlite:"):]
+        if not path:
+            raise ValueError("sqlite ticket-queue url needs a "
+                             "database path (sqlite:<path>)")
+        return sqlite_queue.SQLiteTicketQueue(path)
     if url.startswith("spool:"):
         url = url[len("spool:"):]
     if not url:

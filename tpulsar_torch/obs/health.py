@@ -1,7 +1,10 @@
-"""The per-worker flight recorder — counterpart of the
-``FlightRecorder`` half of tpulsar/obs/health.py (the health doctor,
-its detector loop and the alert rules of obs/alerts.py are not ported
-yet).
+"""The per-worker flight recorder and the alert-snapshot reader —
+counterpart of the ``FlightRecorder`` half of tpulsar/obs/health.py
+and of its ``read_active_alerts`` (what the gateway's
+``GET /v1/alerts`` serves).  The health doctor, its detector loop and
+the alert rules of obs/alerts.py are not ported yet, so nothing in
+this package writes ``alerts.json``: the gateway reports the doctor
+absent unless a JAX-package detector runs on the same root.
 
 The flight recorder is the per-worker black box: a bounded in-memory
 ring of recent journal appends / heartbeats / claims that is dumped
@@ -29,8 +32,21 @@ import threading
 import time
 
 from tpulsar_torch.resilience import faults
+from tpulsar_torch.serve import protocol
 
+ALERTS_FILE = "alerts.json"
 BLACKBOX_DIR = "blackbox"
+
+
+def alerts_path(root: str) -> str:
+    return os.path.join(root, ALERTS_FILE)
+
+
+def read_active_alerts(root: str) -> dict | None:
+    """The detector's persisted active set (``{"t", "alerts": []}``),
+    or None when no detector has ever run on this root — the
+    distinction the alert-fidelity invariants gate on."""
+    return protocol._read_json(alerts_path(root))
 
 
 class FlightRecorder:

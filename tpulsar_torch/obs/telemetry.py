@@ -10,13 +10,18 @@ whichever package searched it.
     rescued/lost rows and breaker-skipped rows) and the checkpoint
     store record, the tree family's gauges and the batch-of-beams
     families;
-  * the resident server's: the serve family, the spool's queue-op
-    latency, the tenant quota gauge, the retry/backoff/circuit
+  * the resident server's: the serve family, the queue backends'
+    op latency, the tenant quota gauge, the retry/backoff/circuit
     counters of resilience/policy.py;
+  * the front door's (frontdoor/gateway.py and federation.py: the
+    gateway request and submission families, the router's member
+    capacity and routing counters) and the blob data plane's
+    (dataplane/blobstore.py, transfer.py and the server's stage-in:
+    bytes, blob operations, verify failures, transfer seconds);
   * ``event_record``, the one heartbeat/journal event shape.
 
-The fleet, gateway, download, upload, data-plane transfer and
-compile-cache families come with the modules that record them.
+The fleet, download, upload and compile-cache families come with the
+modules that record them.
 stdlib only.
 """
 
@@ -265,6 +270,41 @@ def serve_stagein_seconds() -> metrics.Histogram:
         buckets=STAGE_BUCKETS)
 
 
+#: histogram buckets for gateway HTTP handling: sub-millisecond local
+#: routing up to multi-second federation forwards and staging waits
+GATEWAY_BUCKETS = (0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0, 60.0)
+
+
+def gateway_requests_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_gateway_requests_total",
+        "HTTP requests handled by the front-door gateway, by route "
+        "and response code",
+        labelnames=("route", "code"))
+
+
+def gateway_request_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_gateway_request_seconds",
+        "gateway HTTP handling latency per route (submission "
+        "includes admission checks and the queue write; streaming "
+        "routes observe the full stream duration)",
+        labelnames=("route",), buckets=GATEWAY_BUCKETS)
+
+
+def gateway_submissions_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_gateway_submissions_total",
+        "beam submissions at the gateway by tenant and outcome: "
+        "accepted (ticket written), routed (forwarded to a "
+        "federation member), quota (tenant max_pending refused, "
+        "HTTP 429), backpressure (fleet queue full, HTTP 429), "
+        "load_shed (zero fresh workers / every member shedding, "
+        "HTTP 503), invalid (bad request), error (router: every "
+        "member transport-failed, HTTP 502)",
+        labelnames=("tenant", "outcome"))
+
+
 def frontdoor_quota_deferred() -> metrics.Gauge:
     return metrics.gauge(
         "tpulsar_frontdoor_quota_deferred",
@@ -273,6 +313,24 @@ def frontdoor_quota_deferred() -> metrics.Gauge:
         "(deferred, not dropped: they re-enter ordering as the "
         "tenant's in-flight beams finish)",
         labelnames=("tenant",))
+
+
+def frontdoor_host_capacity() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_frontdoor_host_capacity",
+        "per-member-host advertised admission capacity as last "
+        "polled by the federation router: >0 = accepting, 0 = "
+        "saturated (backpressure), -1 = load-shedding or "
+        "unreachable (routed around)",
+        labelnames=("host",))
+
+
+def frontdoor_routed_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_frontdoor_routed_total",
+        "federation router submissions by member host and outcome "
+        "(ok | error)",
+        labelnames=("host", "outcome"))
 
 
 #: histogram buckets for ticket-queue backend operations: healthy
@@ -290,6 +348,52 @@ def queue_op_seconds() -> metrics.Histogram:
         "vocabulary so an A/B between the spool protocol and the "
         "durable SQLite queue is one PromQL ratio",
         labelnames=("backend", "op"), buckets=QUEUE_OP_BUCKETS)
+
+
+#: histogram buckets for data-plane blob transfers: millisecond-scale
+#: candidate artifacts up to multi-minute beam stage-ins over a
+#: congested link
+DATAPLANE_BUCKETS = (0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0, 60.0,
+                     300.0)
+
+
+def dataplane_bytes_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_dataplane_bytes_total",
+        "bytes moved through the content-addressed blob store, by op "
+        "(put = ingested writes incl. dedup hits, get = reads served "
+        "to stage-in/fetch callers)",
+        labelnames=("op",))
+
+
+def dataplane_blobs_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_dataplane_blobs_total",
+        "blob-store operations by op and outcome: put "
+        "(stored | dedup | error), get (hit | miss | error), gc "
+        "(collected | kept) — verify failures count as error here "
+        "AND in tpulsar_dataplane_verify_failures_total",
+        labelnames=("op", "outcome"))
+
+
+def dataplane_verify_failures_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_dataplane_verify_failures_total",
+        "content-integrity failures in the data plane: bytes whose "
+        "re-hash disagreed with their address (torn/corrupt object, "
+        "tampered transfer) — the paper's verify-after-write "
+        "discipline; alert at ANY sustained rate",
+        labelnames=("where",))       # store | transfer | stagein
+
+
+def dataplane_transfer_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_dataplane_transfer_seconds",
+        "wall seconds per blob transfer, by op (put | get) — local "
+        "CAS I/O and HTTP blob-route streams observe the same "
+        "series, so a congested data plane shows as the histogram "
+        "tail walking right",
+        labelnames=("op",), buckets=DATAPLANE_BUCKETS)
 
 
 STREAM_LATENCY_BUCKETS = (0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0,

@@ -45,8 +45,13 @@ Stream mode (``stream=True``, ``serve --stream``): the loop claims
 ``kind: "stream"`` session tickets instead of beams and runs each
 through the streaming plane (stream/worker.py) on the server's
 device, and boot warms one stream emission at STREAM_PROFILE instead
-of the beam search.  Refused by name (NotImplementedError): the blob
-data plane (``TPULSAR_DATA_URL`` / ``TPULSAR_BLOB_ROOT``).
+of the beam search.
+
+The data plane: a ticket's ``blobs`` refs are staged by digest
+(serve/stagein.py), and a finished beam's ``*.accelcands`` are pushed
+into the CAS — the gateway's at ``TPULSAR_DATA_URL``, else a local
+store at ``TPULSAR_BLOB_ROOT`` — and indexed with their digests
+before its result record is written (``_publish_result``).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ import torch
 # circular-import guard when queue.py is the first module loaded.
 from tpulsar_torch import native, resolve_device
 from tpulsar_torch.cli import search_job
+from tpulsar_torch.dataplane import blobstore, transfer
 from tpulsar_torch.dataplane import index as dp_index
 from tpulsar_torch.frontdoor import queue as frontdoor_queue
 from tpulsar_torch.frontdoor.tenancy import TenantPolicy
@@ -108,13 +114,6 @@ class SearchServer:
                  batch_linger_s: float = 2.0,
                  stream: bool = False,
                  beam_fn=None, batch_fn=None, logger=None, device=None):
-        for knob in ("TPULSAR_DATA_URL", "TPULSAR_BLOB_ROOT"):
-            if os.environ.get(knob):
-                raise NotImplementedError(
-                    f"tpulsar_torch serve cannot publish to the blob "
-                    f"data plane yet ({knob} is set): it needs "
-                    f"dataplane/blobstore.py and dataplane/transfer.py, "
-                    f"a later slice of the port")
         #: where every beam runs: the GPU unless the caller asks for
         #: the CPU (refused here, before anything is claimed, when
         #: there is no GPU)
@@ -130,10 +129,10 @@ class SearchServer:
         self.claim_policy = claim_policy
         self.cfg = cfg
         self.spool = spool or protocol.default_spool_dir(cfg)
-        #: the ticket backend (``serve --queue spool:<dir>`` or
-        #: ``memory:``; ``sqlite:`` is refused by name): claims,
-        #: results, heartbeats, and requeues all route through it; the
-        #: spool stays the worker's scratch/log/metrics-snapshot root
+        #: the ticket backend (``serve --queue spool:<dir>``,
+        #: ``memory:`` or ``sqlite:<db>``): claims, results,
+        #: heartbeats, and requeues all route through it; the spool
+        #: stays the worker's scratch/log/metrics-snapshot root
         self.queue = frontdoor_queue.get_ticket_queue(
             queue_url or f"spool:{self.spool}")
         #: journal root (== spool for the spool backend and a
@@ -742,33 +741,67 @@ class SearchServer:
         exists to carry it."""
         return cuda_dd.COMPILES["misses"]
 
-    def _publish_result(self, tid: str, outdir: str) -> None:
-        """Candidate-index publication for a finished beam: the
-        index rows are written before the result record that makes
-        them observable.  (The JAX package also pushes the sifted
-        artifacts into its blob store here; the blob data plane is
-        refused at construction.)
+    def _publish_result(self, tid: str, outdir: str) -> dict:
+        """Data-plane publication for a finished beam: push the sifted
+        ``*.accelcands`` artifacts into the CAS (HTTP to
+        TPULSAR_DATA_URL, or a local TPULSAR_BLOB_ROOT store, pinned
+        under the ticket id) and write the candidate index rows — so
+        by the time the result record is observable, ``/v1/candidates``
+        answers from the index and the bytes are fetchable by digest
+        from any host.  Returns extras for the result record
+        ({"artifacts": {name: sha256}} when anything was pushed).
 
-        A failed index write degrades, never fails the beam: the
-        search succeeded and the outdir holds the truth; the index is
-        rebuilt from the outdirs (CandidateIndex.rebuild)."""
+        Publication failures degrade, never fail the beam: the search
+        succeeded and the outdir holds the truth — the gateway falls
+        back to the legacy parse, and the warning names what to
+        re-push/reindex."""
+        import glob as globmod
+
+        extras: dict = {}
+        paths = (sorted(globmod.glob(
+            os.path.join(outdir, "*.accelcands")))
+            if outdir and os.path.isdir(outdir) else [])
+        url = os.environ.get("TPULSAR_DATA_URL", "")
+        root = "" if url else os.environ.get("TPULSAR_BLOB_ROOT", "")
+        artifacts: dict[str, str] = {}
+        if paths and (url or root):
+            try:
+                for path in paths:
+                    if url:
+                        digest = transfer.put_file(url, path)
+                    else:
+                        store = blobstore.BlobStore(root)
+                        digest = store.put_file(path)
+                        store.add_ref(digest, tid)
+                    artifacts[os.path.basename(path)] = digest
+            except Exception as e:      # noqa: BLE001 — degrade loud
+                self.log.warning(
+                    "ticket %s: artifact push failed (%s) — results "
+                    "stay on disk, re-push with `blob put`", tid, e)
+                artifacts = {}
+        if artifacts:
+            extras["artifacts"] = artifacts
+            self._journal("artifact_push", {"ticket": tid},
+                          blobs=len(artifacts))
         try:
             dp_index.CandidateIndex(
                 dp_index.index_path(self.jroot)).index_outdir(
-                    tid, outdir, {})
+                    tid, outdir, artifacts)
         except Exception as e:          # noqa: BLE001 — degrade loud
             self.log.warning(
-                "ticket %s: candidate index write failed (%s) — "
-                "CandidateIndex.rebuild recovers", tid, e)
+                "ticket %s: candidate index write failed (%s) — the "
+                "gateway will parse the outdir; `index rebuild` "
+                "recovers", tid, e)
+        return extras
 
     def _finish(self, tid: str, status: str, t0: float, outdir: str,
                 error: str = "", **extra) -> None:
         dt = time.time() - t0
         if status == "done":
-            # the index rides the SAME durable step as the result:
-            # rows written before the record that makes them
-            # observable
-            self._publish_result(tid, outdir)
+            # the data plane rides the SAME durable step as the
+            # result: artifacts pushed + index rows written before the
+            # record that makes them observable
+            extra.update(self._publish_result(tid, outdir))
         # a beam is warm when it compiled nothing: the steady state
         # this subsystem exists to reach (failed beams are labelled
         # by their measured compile traffic too — a deadline kill

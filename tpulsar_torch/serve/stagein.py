@@ -21,10 +21,13 @@ that one job failed and keeps serving — a poisoned input must not
 kill the worker.
 
 Spool-less stage-in: a ticket may carry ``blobs`` (a
-``{filename: sha256}`` map) instead of shared-disk paths, which the
-JAX package pulls by digest from its blob data plane.  This package
-does not have the data plane yet: such a ticket fails its own
-stage-in, with an error naming it, and the worker keeps serving.
+``{filename: sha256}`` map) instead of shared-disk paths — the worker
+then pulls each file BY DIGEST from the data plane (the gateway CAS
+at the ticket's ``data_url`` / the ``TPULSAR_DATA_URL`` knob, or a
+local ``TPULSAR_BLOB_ROOT`` store), verified against its address on
+arrival.  Every fetch passes the ``stagein.fetch`` fault point, and a
+failed fetch is contained exactly like a missing shared-disk file:
+one stagein_failed beam, a worker that keeps serving.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import numpy as np
 
 from tpulsar_torch.obs import telemetry
 from tpulsar_torch.obs.log import get_logger
+from tpulsar_torch.resilience import faults
 
 
 @dataclasses.dataclass
@@ -64,16 +68,51 @@ class PreparedBeam:
 
 
 def _stage_blobs(ticket: dict, workdir: str) -> list[str]:
-    """A ticket's ``blobs`` refs ({filename: sha256}) are fetched by
-    digest from the JAX package's blob data plane
-    (dataplane/blobstore.py and dataplane/transfer.py), which this
-    package does not have yet: refused by name.  prepare_beam turns
-    the refusal into this ticket's stage-in failure; the server
-    stays up."""
-    raise NotImplementedError(
-        "tpulsar_torch cannot stage a ticket's blobs: refs yet: the "
-        "blob data plane (dataplane/blobstore.py and "
-        "dataplane/transfer.py) is a later slice of the port")
+    """Resolve a ticket's ``blobs`` refs ({filename: sha256}) into
+    local files under ``workdir/stagein/`` and return their paths.
+
+    Source resolution: the ticket's own ``data_url`` beats the
+    ``TPULSAR_DATA_URL`` knob (HTTP fetch from the gateway CAS, digest
+    re-verified on arrival); with neither set, a local blob store at
+    ``TPULSAR_BLOB_ROOT`` serves the bytes directly.  No source at all
+    is a configuration error — raised, so it lands on the contained
+    stagein_failed path rather than half-staging a beam.
+
+    Each fetch passes the ``stagein.fetch`` fault point: errno mode
+    models a dead data plane (the fetch fails, the beam fails, the
+    worker survives), delay mode a congested one."""
+    from tpulsar_torch.dataplane import blobstore, transfer
+
+    blobs = dict(ticket.get("blobs") or {})
+    url = str(ticket.get("data_url", "")
+              or os.environ.get("TPULSAR_DATA_URL", ""))
+    root = "" if url else blobstore.default_blob_root("")
+    if not url and not root:
+        raise RuntimeError(
+            "ticket carries blobs: refs but no data plane is "
+            "configured (set TPULSAR_DATA_URL or TPULSAR_BLOB_ROOT)")
+    dest_dir = os.path.join(workdir, "stagein")
+    os.makedirs(dest_dir, exist_ok=True)
+    store = blobstore.BlobStore(root) if root else None
+    fetched: list[str] = []
+    for fname, digest in sorted(blobs.items()):
+        digest = blobstore.check_digest(str(digest))
+        dest = os.path.join(dest_dir, os.path.basename(str(fname)))
+        faults.fire("stagein.fetch", make_exc=faults.io_error,
+                    detail=f"{os.path.basename(str(fname))} "
+                           f"{digest[:12]}")
+        t0 = time.time()
+        if store is not None:
+            store.fetch_to(digest, dest)
+            nbytes = os.path.getsize(dest)
+        else:
+            nbytes = transfer.get_to_file(url, digest, dest)
+        dt = time.time() - t0
+        telemetry.dataplane_transfer_seconds().observe(dt, op="stagein")
+        telemetry.dataplane_bytes_total().inc(float(nbytes),
+                                              op="stagein")
+        fetched.append(dest)
+    return fetched
 
 
 def prepare_beam(ticket: dict, workdir_base: str | None = None,
@@ -91,7 +130,9 @@ def prepare_beam(ticket: dict, workdir_base: str | None = None,
     try:
         datafiles = ticket["datafiles"]
         if ticket.get("blobs"):
-            # spool-less path (by-digest refs): refused by name
+            # spool-less path: materialise by-digest refs first, then
+            # stage the fetched local copies exactly like shared-disk
+            # inputs — downstream never knows the difference
             datafiles = _stage_blobs(ticket, workdir)
         ppfns, zap = search_job.prepare_inputs(
             datafiles, workdir, cfg=cfg)
