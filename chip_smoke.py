@@ -10,9 +10,11 @@ these phases:
   1. kernels: each kernel against its plain PyTorch version on the
      card, exact, at every shape of the main path (stage 1 at each
      downsample, stage 2 at each DM chunk and at the one row that
-     refinement dedisperses, and stage 2's beam axis at B = 2 at each
-     DM chunk, also against two B = 1 launches), with times and
-     bounds; and which stages after dedispersion give a row the same
+     refinement dedisperses), with times and bounds; then at phase
+     7's shapes (two BATCH_NSAMP beams): the coalesced and the solo
+     stage 1 at each downsample, stage 2's beam axis at B = 2 at each
+     DM chunk of the plan at that length, also against two B = 1
+     launches, timed, and refinement's one row; and which stages after dedispersion give a row the same
      bits inside a two-beam batch of rows as alone (the reason the
      batch path runs them per beam);
   2. hi stage: the FDAS stage on one full-width ds-1 DM chunk of
@@ -85,13 +87,17 @@ these phases:
      outdir's copy, and that the served beam launched each kernel
      exactly as often as phase 4; it prints the blob PUT, the
      stage-in and beam_seconds.
-  7. batch: two tickets for the beam into two output directories,
-     answered by `python -m tpulsar_torch serve --once --batch 2` in a
-     subprocess on the card (the same wrapper).  It checks that both
-     are done on the batched path in one batch_dispatch event, warm,
-     that both results directories and both checkpoints' artifacts
-     equal phase 4's, the pulsar in both, and that stage 1 launched
-     once a pass for the group and stage 2's beam axis once a chunk.
+  7. batch, on a shorter beam of its own (the cut that keeps the
+     smoke inside its time limit): the Mock geometry at a quarter of
+     NSAMP (983,040 samples; 960 channels, the 57-pass Mock survey
+     plan), searched solo by search_beam with a checkpoint directory,
+     then two tickets for it into two output directories, answered by
+     `python -m tpulsar_torch serve --once --batch 2` in a subprocess
+     on the card (the same wrapper).  It checks that both are done on
+     the batched path in one batch_dispatch event, warm, that both
+     results directories and both checkpoints' artifacts equal the
+     solo search's, the pulsar in both, and that stage 1 launched once
+     a pass for the group and stage 2's beam axis once a chunk.
   8. stream: the streaming plane (tpulsar_torch/stream/) on a Mock
      real-time session (960 channels, 65.476 us, 1024 DMs over 0-1000,
      12 chunks of 16384 samples, spans of 4 chunks; seeded noise and
@@ -115,8 +121,34 @@ these phases:
      cleaned, the triggers read back through
      `GET /v1/stream/<s>/triggers` with the control's digest.
 
-Phases 4-7 search with the zaplist the job picks under the default
-configuration (the packaged default.zaplist), as the server does.
+  9. pipeline (run after phase 7, on phase 4's beam): the
+     orchestration daemons, each a `python -m tpulsar_torch`
+     subprocess under one configuration file (TPULSAR_CONFIG: the
+     tracker DB, download.datadir, the results directory and DB, the
+     local queue backend with one job at a time and two attempts, and
+     PIPELINE_JOB, the port's job with plots off and its launches
+     counted, as jobpooler.submit_script).  `downloader --once` fetches
+     the beam from a local archive (restore request, location and
+     fetch, size check; the fetch's seconds printed); `jobpool --once`
+     makes one job and submits it into {base}/{mjd}/{obs_name}/{beam}/
+     {yymmdd}; once its checkpoint holds passes 0..K_RESUME-1,
+     `kill-jobs --fail` kills its process group (submit stopped, job
+     failed, no workspace left); `jobpool --once` retries it into the
+     same directory, where it resumes from the checkpoint: the passes
+     it computes (metrics.json) and its launches are those the
+     checkpoint lacked (expected_launches), its stderr file empty;
+     `jobpool --once` marks it processed; the results equal phase 4's
+     (the backend's stderr files aside), the pulsar folded, the
+     checkpoint cleaned; `uploader --once` uploads it (one headers
+     row, a pdm_candidates row per .accelcands row with the pulsar
+     among them, the single-pulse rows, >= 5 diagnostics; the seconds
+     by tpulsar_upload_seconds category), a second upload inserts
+     nothing, `status` and `show uploading` print the tracker's state,
+     and `remove-files` drops the downloaded copy.
+
+Phases 4-7 and 9 search with the zaplist the job picks under the
+default configuration (the packaged default.zaplist), as the server
+does.
 
 Output: progress lines, then the card's name and power limit, one JSON
 line with every kernel's numbers, and as the last line
@@ -134,6 +166,7 @@ import os
 import re
 import shutil
 import signal
+import sqlite3
 import statistics
 import subprocess
 import sys
@@ -143,6 +176,7 @@ import time
 import warnings
 
 import threading
+import types
 
 import numpy as np
 import torch
@@ -177,6 +211,12 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32, outside tensor cores
 #: the full Mock beam (bench.py geometry)
 NCHAN, TSAMP, NSAMP = 960, 65.476e-6, 3_932_160
 PSR_PERIOD, PSR_DM = 0.25, 50.0
+#: phase 7's beam: the Mock geometry (960 channels, 65.476 us, 4-bit,
+#: the 57-pass Mock survey plan) at a quarter of NSAMP, so that the
+#: smoke stays inside its time limit (phase 4 holds the full beam).
+#: An eighth (32 s of data) is too short for the pulsar check: the
+#: strongest candidate near the pulsar was 0.8% off in period.
+BATCH_NSAMP = NSAMP // 4
 #: the configuration of the main path: the JAX package's default search
 PARAMS = executor.SearchParams(make_plots=False)
 #: phase 5 resumes the beam at this pass of the 57-pass plan
@@ -190,6 +230,16 @@ SOLO_KERNELS = ("form_subbands", "dedisperse_subbands")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: the smoke's start, for the phase marks
+T_START = time.time()
+
+
+def mark(phase: str) -> None:
+    """A progress line with the seconds since the smoke started (the
+    budget each phase takes of the time limit)."""
+    log(f"[{time.time() - T_START:.1f} s] {phase}")
 
 
 def card_line() -> str:
@@ -316,13 +366,14 @@ def _stage2_entry(subb, rows_sh, regs, ds: int, launches: int | None,
                 blocks_per_sm=occ)
 
 
-def _stage2_beams_entry(subb, rows_sh, regs, ds: int) -> dict:
+def _stage2_beams_entry(sub3, rows_sh, regs, ds: int,
+                        launches: int) -> dict:
     """Stage 2's beam axis at B = 2 on one shift table: exact against
     its plain version and against two B = 1 launches; time, bound.
-    Beam 1's subbands are beam 0's rolled along time, so a launch that
-    ignored the beam axis would not pass."""
-    sub3 = torch.stack([subb, torch.roll(subb, 4099, dims=1)])
-    nrows, T = rows_sh.shape[0], subb.shape[1]
+    The two beams' subbands come from different data (phase 1's block
+    and that block rolled along time), so a launch that ignored the
+    beam axis would not pass."""
+    nrows, T = rows_sh.shape[0], sub3.shape[2]
     launch = cuda_dd.stage2_launch(rows_sh)
     got = cuda_dd.dedisperse_subbands_beams(sub3, rows_sh)
     want = cuda_dd.dedisperse_subbands_beams_plain(sub3, rows_sh)
@@ -335,7 +386,7 @@ def _stage2_beams_entry(subb, rows_sh, regs, ds: int) -> dict:
     del want
     for b in range(2):
         if not torch.equal(got[b], cuda_dd.dedisperse_subbands(
-                sub3[b].contiguous(), rows_sh)):
+                sub3[b], rows_sh)):
             raise AssertionError(f"stage-2 beam axis: beam {b} differs "
                                  f"from its B = 1 launch ({nrows} rows, "
                                  f"ds={ds})")
@@ -349,12 +400,72 @@ def _stage2_beams_entry(subb, rows_sh, regs, ds: int) -> dict:
     log(f"kernel dedisperse_subbands_beams B=2 x {nrows} rows x {T} "
         f"(ds={ds}): exact vs plain and vs two B=1 launches (max|err| "
         f"{err}), {ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms "
-        f"({by}), share {b / ms:.3f}")
+        f"({by}), share {b / ms:.3f}, {launches} launches a group")
     return dict(beams=2, rows=nrows, ds=ds, role="batch chunk",
-                span=launch.span, launches=None, max_abs_err=err, ms=ms,
-                plain_ms=plain, bound_ms=b, bound_by=by,
+                span=launch.span, launches=launches, max_abs_err=err,
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                 groups=launch.groups, group_rows=launch.rows,
                 registers=nreg)
+
+
+def _batch_shapes_entries(data, freqs: np.ndarray, plan, regs: dict
+                          ) -> list[dict]:
+    """Phase 7's kernel shapes, exact against the plain versions: two
+    BATCH_NSAMP beams (data's first BATCH_NSAMP samples, and those
+    rolled along time) stacked as the batch path stacks them.  Per
+    plan step, the coalesced stage 1 on (2 x NCHAN, BATCH_NSAMP) and
+    the solo stage 1 on one beam (its launch bit-equal to the first
+    half of the coalesced one); per DM-chunk shape of the plan at
+    BATCH_NSAMP, the beam axis (_stage2_beams_entry, which also holds
+    the solo B = 1 launches at that shape); and refinement's one row
+    at ds 1.  Returns the beam axis's entries, each with its launches
+    for a group of two from the plan."""
+    nsamp = BATCH_NSAMP
+    _, nb2 = plan_shapes(plan, nsamp, PARAMS)
+    stacked = torch.cat([data[:, :nsamp],
+                         torch.roll(data[:, :nsamp], 4099, dims=1)])
+    one = stacked[:NCHAN]
+    s2b = []
+    for step in plan:
+        ds = step.downsamp
+        ppass = step.passes()[-1]
+        dms = np.asarray(ppass.dms)
+        ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, ppass.subdm, dms,
+                                            TSAMP, ds)
+        tiled = np.tile(np.asarray(ch_sh), 2)
+        got = cuda_dd.form_subbands(stacked, tiled, 2 * 96, ds)
+        want = cuda_dd.form_subbands_plain(stacked, tiled, 2 * 96, ds)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"stage-1 kernel differs from its plain version on two "
+                f"stacked beams of {nsamp} samples at ds={ds}: max |err| "
+                f"{float((got - want).abs().max())}")
+        del want
+        if not torch.equal(cuda_dd.form_subbands(one, ch_sh, 96, ds),
+                           got[:96]):
+            raise AssertionError(f"stage 1 on one beam of {nsamp} "
+                                 f"samples differs from the coalesced "
+                                 f"launch's first beam at ds={ds}")
+        sub3 = got.reshape(2, 96, got.shape[1])
+        shapes = [k for k in nb2 if k[1] == ds]
+        for nrows, _ in shapes:
+            s2b.append(_stage2_beams_entry(sub3, sub_sh[-nrows:], regs,
+                                           ds, nb2[(nrows, ds)]))
+        log(f"phase 7's shapes at ds={ds}: stage 1 on 2 x {NCHAN} x "
+            f"{nsamp} (coalesced) and {NCHAN} x {nsamp} (solo) exact; "
+            f"beam axis at {[k[0] for k in shapes]} rows")
+        del got, sub3
+    ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, PSR_DM, [PSR_DM],
+                                        TSAMP, 1)
+    subb = cuda_dd.form_subbands(one, ch_sh, 96, 1)
+    _check_stage2(subb, sub_sh, f"refinement's one row at {nsamp} "
+                                f"samples")
+    del subb, stacked, one
+    if sum(x["launches"] for x in s2b) != sum(nb2.values()):
+        raise AssertionError(f"beam-axis shapes {[x['rows'] for x in s2b]}"
+                             f" miss chunks of the plan {nb2}")
+    return s2b
 
 
 def batch_rows_report(subb, rows_sh, ds: int) -> dict:
@@ -393,13 +504,13 @@ def kernel_phase(data, freqs: np.ndarray, regs: dict):
     """Each kernel against its plain version at every shape the Mock
     plan launches, and stage 2 at the one row refinement dedisperses
     (ds 1, the pulsar's DM), exact; per shape the time, bound and
-    share of the bound; stage 2's beam axis at B = 2 at every search
-    chunk shape.  Returns the per-shape lists (stage 1, stage 2, stage
+    share of the bound; then phase 7's shapes (_batch_shapes_entries),
+    stage 2's beam axis timed at each.  Returns the per-shape lists (stage 1, stage 2, stage
     2 at B = 2) and the batch-rows report; their per-beam launch counts
     are completed from the main path's outcome."""
     plan = ddplan.survey_plan("pdev")
     n1, n2 = plan_shapes(plan, NSAMP, PARAMS)
-    s1, s2, s2b, rows_report = [], [], [], {}
+    s1, s2, rows_report = [], [], {}
     for step in plan:
         # the step's last pass: its widest shifts (shifts > 0 reach the
         # edge clamp at the series' end)
@@ -436,7 +547,6 @@ def kernel_phase(data, freqs: np.ndarray, regs: dict):
         (nrows, _), = [k for k in n2 if k[1] == ds]
         s2.append(_stage2_entry(got, sub_sh[-nrows:], regs, ds,
                                 n2[(nrows, ds)], "search chunk"))
-        s2b.append(_stage2_beams_entry(got, sub_sh[-nrows:], regs, ds))
         if ds in (1, 5):
             rows_report[ds] = batch_rows_report(got, sub_sh[-nrows:], ds)
         del got
@@ -449,6 +559,7 @@ def kernel_phase(data, freqs: np.ndarray, regs: dict):
     s2.append(_stage2_entry(subb, sub_sh, regs, 1, None,
                             "refinement, one row"))
     del subb
+    s2b = _batch_shapes_entries(data, freqs, plan, regs)
     return s1, s2, s2b, rows_report
 
 
@@ -1139,7 +1250,8 @@ class CallClock:
         return False
 
 
-def checkpoint_cost(ckdir: str, clock: CallClock) -> dict:
+def checkpoint_cost(ckdir: str, clock: CallClock,
+                    what: str = "phase 4") -> dict:
     """Artifacts and bytes the manifest records, by kind, and the
     manifest's own size."""
     doc = ckpt.read_manifest(ckdir)
@@ -1156,13 +1268,15 @@ def checkpoint_cost(ckdir: str, clock: CallClock) -> dict:
                 manifest_bytes=os.path.getsize(ckpt.manifest_path(ckdir)),
                 save_s=clock.seconds, save_calls=clock.calls)
     if not ckpt.verify_root(ckdir)["ok"]:
-        raise AssertionError("phase 4's checkpoint does not verify")
+        raise AssertionError(f"{what}: the checkpoint does not verify")
     return cost
 
 
-def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan) -> dict:
+def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan,
+                    what: str = "phase 4") -> dict:
     """Phase 4: search_beam at the default configuration with a
-    checkpoint directory."""
+    checkpoint directory (and phase 7's solo search of its shorter
+    beam, labelled `what`)."""
     ck4 = os.path.join(tmp, "ck4")
     torch.cuda.reset_peak_memory_stats()
     cuda_dd.reset_counts()
@@ -1175,15 +1289,16 @@ def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan) -> dict:
     wall = time.time() - t0
     launches = dict(cuda_dd.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log(f"search_beam (SearchParams(make_plots=False), checkpoint_dir "
-        f"set) wall {wall:.3f} s; {out.num_dm_trials} DM trials; peak "
-        f"device memory {peak / 2**30:.3f} GiB; masked fraction "
+    log(f"{what}: search_beam (SearchParams(make_plots=False), "
+        f"checkpoint_dir set) wall {wall:.3f} s; {out.num_dm_trials} DM "
+        f"trials; peak device memory {peak / 2**30:.3f} GiB; masked "
+        f"fraction "
         f"{out.masked_fraction:.4f}")
     stages = dict(out.timers.times)
     stages["other"] = wall - sum(stages.values())
     log("stage seconds: " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}))
-    cost = checkpoint_cost(ck4, clock)
+    cost = checkpoint_cost(ck4, clock, what)
     log(f"checkpoint: {cost['artifacts']} artifacts, {cost['bytes']} "
         f"bytes ({json.dumps(cost['by_kind'])}); {cost['save_s']:.3f} s "
         f"in store.save over {cost['save_calls']} calls "
@@ -1209,8 +1324,8 @@ def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan) -> dict:
     if out.num_dm_trials != ntrials:
         raise AssertionError("DM trial count differs from the plan")
     check_hi_stage(ntrials)
-    check_pulsar(out.resultsdir, out.basenm, "phase 4")
-    log(f"phase 4: {len(out.folded)} folded, {len(out.refined_dms)} DM "
+    check_pulsar(out.resultsdir, out.basenm, what)
+    log(f"{what}: {len(out.folded)} folded, {len(out.refined_dms)} DM "
         f"groups refined, {len(out.sp_events)} SP events")
     hi_bound = hi_beam_bound_ms(plan, nsamp)
     hi_s = stages["hi-accelsearch"]
@@ -1770,14 +1885,38 @@ def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
                 peak_bytes=counts["peak_bytes"])
 
 
-def batch_phase(fns: list[str], tmp: str, nsamp: int, plan,
-                p4: dict) -> dict:
-    """Phase 7: `serve --once --batch 2` answers two tickets for the
-    beam as one coalesced group in a subprocess on the card."""
+
+def write_beam(outdir: str, nsamp: int) -> list[str]:
+    """The smoke's synthesized Mock beam of nsamp samples (one pulsar),
+    written on the card in slabs; logs its size and seconds."""
+    t0 = time.time()
+    fns = synth.synth_beam_slabs(
+        outdir, mock_spec(nsamp),
+        pulsars=[synth.PulsarSpec(period_s=PSR_PERIOD, dm=PSR_DM,
+                                  width_frac=0.1, snr_per_sample=0.1)],
+        device=DEV)
+    log(f"wrote {os.path.basename(fns[0])}: {NCHAN} ch x {nsamp} "
+        f"samples, 4-bit, {os.path.getsize(fns[0]) / 1e9:.3f} GB in "
+        f"{time.time() - t0:.1f} s")
+    return fns
+
+
+def batch_phase(tmp: str, plan) -> dict:
+    """Phase 7: `serve --once --batch 2` answers two tickets for a
+    beam of BATCH_NSAMP samples as one coalesced group in a subprocess
+    on the card, held against a solo search_beam of the same beam
+    (with a checkpoint directory) searched in this phase."""
     from tpulsar_torch.obs import journal
 
-    outs = {t: os.path.join(tmp, f"batch_{t}") for t in ("b0", "b1")}
-    run = run_server(tmp, "batch", {t: (fns, o) for t, o in outs.items()},
+    nsamp = BATCH_NSAMP
+    qtmp = os.path.join(tmp, "batch")
+    log(f"phase 7: a beam of {nsamp} samples (NSAMP / 4; channels, "
+        f"nsub and plan unchanged)")
+    fns = write_beam(os.path.join(qtmp, "beam"), nsamp)
+    solo = main_path_phase(fns, qtmp, nsamp, plan, what="phase 7 solo")
+    outs = {t: os.path.join(qtmp, f"batch_{t}") for t in ("b0", "b1")}
+    run = run_server(qtmp, "batch",
+                     {t: (fns, o) for t, o in outs.items()},
                      args=("--batch", "2"))
     spool, recs, counts = run["spool"], run["recs"], run["counts"]
     for t, r in recs.items():
@@ -1798,28 +1937,29 @@ def batch_phase(fns: list[str], tmp: str, nsamp: int, plan,
                                           "result"], "phase 7")
               for t in outs}
     diff = results_diff().diff_results
-    p4_ck = ckpt.read_manifest(p4["ckdir"])["entries"]
+    solo_ck = ckpt.read_manifest(solo["ckdir"])["entries"]
     for t, out in outs.items():
-        problems = diff(out, p4["resultsdir"])
+        problems = diff(out, solo["resultsdir"])
         if problems:
             raise AssertionError(f"phase 7: {t}'s results differ from "
-                                 f"phase 4's: " + "; ".join(problems[:10]))
+                                 f"the solo search's: "
+                                 + "; ".join(problems[:10]))
         kept = ckpt.read_manifest(out + ".checkpoint")
         entries = kept["entries"] if kept else {}
         if {k: e["sha256"] for k, e in entries.items()} != \
-                {k: e["sha256"] for k, e in p4_ck.items()}:
+                {k: e["sha256"] for k, e in solo_ck.items()}:
             raise AssertionError(
-                f"phase 7: {t}'s checkpoint artifacts differ from phase "
-                f"4's: " + ", ".join(sorted(
-                    k for k in set(entries) | set(p4_ck)
+                f"phase 7: {t}'s checkpoint artifacts differ from the "
+                f"solo search's: " + ", ".join(sorted(
+                    k for k in set(entries) | set(solo_ck)
                     if entries.get(k, {}).get("sha256")
-                    != p4_ck.get(k, {}).get("sha256")))[:500])
-        check_pulsar(out, p4["basenm"], f"phase 7 {t}")
+                    != solo_ck.get(k, {}).get("sha256")))[:500])
+        check_pulsar(out, solo["basenm"], f"phase 7 {t}")
     npass = sum(1 for _ in _passes(plan))
     s1, s2 = (sum(n.values()) for n in plan_shapes(plan, nsamp, PARAMS))
-    nref = p4["n2"].get((1, 1), 0) - plan_shapes(plan, nsamp, PARAMS)[1] \
+    nref = solo["n2"].get((1, 1), 0) - plan_shapes(plan, nsamp, PARAMS)[1] \
         .get((1, 1), 0)
-    per_beam1 = sum(p4["n1"].values()) - s1       # refinement + folds
+    per_beam1 = sum(solo["n1"].values()) - s1       # refinement + folds
     want = {"form_subbands": s1 + 2 * per_beam1,
             "dedisperse_subbands": 2 * nref,
             "dedisperse_subbands_beams": s2}
@@ -1834,25 +1974,473 @@ def batch_phase(fns: list[str], tmp: str, nsamp: int, plan,
         raise AssertionError(f"phase 7: launch counts {served} != "
                              f"expected {want}")
     log(f"phase 7: b0's and b1's results directories and checkpoint "
-        f"artifacts ({len(p4_ck)}) equal phase 4's; journal chains "
-        f"{json.dumps(chains)}")
+        f"artifacts ({len(solo_ck)}) equal the solo search's; journal "
+        f"chains {json.dumps(chains)}")
     beam_s = {t: recs[t]["beam_seconds"] for t in outs}
     log(f"phase 7: boot {counts['boot_seconds']:.3f} s; beam_seconds b0 "
-        f"{beam_s['b0']:.3f} s, b1 {beam_s['b1']:.3f} s (phase 4 "
-        f"search_beam {p4['wall_s']:.3f} s); stage-in b0 "
+        f"{beam_s['b0']:.3f} s, b1 {beam_s['b1']:.3f} s (solo "
+        f"search_beam {solo['wall_s']:.3f} s); stage-in b0 "
         f"{stagein_seconds(spool, 'b0')} s, b1 "
         f"{stagein_seconds(spool, 'b1')} s; peak device memory after boot "
         f"{counts['peak_bytes'] / 2**30:.3f} GiB; server process "
         f"{run['wall_s']:.3f} s")
     stages = report_stages(os.path.join(outs["b0"],
-                                        f"{p4['basenm']}.report"))
+                                        f"{solo['basenm']}.report"))
     log("phase 7 stage seconds (b0's .report: the group's plan loop, "
-        "then b0's own finish), b0 / phase 4: "
-        + json.dumps({k: [v, round(p4["stages"].get(k, 0.0), 2)]
+        "then b0's own finish), b0 / solo: "
+        + json.dumps({k: [v, round(solo["stages"].get(k, 0.0), 2)]
                       for k, v in stages.items()}))
     return dict(launches=served, want=want, beam_s=beam_s,
                 wall_s=run["wall_s"], boot_s=counts["boot_seconds"],
-                peak_bytes=counts["peak_bytes"], stages=stages)
+                peak_bytes=counts["peak_bytes"], stages=stages,
+                nsamp=nsamp, solo_wall_s=solo["wall_s"])
+
+
+#: the per-beam job of phase 9 (its jobpooler.submit_script runs this
+#: file): the port's job, `search_job.main()` with its defaults (the
+#: card, the configuration of TPULSAR_CONFIG), with plots turned off as
+#: phase 4 searches (the card's machine has no matplotlib).  Nothing
+#: but a real error may reach stderr (the local backend reads a
+#: non-empty stderr file as a failed job), so warnings go to stdout,
+#: and stdout goes to a log beside the attempt's record.  At exit,
+#: however the job ends (a kill's TERM unwinds it through SystemExit),
+#: it writes the attempt's record to $SMOKE_ATTEMPTS/<pid>.json: start
+#: and end times, exit code, the kernels' launch counts (from 0 at the
+#: process start) and what expected_launches needs of the outcome.
+PIPELINE_JOB = r"""
+import os, sys, time, warnings
+t_start = time.time()
+attempts = os.environ["SMOKE_ATTEMPTS"]
+log = open(os.path.join(attempts, "%d.log" % os.getpid()), "a")
+os.dup2(log.fileno(), 1)
+sys.stdout = os.fdopen(1, "w", buffering=1)
+warnings.showwarning = lambda m, c, f, l, *a, **k: print(
+    warnings.formatwarning(m, c, f, l), end="", file=sys.stdout)
+import dataclasses, json
+from tpulsar_torch.cli import search_job
+from tpulsar_torch.kernels import cuda_dd
+from tpulsar_torch.search import executor
+
+from_config = executor.SearchParams.from_config
+executor.SearchParams.from_config = classmethod(
+    lambda cls, s: dataclasses.replace(from_config(s), make_plots=False))
+run_search = search_job.run_search
+seen = {}
+
+
+def recorded(*a, **k):
+    t0 = time.time()
+    out = run_search(*a, **k)
+    seen["run_search_s"] = time.time() - t0
+    if out is not None:
+        seen["refined_dms"] = [float(d) for d in out.refined_dms]
+        seen["fold_dms"] = [float(c.dm) for c in
+                            out.candidates[:len(out.folded)]]
+    return out
+
+
+search_job.run_search = recorded
+rc = None
+try:
+    rc = search_job.main([])
+except SystemExit as e:
+    rc = e.code
+    raise
+finally:
+    rec = dict(seen, pid=os.getpid(), rc=rc, t_start=t_start,
+               t_end=time.time(), launches=dict(cuda_dd.LAUNCHES))
+    with open(os.path.join(attempts, "%d.json" % os.getpid()), "w") as fh:
+        json.dump(rec, fh)
+sys.exit(rc)
+"""
+
+
+def pipeline_setup(tmp: str) -> dict:
+    """Phase 9's configuration (python; the card's machine may have no
+    YAML parser): every path under tmp, the local queue backend with
+    one job at a time, two attempts, PIPELINE_JOB as the submit script;
+    its environment, and the CLI as a command."""
+    root = os.path.join(tmp, "pipe")
+    attempts = os.path.join(root, "attempts")
+    os.makedirs(attempts)
+    job_py = os.path.join(root, "job.py")
+    with open(job_py, "w") as fh:
+        fh.write(PIPELINE_JOB)
+    script = os.path.join(root, "job.sh")
+    with open(script, "w") as fh:
+        fh.write(f"#!/bin/sh\nexec {sys.executable} {job_py}\n")
+    os.chmod(script, 0o755)
+    cfg = os.path.join(root, "cfg.py")
+    doms = {"processing": {"base_working_directory": f"{root}/work",
+                           "base_results_directory": f"{root}/res"},
+            "basic": {"log_dir": f"{root}/logs"},
+            # the disk budget is the phase's business, not the card
+            # machine's free space: no floor under it
+            "download": {"datadir": f"{root}/raw", "min_free_space": 0},
+            "background": {"jobtracker_db": f"{root}/jt.db"},
+            "resultsdb": {"url": f"{root}/results.db"},
+            "jobpooler": {"queue_manager": "local",
+                          "max_jobs_running": 1, "max_attempts": 2,
+                          "submit_script": script}}
+    with open(cfg, "w") as fh:
+        for dom, kv in doms.items():
+            fh.write(f"{dom} = {kv!r}\n")
+    env = dict(os.environ, TPULSAR_CONFIG=cfg, SMOKE_ATTEMPTS=attempts,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("TPULSAR_FAULTS", None)
+    return dict(root=root, cfg=cfg, env=env, attempts=attempts,
+                db=f"{root}/jt.db", results_db=f"{root}/results.db",
+                archive=os.path.join(root, "archive"),
+                localq=f"{root}/work/.localq")
+
+
+def pipeline_cli(pipe: dict, *args, timeout: float = 300) -> tuple:
+    """`python -m tpulsar_torch ARGS` under phase 9's configuration;
+    raises unless it exits 0; returns (stdout, seconds)."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "tpulsar_torch", *args],
+                         env=pipe["env"], capture_output=True, text=True,
+                         timeout=timeout)
+    dt = time.time() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 9: `{' '.join(args)}` exited "
+                             f"{res.returncode}:\n{res.stdout[-2000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    return res.stdout, dt
+
+
+def _wait_for(pred, what: str, timeout_s: float, poll_s: float = 0.2):
+    t0 = time.time()
+    while not pred():
+        if time.time() - t0 > timeout_s:
+            raise AssertionError(f"phase 9: {what} (after {timeout_s} s)")
+        time.sleep(poll_s)
+    return time.time() - t0
+
+
+def _group_alive(pgid: int) -> bool:
+    try:
+        os.killpg(pgid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def _attempt_records(attempts: str) -> list[dict]:
+    recs = []
+    for name in os.listdir(attempts):
+        if name.endswith(".json"):
+            with open(os.path.join(attempts, name)) as fh:
+                recs.append(json.load(fh))
+    return sorted(recs, key=lambda r: r["t_start"])
+
+
+def _present_passes(ckdir: str) -> list[int]:
+    doc = ckpt.read_manifest(ckdir) or {}
+    return sorted(int(k[5:]) for k in (doc.get("entries") or {})
+                  if k.startswith("pass_"))
+
+
+def pipeline_phase(fns: list[str], tmp: str, nsamp: int, plan,
+                   p4: dict) -> dict:
+    """Phase 9: the beam through the orchestration daemons, each a
+    `python -m tpulsar_torch` subprocess under one configuration:
+    `downloader --once` fetches it from a local archive; `jobpool
+    --once` makes one job and submits the port's job (PIPELINE_JOB)
+    through the local backend; once the job's checkpoint holds passes
+    0..K_RESUME-1, `kill-jobs --fail` kills its process group;
+    `jobpool --once` retries it into the same output directory, where
+    it resumes from the checkpoint; `jobpool --once` marks it
+    processed; `uploader --once` writes it to the results DB, and a
+    second upload inserts nothing."""
+    from tpulsar_torch.io import datafile
+    from tpulsar_torch.orchestrate.jobtracker import JobTracker
+
+    pipe = pipeline_setup(tmp)
+    du = shutil.disk_usage(tmp)
+    log(f"phase 9: disk {du.free / 1e9:.1f} GB free of "
+        f"{du.total / 1e9:.1f} GB before the pipeline (the download and "
+        f"the job's workspace each take a copy of the "
+        f"{os.path.getsize(fns[0]) / 1e9:.3f} GB beam)")
+    # the archive: the beam hard-linked into <archive>/pool/ (the local
+    # restore service hard-links it again into the request's directory)
+    os.makedirs(os.path.join(pipe["archive"], "pool"))
+    for fn in fns:
+        os.link(fn, os.path.join(pipe["archive"], "pool",
+                                 os.path.basename(fn)))
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+
+    # 1. fetch
+    t = JobTracker(pipe["db"])
+    iters = []
+    for _ in range(5):
+        out, dt = pipeline_cli(pipe, "downloader", "--once",
+                               "--remote-root", pipe["archive"])
+        iters.append(dt)
+        if t.count("files", "downloaded") == len(fns):
+            break
+    if t.count("files", "downloaded") != len(fns):
+        raise AssertionError(f"phase 9: not downloaded after "
+                             f"{len(iters)} iterations: "
+                             f"{[dict(r) for r in t.query('SELECT * FROM files')]}")
+    files = t.query("SELECT * FROM files")
+    att = t.query("SELECT details FROM download_attempts "
+                  "WHERE status='complete'")
+    fetch_s = [float(re.search(r"downloaded in ([\d.]+)s",
+                               a["details"]).group(1)) for a in att]
+    for row in files:
+        if os.path.getsize(row["filename"]) != row["size"] or \
+                row["size"] != os.path.getsize(fns[0]):
+            raise AssertionError(f"phase 9: size of {row['filename']}")
+    log(f"phase 9 fetch: {len(iters)} `downloader --once` iterations "
+        f"({', '.join(f'{x:.3f}' for x in iters)} s: restore request, "
+        f"location and fetch, size check); the "
+        f"{files[0]['size'] / 1e9:.3f} GB fetch took "
+        f"{', '.join(f'{x:.1f}' for x in fetch_s)} s (the download "
+        f"attempt's own clock), size verified")
+
+    # 2. submit
+    out, dt = pipeline_cli(pipe, "jobpool", "--once")
+    jobs = t.query("SELECT * FROM jobs")
+    subs = t.query("SELECT * FROM job_submits")
+    if len(jobs) != 1 or jobs[0]["status"] != "submitted" or \
+            len(subs) != 1:
+        raise AssertionError(f"phase 9: jobs {[dict(j) for j in jobs]}")
+    job_id, sub1 = jobs[0]["id"], subs[0]
+    outdir = sub1["output_dir"]
+    obj = datafile.autogen_dataobj([r["filename"] for r in files])
+    want_dir = os.path.join(f"{pipe['root']}/res",
+                            str(int(obj.timestamp_mjd)), obj.obs_name,
+                            str(obj.beam_id), time.strftime("%y%m%d"))
+    if outdir != want_dir:
+        raise AssertionError(f"phase 9: output dir {outdir} != "
+                             f"{want_dir}")
+    with open(os.path.join(pipe["localq"],
+                           f"{sub1['queue_id']}.json")) as fh:
+        q1 = json.load(fh)
+    pgid = q1["pid"]                 # started in a session of its own
+    log(f"phase 9: `jobpool --once` ({dt:.3f} s) made job {job_id} and "
+        f"submitted it as {sub1['queue_id']} into "
+        f"{os.path.relpath(outdir, pipe['root'])} "
+        f"({{base}}/{{mjd}}/{{obs_name}}/{{beam}}/{{yymmdd}})")
+
+    # 3. kill, once the checkpoint holds passes 0..K_RESUME-1
+    ckdir = ckpt.default_root(outdir)
+    mark = f"pass_{K_RESUME - 1:04d}"
+
+    def ready():
+        if os.path.exists(q1["rc_file"]):
+            raise AssertionError("phase 9: the first attempt ended "
+                                 "before the kill")
+        doc = ckpt.read_manifest(ckdir) or {}
+        return mark in (doc.get("entries") or {})
+
+    waited = _wait_for(ready, f"the checkpoint never named {mark}", 900)
+    t_kill = time.time()
+    out, kill_s = pipeline_cli(pipe, "kill-jobs", "--fail", str(job_id))
+    if f"job {job_id} -> failed" not in out:
+        raise AssertionError(f"phase 9: kill-jobs said {out!r}")
+    gone_s = _wait_for(lambda: not _group_alive(pgid),
+                       "the killed job's process group lives on", 180)
+    st = t.query("SELECT status FROM job_submits WHERE id=?",
+                 [sub1["id"]], fetchone=True)["status"]
+    js = t.query("SELECT status FROM jobs WHERE id=?", [job_id],
+                 fetchone=True)["status"]
+    if (st, js) != ("stopped", "failed"):
+        raise AssertionError(f"phase 9: after the kill submit {st}, "
+                             f"job {js}")
+    kept = _present_passes(ckdir)
+    first = len(kept)
+    if kept != list(range(first)) or first < K_RESUME:
+        raise AssertionError(f"phase 9: checkpoint passes after the kill "
+                             f"{kept}")
+    leaks = [n for n in os.listdir(f"{pipe['root']}/work")
+             if n.startswith("tpulsar_")]
+    log(f"phase 9: {mark} durable {waited:.1f} s after the submit; "
+        f"`kill-jobs --fail` ({kill_s:.3f} s); the process group gone "
+        f"{gone_s:.1f} s after it; submit stopped, job failed; the "
+        f"checkpoint holds passes 0..{first - 1}; workspaces left "
+        f"{leaks}")
+    if leaks:
+        raise AssertionError(f"phase 9: the killed job left {leaks}")
+
+    # 4. retry and resume
+    out, dt = pipeline_cli(pipe, "jobpool", "--once")
+    subs = t.query("SELECT * FROM job_submits ORDER BY id")
+    if [s["status"] for s in subs] != ["stopped", "running"] or \
+            subs[1]["output_dir"] != outdir:
+        raise AssertionError(f"phase 9: submits after the retry "
+                             f"{[dict(s) for s in subs]}")
+    sub2 = subs[1]
+    with open(os.path.join(pipe["localq"],
+                           f"{sub2['queue_id']}.json")) as fh:
+        q2 = json.load(fh)
+    t_retry = time.time()
+    _wait_for(lambda: os.path.exists(q2["rc_file"]),
+              "the second attempt never finished", 900, poll_s=0.5)
+    retry_wall = time.time() - t_retry
+    polls = 0
+    while t.query("SELECT status FROM jobs WHERE id=?", [job_id],
+                  fetchone=True)["status"] != "processed":
+        polls += 1
+        if polls > 3:
+            raise AssertionError(
+                "phase 9: not processed: " + str(dict(t.query(
+                    "SELECT * FROM job_submits WHERE id=?", [sub2["id"]],
+                    fetchone=True))))
+        pipeline_cli(pipe, "jobpool", "--once")
+    err2 = os.path.join(outdir, f"{sub2['queue_id']}.stderr")
+    if os.path.getsize(err2) != 0:
+        with open(err2) as fh:
+            raise AssertionError(f"phase 9: the second attempt wrote to "
+                                 f"stderr:\n{fh.read()[-3000:]}")
+    recs = _attempt_records(pipe["attempts"])
+    if len(recs) != 2 or recs[1]["rc"] != 0:
+        raise AssertionError(f"phase 9: attempt records {recs}")
+    a1, a2 = recs
+    npass = sum(1 for _ in _passes(plan))
+    with open(os.path.join(outdir, "metrics.json")) as fh:
+        metrics = json.load(fh)
+    passes = metrics["tpulsar_passes_total"]["series"][""]
+    if passes != npass - first:
+        raise AssertionError(f"phase 9: the retry computed {passes} "
+                             f"passes, the checkpoint lacked "
+                             f"{npass - first}")
+    trials = sum(len(pp.dms) for pp in _passes(plan)[first:])
+    if metrics["tpulsar_dm_trials_total"]["series"][""] != trials:
+        raise AssertionError("phase 9: the retry searched another "
+                             "trial count")
+    outcome = types.SimpleNamespace(
+        refined_dms=a2["refined_dms"],
+        candidates=[types.SimpleNamespace(dm=d) for d in a2["fold_dms"]],
+        folded=a2["fold_dms"])
+    n1, n2 = expected_launches(plan, nsamp, outcome, first)
+    want = {"form_subbands": sum(n1.values()),
+            "dedisperse_subbands": sum(n2.values())}
+    got = {k: a2["launches"].get(k, 0) for k in want}
+    if got != want or a2["launches"].get("dedisperse_subbands_beams"):
+        raise AssertionError(f"phase 9: the retry's launches "
+                             f"{a2['launches']} != expected {want}")
+    log(f"phase 9: `jobpool --once` ({dt:.3f} s) resubmitted job "
+        f"{job_id} as {sub2['queue_id']} into the same directory; it "
+        f"resumed at pass {first} and computed {passes:.0f} passes "
+        f"({trials} trials), launches {a2['launches']} as "
+        f"expected_launches gives; its stderr file empty; processed "
+        f"after {polls} more `jobpool --once`")
+    log(f"phase 9 attempts: first {a1['t_end'] - a1['t_start']:.3f} s "
+        f"(start to its exit, killed; rc {a1['rc']}; launches "
+        f"{a1['launches']}), second {a2['t_end'] - a2['t_start']:.3f} s "
+        f"(start to exit, run_search {a2['run_search_s']:.3f} s; rc 0; "
+        f"the backend saw it end {retry_wall:.3f} s after the submit); "
+        f"phase 5's in-process resume at pass {K_RESUME} "
+        f"{p4['resume']['wall_s']:.3f} s")
+
+    # 5. results
+    cmp_dir = os.path.join(pipe["root"], "searched")
+    os.makedirs(cmp_dir)
+    for name in os.listdir(outdir):
+        if not name.endswith(".stderr"):
+            os.link(os.path.join(outdir, name),
+                    os.path.join(cmp_dir, name))
+    problems = results_diff().diff_results(p4["resultsdir"], cmp_dir)
+    if problems:
+        raise AssertionError("phase 9 results differ from phase 4's: "
+                             + "; ".join(problems[:10]))
+    check_pulsar(outdir, p4["basenm"], "phase 9")
+    if os.path.exists(ckdir):
+        raise AssertionError("phase 9: the checkpoint was not cleaned")
+    log(f"phase 9: the job's {len(os.listdir(cmp_dir))} results files "
+        f"equal phase 4's; the checkpoint is cleaned")
+
+    # 6. upload
+    shown, _ = pipeline_cli(pipe, "show", "uploading")
+    if f"\n{sub2['id']} | {job_id} | {outdir[:60]}" not in shown:
+        raise AssertionError(f"phase 9: show uploading: {shown!r}")
+    for line in shown.strip().splitlines():
+        log(f"  show uploading: {line}")
+    out, up_s = pipeline_cli(pipe, "uploader", "--once")
+    js = t.query("SELECT status FROM jobs WHERE id=?", [job_id],
+                 fetchone=True)["status"]
+    if js != "uploaded":
+        raise AssertionError(f"phase 9: after the upload the job is {js}: "
+                             + str(dict(t.query(
+                                 "SELECT * FROM job_submits WHERE id=?",
+                                 [sub2["id"]], fetchone=True))))
+    rows = results_db_rows(pipe["results_db"])
+    with open(os.path.join(outdir, "header.json")) as fh:
+        hdr = json.load(fh)
+    cands = accelcands.parse_candlist(os.path.join(
+        outdir, f"{p4['basenm']}.accelcands"))
+    with np.load(os.path.join(outdir, f"{p4['basenm']}_sp.npz")) as z:
+        nsp = len(z["events"])
+    con = sqlite3.connect(pipe["results_db"])
+    h = con.execute("SELECT source_name, beam_id, version_number "
+                    "FROM headers").fetchall()
+    psr = con.execute(
+        "SELECT period_s, dm, sigma FROM pdm_candidates WHERE "
+        "abs(period_s - ?) < ? AND abs(dm - ?) < 5",
+        (PSR_PERIOD, 1e-3 * PSR_PERIOD, PSR_DM)).fetchall()
+    con.close()
+    if len(h) != 1 or h[0][0] != hdr["source_name"] or \
+            h[0][1] != hdr["beam_id"] or not h[0][2]:
+        raise AssertionError(f"phase 9: headers {h} vs {hdr}")
+    if rows["pdm_candidates"] != len(cands) or not psr:
+        raise AssertionError(f"phase 9: {rows['pdm_candidates']} "
+                             f"candidate rows for {len(cands)} "
+                             f"candidates, pulsar rows {psr}")
+    if rows["sp_candidates"] != min(nsp, 10000) or \
+            rows["diagnostics"] < 5:
+        raise AssertionError(f"phase 9: rows {rows} ({nsp} SP events)")
+    with open(os.path.join(pipe["root"], "logs", "metrics",
+                           "uploader.jsonl")) as fh:
+        snap = json.loads(fh.read().splitlines()[-1])["metrics"]
+    by_cat = {k: v["sum"] for k, v in
+              snap["tpulsar_upload_seconds"]["series"].items()}
+    log(f"phase 9 upload: `uploader --once` {up_s:.3f} s; "
+        f"tpulsar_upload_seconds by category "
+        + json.dumps({k: round(v, 3) for k, v in by_cat.items()})
+        + f"; rows per table {json.dumps(rows)}; header "
+        f"{h[0]}; the pulsar's row(s) {psr}")
+    out, up2_s = pipeline_cli(pipe, "uploader", "--once")
+    if results_db_rows(pipe["results_db"]) != rows:
+        raise AssertionError("phase 9: a second upload inserted rows")
+    status, _ = pipeline_cli(pipe, "status")
+    shown, _ = pipeline_cli(pipe, "show", "uploading")
+    if "jobs: uploaded=1" not in status or \
+            "job_submits: stopped=1, uploaded=1" not in status or \
+            "nothing uploading" not in shown:
+        raise AssertionError(f"phase 9: status {status!r} / show "
+                             f"{shown!r}")
+    for line in status.strip().splitlines():
+        log(f"  status: {line}")
+    # the downloaded copy is the pool's to drop: remove-files
+    for row in files:
+        pipeline_cli(pipe, "remove-files", str(row["id"]))
+        if os.path.exists(row["filename"]):
+            raise AssertionError("phase 9: remove-files kept the file")
+    phase_s = time.time() - t_phase
+    log(f"phase 9: a second `uploader --once` ({up2_s:.3f} s) inserted "
+        f"nothing; the downloaded copy removed; the phase took "
+        f"{phase_s:.1f} s")
+    return dict(launches=a2["launches"], launches_first=a1["launches"],
+                fetch_s=fetch_s, first_s=a1["t_end"] - a1["t_start"],
+                second_s=a2["t_end"] - a2["t_start"], resumed_at=first,
+                passes=passes, upload_s=up_s, upload_by_cat=by_cat,
+                rows=rows, phase_s=phase_s)
+
+
+def results_db_rows(path: str) -> dict:
+    """Rows per table of a results DB."""
+    con = sqlite3.connect(path)
+    try:
+        return {tb: con.execute(f"SELECT COUNT(*) FROM {tb}").fetchone()[0]
+                for tb in ("headers", "pdm_candidates", "pdm_plots",
+                           "sp_candidates", "sp_files", "diagnostics")}
+    finally:
+        con.close()
 
 
 #: phase 8's session: the full Mock beam's geometry as a real-time
@@ -2401,28 +2989,25 @@ def _passes(plan) -> list:
 
 
 def slice_phase(nsamp: int) -> dict:
-    """The read phase and phases 4 to 7 on one synthesized beam."""
+    """The read phase and phases 4 to 7 and 9 on one synthesized beam
+    (phase 7 on a shorter one of its own)."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
-        spec = mock_spec(nsamp)
-        t0 = time.time()
-        fns = synth.synth_beam_slabs(
-            os.path.join(tmp, "beam"), spec,
-            pulsars=[synth.PulsarSpec(period_s=PSR_PERIOD, dm=PSR_DM,
-                                      width_frac=0.1,
-                                      snr_per_sample=0.1)],
-            device=DEV)
-        t_write = time.time() - t0
-        log(f"wrote {os.path.basename(fns[0])}: {NCHAN} ch x {nsamp} "
-            f"samples, 4-bit, {os.path.getsize(fns[0]) / 1e9:.3f} GB in "
-            f"{t_write:.1f} s")
+        fns = write_beam(os.path.join(tmp, "beam"), nsamp)
         plan = ddplan.survey_plan("pdev")
+        mark("read")
         read = read_phase(fns)
+        mark("phase 4: the full beam")
         p4 = main_path_phase(fns, tmp, nsamp, plan)
         p4["read"] = read
+        mark("phase 5: resume")
         p4["resume"] = resume_phase(fns, tmp, nsamp, plan, p4)
+        mark("phase 6: serve through the front door")
         p4["serve"] = serve_phase(fns, tmp, p4)
-        p4["batch"] = batch_phase(fns, tmp, nsamp, plan, p4)
+        mark("phase 7: batch")
+        p4["batch"] = batch_phase(tmp, plan)
+        mark("phase 9: pipeline")
+        p4["pipeline"] = pipeline_phase(fns, tmp, nsamp, plan, p4)
         return p4
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2431,11 +3016,11 @@ def slice_phase(nsamp: int) -> dict:
 def kernel_rows(s1, s2, s2b, n1: dict, n2: dict) -> list[dict]:
     """The kernels line: per shape the main path's launches at that
     shape, per beam the sums over those launches of each time (for
-    the beam axis, per group of two beams: its launches are the batch
-    phase's, one per search chunk)."""
+    the beam axis, per group of two BATCH_NSAMP beams at phase 7's
+    shapes: its launches there are set by _batch_shapes_entries)."""
     for x in s1:
         x["launches"] = n1.get(x["ds"], 0)
-    for x in s2 + s2b:
+    for x in s2:
         x["launches"] = n2.get((x["rows"], x["ds"]), 0)
     rows = []
     for name, shapes, replaces in (
@@ -2504,45 +3089,64 @@ def main() -> None:
     gen.manual_seed(7)
     data = torch.randint(0, 256, (NCHAN, NSAMP), generator=gen,
                          device=DEV, dtype=torch.uint8)
+    mark("phase 1: kernels")
     s1, s2, s2b, _rows_report = kernel_phase(data, freqs, regs)
+    mark("phase 2: hi stage")
     hi = hi_phase(data, freqs)
+    mark("ladder")
     ladder = ladder_phase(hi)
     del hi
     log("ladder: " + json.dumps(ladder))
+    mark("tree")
     tree_phase(data, freqs)
     del data
+    mark("phase 3: small parity")
     small_parity_phase()
 
     nsamp = int(os.environ.get("TPULSAR_SMOKE_NSAMP", NSAMP))
     if nsamp != NSAMP:
         log(f"NSAMP CUT: {nsamp} samples instead of {NSAMP} "
             f"(TPULSAR_SMOKE_NSAMP); channels, nsub and plan unchanged")
+    mark("the beam")
     res = slice_phase(nsamp)
+    mark("phase 8: stream")
     stream = stream_phase()
     rows = kernel_rows(s1, s2, s2b, res["n1"], res["n2"])
     for r in rows:
         # each path counted from 0: the full beam (phase 4), the
         # resumed search (phase 5), the served beam and the served
-        # batch (phases 6 and 7, after each server's boot)
+        # batch (phases 6 and 7, after each server's boot; phase 7's
+        # beams are BATCH_NSAMP long)
         name = r["name"]
         r["launches_resumed"] = res["resume"]["launches"][name]
         r["launches_served"] = res["serve"]["launches"][name]
         r["launches_batch"] = res["batch"]["launches"][name]
+        # the pipeline's job (phase 9): the retried attempt, counted
+        # from its process start, and the killed first attempt's
+        r["launches_pipeline"] = res["pipeline"]["launches"].get(name, 0)
+        r["launches_pipeline_killed"] = res["pipeline"][
+            "launches_first"].get(name, 0)
         # and the served stream session of phase 8 (after boot)
         r["launches_stream"] = stream["launches_served"][name]
+        solo_paths = ("launches", "launches_resumed", "launches_served",
+                      "launches_batch", "launches_pipeline")
         if name == "dedisperse_subbands":
             r["launches"] = res["launches"][name]
-            paths = ("launches", "launches_resumed", "launches_served",
-                     "launches_batch", "launches_stream")
+            paths = solo_paths + ("launches_stream",)
             r["stream"] = {k: v for k, v in stream.items()
                            if k not in ("launches", "launches_served")}
         elif name in SOLO_KERNELS:
             r["launches"] = res["launches"][name]
-            paths = ("launches", "launches_resumed", "launches_served",
-                     "launches_batch")
+            paths = solo_paths
         else:
             r["launches"] = r["launches_batch"]
+            r["batch_nsamp"] = res["batch"]["nsamp"]
             paths = ("launches_batch",)
+            per_shape = sum(x["launches"] for x in r["shapes"])
+            if per_shape != r["launches"]:
+                raise AssertionError(f"{name}: phase 1's shapes carry "
+                                     f"{per_shape} launches, phase 7 "
+                                     f"made {r['launches']}")
         if min(r[k] for k in paths) < 1:
             raise AssertionError(f"{name} never launched on one of its "
                                  f"paths: {[(k, r[k]) for k in paths]}")

@@ -43,6 +43,7 @@ import threading
 import time
 import types
 import urllib.error
+import urllib.parse
 import urllib.request
 
 import numpy as np
@@ -328,6 +329,43 @@ def _mask(obj, roots: tuple[str, ...]):
     return obj
 
 
+def _send_raw(method: str, url: str, data: bytes, headers: dict):
+    """(status, headers, body) of one request with a raw body, sent as
+    urllib sends it, except that the body stops going out once the
+    server has answered: a gateway refuses a PUT without a token or
+    with a malformed digest before it reads the body and closes the
+    connection, and a client still writing a 1 MB body then meets a
+    broken pipe instead of the answer (as urllib's client sometimes
+    did)."""
+    import http.client
+    import select
+
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=30)
+    conn.putrequest(method, u.path + (f"?{u.query}" if u.query else ""))
+    headers = {"Content-Type": "application/x-www-form-urlencoded",
+               **headers, "Content-Length": str(len(data)),
+               "Connection": "close"}
+    for k, v in headers.items():
+        conn.putheader(k, v)
+    conn.endheaders()
+    view = memoryview(data)
+    try:
+        while view:
+            readable, _w, _x = select.select([conn.sock], [conn.sock],
+                                             [], 30)
+            if readable:
+                break                 # answered before the whole body
+            view = view[conn.sock.send(view[:1 << 16]):]
+    except (BrokenPipeError, ConnectionResetError):
+        pass                          # the answer is read below
+    try:
+        resp = conn.getresponse()
+        return resp.status, resp.headers, resp.read()
+    finally:
+        conn.close()
+
+
 class _Script:
     """Records each request's answer: status, the Retry-After and
     WWW-Authenticate headers, and the body (JSON, NDJSON lines, or the
@@ -349,14 +387,17 @@ class _Script:
             else:
                 data = json.dumps(body).encode()
                 headers["Content-Type"] = "application/json"
-        req = urllib.request.Request(url, data=data, method=method,
-                                     headers=headers)
-        try:
-            with urllib.request.urlopen(req, timeout=30) as resp:
-                code, hdrs, payload = resp.status, resp.headers, \
-                    resp.read()
-        except urllib.error.HTTPError as e:
-            code, hdrs, payload = e.code, e.headers, e.read()
+        if raw:
+            code, hdrs, payload = _send_raw(method, url, data, headers)
+        else:
+            req = urllib.request.Request(url, data=data, method=method,
+                                         headers=headers)
+            try:
+                with urllib.request.urlopen(req, timeout=30) as resp:
+                    code, hdrs, payload = resp.status, resp.headers, \
+                        resp.read()
+            except urllib.error.HTTPError as e:
+                code, hdrs, payload = e.code, e.headers, e.read()
         ctype = hdrs.get("Content-Type", "")
         if ctype == "application/json":
             out = json.loads(payload)

@@ -213,11 +213,16 @@ def test_ladder_families_match_the_jax_catalog():
     "tpulsar_dataplane_blobs_total",
     "tpulsar_dataplane_verify_failures_total",
     "tpulsar_dataplane_transfer_seconds",
+    "tpulsar_pool_rotate_seconds",
+    "tpulsar_download_bytes_total",
+    "tpulsar_download_failures_total",
+    "tpulsar_upload_seconds",
+    "tpulsar_uploads_total",
 ])
 def test_front_door_and_data_plane_families_match_the_jax_catalog(name):
-    """The gateway's, the federation router's and the blob data
-    plane's families are in the port's catalog with the JAX catalog's
-    type, help, labels and buckets."""
+    """The gateway's, the federation router's, the blob data plane's
+    and the orchestration daemons' families are in the port's catalog
+    with the JAX catalog's type, help, labels and buckets."""
     from tpulsar.obs import telemetry as jtelemetry
     from tpulsar_torch.obs import telemetry as ttelemetry
 

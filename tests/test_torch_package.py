@@ -48,6 +48,19 @@ import tpulsar_torch.frontdoor.gateway
 import tpulsar_torch.resilience.rescue
 import tpulsar_torch.orchestrate.zaplists
 import tpulsar_torch.orchestrate.transports
+import tpulsar_torch.orchestrate.jobtracker, tpulsar_torch.orchestrate.pool
+import tpulsar_torch.orchestrate.downloader
+import tpulsar_torch.orchestrate.uploader, tpulsar_torch.orchestrate.results_db
+import tpulsar_torch.orchestrate.uploadables
+import tpulsar_torch.orchestrate.diagnostics
+import tpulsar_torch.orchestrate.queue_managers
+import tpulsar_torch.orchestrate.queue_managers.local
+import tpulsar_torch.orchestrate.queue_managers.slurm
+import tpulsar_torch.orchestrate.queue_managers.pbs
+import tpulsar_torch.orchestrate.queue_managers.moab
+import tpulsar_torch.orchestrate.queue_managers.tpu_slice
+import tpulsar_torch.orchestrate.queue_managers.warm
+import tpulsar_torch.obs.alerts, tpulsar_torch.obs.debugflags
 import tpulsar_torch.native, tpulsar_torch.kernels.tree_dd
 import tpulsar_torch.kernels.beam_batch
 import tpulsar_torch.stream, tpulsar_torch.stream.ingest

@@ -1,6 +1,8 @@
 """tpulsar_torch single-pulse search against the JAX package (same
 inputs, made with numpy from a seed)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -110,6 +112,35 @@ def test_singlepulse_file_identical(tmp_path):
     assert (tmp_path / "j").read_bytes() == (tmp_path / "t").read_bytes()
     assert tsp.SP_EVENT_DTYPE == jsp.SP_EVENT_DTYPE
     assert tsp.DEFAULT_WIDTHS == jsp.DEFAULT_WIDTHS
+
+
+def test_beam_singlepulse_files_identical(tmp_path):
+    """A beam's .singlepulse files (the executor's _write_sp_files:
+    events grouped by one stable sort) equal the JAX package's (one
+    scan of every event per DM) byte for byte: the same files, each
+    DM's events in their order in the event list."""
+    from tpulsar.search import executor as jex
+    from tpulsar_torch.search import executor as tex
+
+    rng = np.random.default_rng(5)
+    dms = np.round(rng.uniform(0.0, 500.0, 40), 2)
+    ev = np.zeros(5000, tsp.SP_EVENT_DTYPE)
+    ev["dm"] = dms[rng.integers(0, len(dms), len(ev))]
+    ev["sigma"] = np.round(rng.uniform(5.0, 9.0, len(ev)), 3) + 0.005
+    ev["time_s"] = rng.uniform(0.0, 60.0, len(ev))
+    ev["sample"] = rng.integers(0, 1 << 20, len(ev))
+    ev["downfact"] = rng.integers(1, 30, len(ev))
+    for name, ex in (("j", jex), ("t", tex)):
+        (tmp_path / name).mkdir()
+        ex._write_sp_files(str(tmp_path / name), "b", ev)
+    names = sorted(n for n in os.listdir(tmp_path / "j")
+                   if n.endswith(".singlepulse"))
+    assert len(names) == len(np.unique(dms))
+    assert names == sorted(n for n in os.listdir(tmp_path / "t")
+                           if n.endswith(".singlepulse"))
+    for n in names:
+        assert (tmp_path / "t" / n).read_bytes() == \
+            (tmp_path / "j" / n).read_bytes(), n
 
 
 def test_detrend_estimator_env(monkeypatch):

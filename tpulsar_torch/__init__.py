@@ -32,17 +32,24 @@ own.
 
 from __future__ import annotations
 
-import torch
+#: the results DB's version_number when the tree has no git history
+#: (orchestrate/uploader.py::pipeline_version)
+__version__ = "0.1.0"
 
 DEFAULT_DEVICE = "cuda"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The torch.device an entry point runs on.
 
     None means the default, ``"cuda"``.  A CUDA device is refused with
     a RuntimeError when no GPU is present: running on the CPU is the
-    caller's explicit choice (``device="cpu"``), never a fallback."""
+    caller's explicit choice (``device="cpu"``), never a fallback.
+    (torch is imported here, not with the package, so the control
+    plane — the gateway, the queues, the orchestration daemons —
+    starts without it.)"""
+    import torch
+
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

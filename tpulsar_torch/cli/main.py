@@ -1,6 +1,7 @@
 """The operator CLI — counterpart of tpulsar/cli/main.py.
 
-    python -m tpulsar_torch [--config PATH] <subcommand> [options]
+    python -m tpulsar_torch [--config PATH] [--db PATH] [--debug-*]
+        <subcommand> [options]
 
 Subcommands so far:
 
@@ -24,12 +25,32 @@ Subcommands so far:
   queue   — ``queue fsck`` of a spool or sqlite queue.
   index   — rebuild/fsck/query the candidate index.
 
-The gateway, submit, blob, queue and index commands are control plane:
-they touch no tensor and take no ``--device``; the gateway starts and
-serves on a host with no GPU.  The per-beam job keeps its own entry
-point, ``python -m tpulsar_torch.cli.search_job``.  The JAX CLI's
-other subcommands (downloader, jobpool, uploader, fleet, obs,
-doctor, ...) are not ported yet.
+and the orchestration daemons and their operator commands
+(orchestrate/; the JAX CLI's, with the same tracker DB, results DB and
+flags):
+
+  daemons:   downloader | jobpool | uploader  (``--once`` for one
+             iteration; ``--remote-root`` for the downloader's local
+             archive)
+  bootstrap: init-db
+  ingest:    add-files
+  control:   kill-jobs [--fail], remove-files
+  monitor:   status, show processing|downloading|uploading|failed,
+             stats [--png], monitor [--once]
+  results:   db-shell
+
+The jobpool submits each beam as the per-beam job through the
+configured queue backend (``jobpooler.queue_manager``); the local
+backend's default worker is ``python -m tpulsar_torch.cli.search_job``,
+which runs on the GPU and fails without one (``jobpooler.submit_script``
+names another command, e.g. one adding ``--device cpu``).
+
+Every command but serve is control plane: it touches no tensor,
+takes no ``--device`` and never initializes CUDA; the gateway and the
+daemons start and run on a host with no GPU.  The per-beam job keeps
+its own entry point, ``python -m tpulsar_torch.cli.search_job``.  The
+JAX CLI's other subcommands (fleet, obs, doctor, plan, ...) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +58,10 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
+import traceback
+
+from tpulsar_torch.obs import debugflags
 
 
 def _metrics_dir() -> str:
@@ -389,16 +414,556 @@ def cmd_index(args):
     return 2
 
 
+# ------------------------------------------------ orchestration daemons
+
+def _tracker(args):
+    from tpulsar_torch.orchestrate.jobtracker import JobTracker
+    return JobTracker(args.db) if args.db else JobTracker()
+
+
+def _notify(cfg):
+    """Daemon crash fan-out through the alert notifier plane
+    (obs/alerts.py, spec from TPULSAR_ALERT_NOTIFY): the SMTP-era
+    ErrorMailer is retired — pager/webhook/log routing is one
+    pluggable spec."""
+    from tpulsar_torch.obs import alerts
+
+    try:
+        notifier = alerts.make_notifier(
+            os.environ.get("TPULSAR_ALERT_NOTIFY", "log"))
+    except ValueError as e:
+        print(f"bad TPULSAR_ALERT_NOTIFY ({e}); falling back to log",
+              file=sys.stderr)
+        notifier = alerts.LogNotifier()
+
+    def send(subject, body):
+        try:
+            notifier.notify({"rule": "daemon_error",
+                             "severity": "page", "state": "firing",
+                             "subject": subject, "body": body})
+        except Exception:
+            pass          # notification must never take a daemon down
+    return send
+
+
+def _daemon_loop(name: str, iteration, status, sleep_s: float, notify):
+    """Run a daemon with crash notification and exponential backoff on
+    repeated errors (reference bin/StartDownloader.py:14-36)."""
+    delay_mult = 1
+    while True:
+        try:
+            status()
+            iteration()
+            delay_mult = 1
+        except KeyboardInterrupt:
+            print(f"{name}: interrupted; exiting")
+            return 0
+        except Exception:
+            tb = traceback.format_exc()
+            print(tb, file=sys.stderr)
+            notify(f"{name} crashed", tb)
+            delay_mult = min(delay_mult * 2, 32)
+        _export_metrics(name)
+        time.sleep(sleep_s * delay_mult)
+
+
+def cmd_init_db(args):
+    t = _tracker(args)
+    print(f"job-tracker DB ready at {t.db_path}")
+    return 0
+
+
+def cmd_add_files(args):
+    """Manual ingest (reference bin/add_files.py): register existing
+    files as status 'added' after type/duplicate checks."""
+    from tpulsar_torch.io import datafile
+    t = _tracker(args)
+    added = 0
+    for fn in args.files:
+        fn = os.path.abspath(fn)
+        if not os.path.exists(fn):
+            print(f"skip {fn}: does not exist")
+            continue
+        try:
+            cls = datafile.get_datafile_type([fn])
+        except datafile.DatafileError as e:
+            print(f"skip {fn}: {e}")
+            continue
+        m = cls.fnmatch(fn)
+        if m and m.groupdict().get("beam") == "7":
+            print(f"skip {fn}: beam 7 (pointless to search - reference "
+                  f"pipeline_utils.py:114)")
+            continue
+        dup = t.query(
+            "SELECT id FROM files WHERE filename=? AND status NOT IN "
+            "('failed','terminal_failure','deleted')", [fn], fetchone=True)
+        if dup:
+            print(f"skip {fn}: already tracked")
+            continue
+        t.insert("files", filename=fn, remote_filename=os.path.basename(fn),
+                 size=os.path.getsize(fn), status="added",
+                 details="added manually")
+        added += 1
+    print(f"added {added} files")
+    return 0
+
+
+def _queue_manager_kwargs(cfg) -> dict:
+    """Per-backend constructor kwargs from config (shared by the job
+    pool and kill-jobs)."""
+    state_dir = os.path.join(cfg.processing.base_working_directory,
+                             ".queue_state")
+    qm_kw = {}
+    if cfg.jobpooler.queue_manager == "local":
+        qm_kw = {"max_jobs_running": cfg.jobpooler.max_jobs_running,
+                 "state_dir": os.path.join(
+                     cfg.processing.base_working_directory, ".localq")}
+        if cfg.jobpooler.submit_script:
+            qm_kw["script"] = cfg.jobpooler.submit_script
+    elif cfg.jobpooler.queue_manager in ("slurm", "pbs", "moab"):
+        qm_kw = {"script": cfg.jobpooler.submit_script,
+                 "queue_name": cfg.jobpooler.queue_name,
+                 "max_jobs_running": cfg.jobpooler.max_jobs_running,
+                 "max_jobs_queued": cfg.jobpooler.max_jobs_queued,
+                 "state_file": os.path.join(
+                     state_dir, f"{cfg.jobpooler.queue_manager}.json")}
+        if cfg.jobpooler.queue_manager in ("slurm", "moab"):
+            qm_kw["walltime_per_gb"] = cfg.jobpooler.walltime_per_gb
+    elif cfg.jobpooler.queue_manager == "tpu_slice":
+        hosts = [h.strip() for h in cfg.jobpooler.tpu_hosts.split(",")
+                 if h.strip()]
+        qm_kw = {"hosts": hosts,
+                 "launcher": cfg.jobpooler.tpu_launcher,
+                 "state_file": os.path.join(state_dir, "tpu_slice.json")}
+    elif cfg.jobpooler.queue_manager == "warm":
+        fb = {"max_jobs_running": cfg.jobpooler.max_jobs_running,
+              "state_dir": os.path.join(
+                  cfg.processing.base_working_directory, ".localq")}
+        if cfg.jobpooler.submit_script:
+            fb["script"] = cfg.jobpooler.submit_script
+        qm_kw = {"spool": _serve_spool(cfg),
+                 "max_queue_depth": cfg.jobpooler.serve_queue_depth,
+                 "fallback_kwargs": fb}
+    return qm_kw
+
+
+def _make_pool(args, cfg):
+    from tpulsar_torch.orchestrate.pool import JobPool
+    from tpulsar_torch.orchestrate.queue_managers import get_queue_manager
+    qm = get_queue_manager(cfg.jobpooler.queue_manager,
+                           **_queue_manager_kwargs(cfg))
+    return JobPool(_tracker(args), qm,
+                   cfg.processing.base_results_directory,
+                   max_attempts=cfg.jobpooler.max_attempts,
+                   notify=_notify(cfg),
+                   delete_raw_on_terminal=cfg.basic.delete_rawdata)
+
+
+def cmd_jobpool(args):
+    from tpulsar_torch.config import settings
+    cfg = settings()
+    pool = _make_pool(args, cfg)
+
+    def show():
+        print(f"jobpool status: {pool.status()}")
+
+    if args.once:
+        show()
+        pool.rotate()
+        _export_metrics("jobpool")
+        return 0
+    return _daemon_loop("jobpool", pool.rotate, show,
+                        cfg.background.sleep, _notify(cfg))
+
+
+def cmd_downloader(args):
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.orchestrate import downloader as dl
+    cfg = settings()
+    root = args.remote_root or cfg.download.api_service_url
+    if not root:
+        print("downloader: set --remote-root (local fixture) or "
+              "download.api_service_url", file=sys.stderr)
+        return 2
+    if cfg.download.transport == "http":
+        transport = dl.HTTPTransport(root)
+        service = dl.HTTPRestoreService(root)
+    else:
+        transport = dl.LocalTransport(root)
+        service = dl.LocalRestoreService(root)
+    d = dl.Downloader(_tracker(args), service, transport,
+                      datadir=cfg.download.datadir,
+                      space_to_use=cfg.download.space_to_use,
+                      min_free_space=cfg.download.min_free_space,
+                      numdownloads=cfg.download.numdownloads,
+                      numrestores=cfg.download.numrestores,
+                      numretries=cfg.download.numretries,
+                      request_timeout_hours=cfg.download.request_timeout_hours,
+                      request_numbits=cfg.download.request_numbits,
+                      request_datatype=cfg.download.request_datatype)
+    if args.once:
+        d.run()
+        # finish the transfers this iteration started before exiting
+        d.wait_downloads()
+        print(d.status())
+        _export_metrics("downloader")
+        return 0
+    return _daemon_loop("downloader", d.run,
+                        lambda: print(d.status()),
+                        cfg.background.sleep, _notify(cfg))
+
+
+def cmd_uploader(args):
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.orchestrate.uploader import JobUploader
+    cfg = settings()
+    up = JobUploader(_tracker(args), db_url=cfg.resultsdb.url,
+                     notify=_notify(cfg),
+                     delete_raw_on_upload=cfg.basic.delete_rawdata)
+    if args.once:
+        up.run()
+        _export_metrics("uploader")
+        return 0
+    return _daemon_loop("uploader", up.run, lambda: None,
+                        cfg.background.sleep, _notify(cfg))
+
+
+def cmd_status(args):
+    t = _tracker(args)
+    print("=== tpulsar status ===")
+    for table in ("requests", "files", "jobs", "job_submits"):
+        rows = t.query(
+            f"SELECT status, COUNT(*) c FROM {table} GROUP BY status")
+        counts = ", ".join(f"{r['status']}={r['c']}" for r in rows) or "empty"
+        print(f"{table:>14s}: {counts}")
+    return 0
+
+
+def cmd_show(args):
+    t = _tracker(args)
+    what = args.what
+    queries = {
+        "processing": ("SELECT s.job_id, s.queue_id, s.output_dir, "
+                       "s.updated_at FROM job_submits s "
+                       "WHERE s.status='running'"),
+        "downloading": ("SELECT id, remote_filename, size, updated_at "
+                        "FROM files WHERE status IN "
+                        "('downloading','unverified')"),
+        "uploading": ("SELECT id, job_id, output_dir, updated_at FROM "
+                      "job_submits WHERE status IN "
+                      "('processed','upload_failed')"),
+        "failed": ("SELECT id, status, details, updated_at FROM jobs "
+                   "WHERE status IN ('failed','retrying',"
+                   "'terminal_failure')"),
+    }
+    rows = t.query(queries[what])
+    if not rows:
+        print(f"nothing {what}")
+        return 0
+    cols = rows[0].keys()
+    print(" | ".join(cols))
+    for r in rows:
+        print(" | ".join(str(r[c])[:60] for c in cols))
+    return 0
+
+
+def cmd_kill_jobs(args):
+    """Fail running submissions (reference bin/kill_jobs.py /
+    stop_processing_jobs.py: fail vs polite remove)."""
+    from tpulsar_torch.config import settings
+    cfg = settings()
+    pool = _make_pool(args, cfg)
+    t = pool.t
+    ids = args.job_ids or [r["id"] for r in t.query(
+        "SELECT id FROM jobs WHERE status='submitted'")]
+    for job_id in ids:
+        sub = t.query(
+            "SELECT id sid, queue_id FROM job_submits WHERE job_id=? "
+            "AND status='running'", [job_id], fetchone=True)
+        if sub:
+            pool.qm.delete(sub["queue_id"])
+            t.update("job_submits", sub["sid"], status="stopped",
+                     details="killed by operator")
+        new_status = "failed" if args.fail else "terminal_failure"
+        t.update("jobs", job_id, status=new_status,
+                 details="stopped by operator")
+        print(f"job {job_id} -> {new_status}")
+    return 0
+
+
+def cmd_remove_files(args):
+    t = _tracker(args)
+    for fid in args.file_ids:
+        row = t.query("SELECT * FROM files WHERE id=?", [fid],
+                      fetchone=True)
+        if row is None:
+            print(f"file {fid}: not found")
+            continue
+        if row["filename"] and os.path.exists(row["filename"]):
+            os.remove(row["filename"])
+        t.update("files", fid, status="deleted",
+                 details="removed by operator")
+        print(f"file {fid} deleted")
+    return 0
+
+
+def cmd_stats(args):
+    """Pipeline statistics dashboard (reference
+    bin/show_pipeline_stats.py:12-99): cumulative job counts, restore
+    history, and raw-data disk usage — rendered to a PNG (and printed
+    as text).  --follow re-renders every --interval seconds, the
+    reference's self-updating figure."""
+    if getattr(args, "follow", False):
+        import time as _time
+        args.follow = False
+        try:
+            while True:
+                cmd_stats(args)
+                print(f"-- refreshing every {args.interval:.0f} s "
+                      f"(Ctrl-C to stop) --", flush=True)
+                _time.sleep(args.interval)
+        except KeyboardInterrupt:
+            return 0
+    t = _tracker(args)
+    jobs = t.query("SELECT status, COUNT(*) c FROM jobs GROUP BY status")
+    files = t.query("SELECT status, COUNT(*) c, COALESCE(SUM(size),0) s "
+                    "FROM files GROUP BY status")
+    reqs = t.query("SELECT status, COUNT(*) c FROM requests "
+                   "GROUP BY status")
+    print("jobs:     ", {r["status"]: r["c"] for r in jobs} or "none")
+    print("files:    ", {r["status"]: r["c"] for r in files} or "none")
+    print("requests: ", {r["status"]: r["c"] for r in reqs} or "none")
+    disk_bytes = sum(r["s"] for r in files
+                     if r["status"] in ("downloading", "unverified",
+                                        "downloaded", "added"))
+    print(f"raw data on disk: {disk_bytes / 2**30:.2f} GiB")
+    _print_daemon_metrics()
+
+    if args.png:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        # cumulative created/uploaded/terminal over time
+        created = [r["created_at"] for r in t.query(
+            "SELECT created_at FROM jobs ORDER BY created_at")]
+        uploaded = [r["updated_at"] for r in t.query(
+            "SELECT updated_at FROM jobs WHERE status='uploaded' "
+            "ORDER BY updated_at")]
+        failed = [r["updated_at"] for r in t.query(
+            "SELECT updated_at FROM jobs WHERE status='terminal_failure' "
+            "ORDER BY updated_at")]
+        from datetime import datetime
+
+        def _ts(series):
+            return [datetime.strptime(s, "%Y-%m-%d %H:%M:%S")
+                    for s in series if s]
+
+        fig, axes = plt.subplots(2, 1, figsize=(8, 7))
+        for series, label in ((created, "created"),
+                              (uploaded, "uploaded"),
+                              (failed, "terminal failure")):
+            times = _ts(series)
+            if times:
+                axes[0].step(times, range(1, len(times) + 1),
+                             where="post", label=label)
+        axes[0].set_ylabel("cumulative jobs")
+        axes[0].tick_params(axis="x", rotation=30, labelsize=7)
+        if axes[0].get_legend_handles_labels()[0]:
+            axes[0].legend(loc="upper left", fontsize=8)
+        labels = [r["status"] for r in files]
+        sizes = [r["s"] / 2**30 for r in files]
+        axes[1].bar(labels, sizes, color="0.5")
+        axes[1].set_ylabel("raw data (GiB)")
+        axes[1].tick_params(axis="x", rotation=30)
+        fig.suptitle("tpulsar pipeline stats")
+        fig.tight_layout()
+        fig.savefig(args.png, dpi=100)
+        plt.close(fig)
+        print(f"wrote {args.png}")
+    return 0
+
+
+def _print_daemon_metrics(names: tuple[str, ...] = ()) -> None:
+    """Render the daemons' exported metrics (the .prom files written
+    each loop iteration) — `stats`/`monitor` show live telemetry from
+    processes they are not part of."""
+    import glob
+
+    d = _metrics_dir()
+    paths = sorted(glob.glob(os.path.join(d, "*.prom")))
+    if names:
+        paths = [p for p in paths
+                 if os.path.basename(p).split(".")[0] in names]
+    if not paths:
+        return
+    print(f"--- daemon metrics ({d}) ---")
+    for p in paths:
+        age = time.time() - os.path.getmtime(p)
+        print(f"[{os.path.basename(p).split('.')[0]}] "
+              f"(exported {age:.0f} s ago)")
+        try:
+            with open(p) as fh:
+                for ln in fh:
+                    if ln.startswith("#") or not ln.strip():
+                        continue
+                    print(f"  {ln.rstrip()}")
+        except OSError:
+            continue
+
+
+def cmd_monitor(args):
+    """Live download monitor (reference bin/monitor_downloads.py):
+    refreshes per-file progress until interrupted."""
+    t = _tracker(args)
+    try:
+        while True:
+            rows = t.query(
+                "SELECT id, remote_filename, filename, size, status "
+                "FROM files WHERE status IN ('downloading','unverified',"
+                "'new','retrying')")
+            os.system("clear" if os.name != "nt" else "cls")
+            print(f"=== downloads ({time.strftime('%H:%M:%S')}) ===")
+            if not rows:
+                print("nothing in flight")
+            for r in rows:
+                have = (os.path.getsize(r["filename"])
+                        if r["filename"] and os.path.exists(r["filename"])
+                        else 0)
+                total = r["size"] or 0
+                pct = 100.0 * have / total if total else 0.0
+                bar = "#" * int(pct / 5)
+                print(f"[{r['id']:>4}] {os.path.basename(r['remote_filename'] or '?'):<40.40} "
+                      f"{r['status']:<12} |{bar:<20}| {pct:5.1f}%")
+            _print_daemon_metrics(("downloader",))
+            if args.once:
+                return 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_db_shell(args):
+    """Interactive SQL prompt on the results DB (reference
+    lib/python/database.py:184-224 InteractiveDatabasePrompt, with
+    table-name completion instead of sproc completion)."""
+    import cmd as cmd_mod
+
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.orchestrate.results_db import ResultsDB
+
+    db = ResultsDB(args.url or settings().resultsdb.url)
+    tables = [r["name"] for r in db.execute(
+        "SELECT name FROM sqlite_master WHERE type='table'").fetchall()]
+
+    class Prompt(cmd_mod.Cmd):
+        prompt = "resultsdb> "
+        intro = (f"connected ({', '.join(tables) or 'no tables'}); "
+                 f"'.tables' lists tables, EOF/quit exits")
+
+        def default(self, line):
+            if line.strip() in (".tables", "tables"):
+                print("\n".join(tables))
+                return
+            try:
+                cur = db.execute(line)
+                rows = cur.fetchall()
+            except Exception as e:
+                print(f"error: {e}")
+                return
+            if rows:
+                cols = rows[0].keys()
+                print(" | ".join(cols))
+                for r in rows[:200]:
+                    print(" | ".join(str(r[c])[:40] for c in cols))
+                if len(rows) > 200:
+                    print(f"... {len(rows) - 200} more rows")
+            db.commit()
+
+        def completenames(self, text, *ignored):
+            kw = ["SELECT", "INSERT", "UPDATE", "DELETE", "quit"]
+            return [k for k in kw + tables if k.lower().startswith(
+                text.lower())]
+
+        def do_quit(self, line):
+            return True
+
+        do_EOF = do_quit
+
+    try:
+        Prompt().cmdloop()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        db.close()
+    return 0
+
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tpulsar_torch",
                                 description=__doc__,
                                 formatter_class=argparse.
                                 RawDescriptionHelpFormatter)
+    p.add_argument("--db", default=None, help="job-tracker DB path")
     p.add_argument("--config", default=None, metavar="PATH",
                    help="config file (python or YAML); exported as "
                         "TPULSAR_CONFIG so worker subprocesses load "
                         "the same settings")
+    debugflags.add_cli_flags(p)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    sub.add_parser("init-db").set_defaults(fn=cmd_init_db)
+
+    sp = sub.add_parser("add-files")
+    sp.add_argument("files", nargs="+")
+    sp.set_defaults(fn=cmd_add_files)
+
+    for name, fn in (("jobpool", cmd_jobpool),
+                     ("uploader", cmd_uploader)):
+        sp = sub.add_parser(name)
+        sp.add_argument("--once", action="store_true")
+        sp.set_defaults(fn=fn)
+
+    sp = sub.add_parser("downloader")
+    sp.add_argument("--once", action="store_true")
+    sp.add_argument("--remote-root", default=None)
+    sp.set_defaults(fn=cmd_downloader)
+
+    sub.add_parser("status").set_defaults(fn=cmd_status)
+
+    sp = sub.add_parser("show")
+    sp.add_argument("what", choices=["processing", "downloading",
+                                     "uploading", "failed"])
+    sp.set_defaults(fn=cmd_show)
+
+    sp = sub.add_parser("kill-jobs")
+    sp.add_argument("job_ids", nargs="*", type=int)
+    sp.add_argument("--fail", action="store_true",
+                    help="mark failed (retryable) instead of terminal")
+    sp.set_defaults(fn=cmd_kill_jobs)
+
+    sp = sub.add_parser("remove-files")
+    sp.add_argument("file_ids", nargs="+", type=int)
+    sp.set_defaults(fn=cmd_remove_files)
+
+    sp = sub.add_parser("db-shell")
+    sp.add_argument("--url", default=None,
+                    help="results DB (default: resultsdb.url)")
+    sp.set_defaults(fn=cmd_db_shell)
+
+    sp = sub.add_parser("stats")
+    sp.add_argument("--png", default=None,
+                    help="also render the dashboard to this PNG")
+    sp.add_argument("--follow", action="store_true",
+                    help="re-render every --interval seconds")
+    sp.add_argument("--interval", type=float, default=30.0)
+    sp.set_defaults(fn=cmd_stats)
+
+    sp = sub.add_parser("monitor")
+    sp.add_argument("--interval", type=float, default=2.0)
+    sp.add_argument("--once", action="store_true")
+    sp.set_defaults(fn=cmd_monitor)
 
     sp = sub.add_parser(
         "serve",
@@ -635,6 +1200,7 @@ def main(argv=None) -> int:
 
         os.environ["TPULSAR_CONFIG"] = os.path.abspath(args.config)
         set_settings(load_config(args.config))
+    debugflags.apply_cli_flags(args)
     return args.fn(args)
 
 

@@ -196,11 +196,18 @@ def events_from_topk(snrs, idx, dms: np.ndarray, dt: float,
 
 
 def write_singlepulse_file(path: str, events: np.ndarray, dm: float) -> None:
-    """Write one .singlepulse file (PRESTO-compatible columns)."""
+    """Write one .singlepulse file (PRESTO-compatible columns): the
+    events at `dm`, in their order in `events`."""
+    sel = events[events["dm"] == dm] if len(events) else events
+    write_singlepulse_rows(path, sel)
+
+
+def write_singlepulse_rows(path: str, rows: np.ndarray) -> None:
+    """Write `rows` (SP_EVENT_DTYPE records of one DM) as a .singlepulse
+    file, one line each, in their order."""
+    cols = zip(*(rows[k].tolist() for k in
+                 ("dm", "sigma", "time_s", "sample", "downfact")))
     with open(path, "w") as fh:
         fh.write("# DM      Sigma      Time (s)     Sample    Downfact\n")
-        sel = events[events["dm"] == dm] if len(events) else events
-        for ev in sel:
-            fh.write(f"{ev['dm']:7.2f} {ev['sigma']:10.2f} "
-                     f"{ev['time_s']:13.6f} {ev['sample']:10d} "
-                     f"{ev['downfact']:8d}\n")
+        fh.write("".join(f"{dm:7.2f} {sigma:10.2f} {t:13.6f} {n:10d} "
+                         f"{w:8d}\n" for dm, sigma, t, n, w in cols))

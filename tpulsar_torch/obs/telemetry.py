@@ -208,6 +208,43 @@ def circuit_transitions_total() -> metrics.Counter:
         labelnames=("point", "state"))
 
 
+# the orchestration daemons (orchestrate/)
+
+def pool_rotate_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_pool_rotate_seconds",
+        "job-pool scheduler iteration latency")
+
+
+def download_bytes_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_download_bytes_total",
+        "bytes fetched by completed downloads")
+
+
+def download_failures_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_download_failures_total",
+        "download failures by kind",
+        labelnames=("kind",))        # transfer | verify
+
+
+def upload_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_upload_seconds",
+        "per-category upload timing (the debugflags 'upload' "
+        "summary, aggregated as a histogram)",
+        labelnames=("category",))
+
+
+def uploads_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_uploads_total",
+        "upload attempts by outcome",
+        # uploaded | deferred | failed | error (unexpected exception)
+        labelnames=("outcome",))
+
+
 def heartbeats_total() -> metrics.Counter:
     return metrics.counter(
         "tpulsar_heartbeats_total",
