@@ -146,7 +146,31 @@ these phases:
      nothing, `status` and `show uploading` print the tracker's state,
      and `remove-files` drops the downloaded copy.
 
-Phases 4-7 and 9 search with the zaplist the job picks under the
+  10. fleet (run after phase 7, on phase 7's beam, held against its
+     solo search): a FleetController in this process (its worker
+     command is the smoke's wrapper, so it cannot be the `fleet` CLI)
+     runs two `serve --once` workers on the card over a sqlite queue
+     in its spool (no crash restarts, attempts cap 3, the health
+     doctor hosted).  Both boot and hold; ticket "stolen" is submitted
+     and w0 released, then ticket "own" and w1 released.  Once
+     stolen's checkpoint names pass K_RESUME - 1, w0 is SIGKILLed; the
+     janitor requeues its claim as a takeover and w1 finishes the beam
+     from the checkpoint after its own.  It checks that the controller
+     exits 0, that each ticket is done once by w1 (the stolen one with
+     attempts 1), the journal chains (claimed by w0, takeover from
+     w0, claimed by w1, one terminal event, one trace id), that both
+     results directories equal phase 7's solo search's and fold the
+     pulsar, that w1 launched the kernels exactly as often as one
+     whole beam and the passes the stolen checkpoint lacked require,
+     fleet.json (w0 given up, rc -9), fleet.prom (the beam_e2e SLO
+     from 2 workers, the active alert), the doctor's alert_fired
+     for takeover_rate and alerts.json, GET /v1/alerts through a
+     token'd gateway, `doctor --queue` (exit 1, naming the rule),
+     `fleet --status` and the node probe `doctor`'s device probe; it
+     prints the boots, each beam's beam_seconds, the takeover latency,
+     the resumed passes and the card's peak memory in use.
+
+Phases 4-7, 9 and 10 search with the zaplist the job picks under the
 default configuration (the packaged default.zaplist), as the server
 does.
 
@@ -1477,9 +1501,11 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
 #: device memory right after the server's boot and writes them, with
 #: the boot's own counts, to $SMOKE_COUNTS at exit; keeps a copy of
 #: each checkpoint the job cleans, beside its output directory, as
-#: <outdir>.checkpoint
+#: <outdir>.checkpoint.  With $SMOKE_HOLD set (phase 10's fleet
+#: workers) it also writes the boot's counts to $SMOKE_COUNTS.booted
+#: and claims nothing until the file $SMOKE_HOLD exists
 SERVE_WRAPPER = r"""
-import dataclasses, json, os, runpy, shutil, sys
+import dataclasses, json, os, runpy, shutil, sys, time
 import torch
 from tpulsar_torch import checkpoint
 from tpulsar_torch.kernels import cuda_dd
@@ -1509,6 +1535,12 @@ def counted_boot(self):
     counts["boot_seconds"] = self.boot_seconds
     cuda_dd.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    hold = os.environ.get("SMOKE_HOLD")
+    if hold:
+        with open(os.environ["SMOKE_COUNTS"] + ".booted", "w") as fh:
+            json.dump(counts, fh)
+        while not os.path.exists(hold):
+            time.sleep(0.001)
 
 
 server.SearchServer.boot = counted_boot
@@ -1993,7 +2025,328 @@ def batch_phase(tmp: str, plan) -> dict:
     return dict(launches=served, want=want, beam_s=beam_s,
                 wall_s=run["wall_s"], boot_s=counts["boot_seconds"],
                 peak_bytes=counts["peak_bytes"], stages=stages,
-                nsamp=nsamp, solo_wall_s=solo["wall_s"])
+                nsamp=nsamp, solo_wall_s=solo["wall_s"], fns=fns,
+                solo=solo)
+
+
+def _claims(spool: str, tid: str) -> list[tuple[str, float]]:
+    """(worker, t) of each `claimed` event of a ticket, in order."""
+    from tpulsar_torch.obs import journal
+
+    return [(e.get("worker", ""), e["t"]) for e in journal.read_events(
+        spool, ticket=tid) if e["event"] == "claimed"]
+
+
+def _search_launches(plan, nsamp: int, first: int) -> dict:
+    """The stage-1 and stage-2 launches of the search passes before
+    `first` (what a resume from a checkpoint holding passes
+    0..first-1 does not make)."""
+    a1, a2 = plan_shapes(plan, nsamp, PARAMS)
+    f1, f2 = plan_shapes(plan, nsamp, PARAMS, first)
+    return {"form_subbands": sum(a1.values()) - sum(f1.values()),
+            "dedisperse_subbands": sum(a2.values()) - sum(f2.values())}
+
+
+class DeviceMemoryPeak:
+    """The card's memory in use by every process (total minus free,
+    torch.cuda.mem_get_info), sampled every 0.25 s while active."""
+
+    def __enter__(self):
+        self.peak, self._stop = 0, threading.Event()
+
+        def sample():
+            while not self._stop.is_set():
+                free, total = torch.cuda.mem_get_info()
+                self.peak = max(self.peak, total - free)
+                self._stop.wait(0.25)
+        self._th = threading.Thread(target=sample, daemon=True)
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join()
+
+
+def fleet_phase(tmp: str, plan, p7: dict) -> dict:
+    """Phase 10: the serving fleet on phase 7's beam.  A FleetController
+    (in this process, in a thread: its worker command is SERVE_WRAPPER,
+    which `python -m tpulsar_torch fleet` cannot take) runs two `serve
+    --once` workers on the card over a sqlite queue inside the spool,
+    once=True, no crash restarts, ticket attempts cap 3, its health
+    doctor hosted.  Both workers boot and hold; ticket "stolen" is
+    submitted and w0 released (it claims it), then ticket "own" and w1
+    released.  Once stolen's checkpoint names pass K_RESUME - 1, w0 is
+    SIGKILLed; the janitor requeues the claim as a takeover and w1
+    finishes the beam from the checkpoint after its own.  The doctor's
+    verdict is then read through alerts.json, a gateway's
+    GET /v1/alerts, `doctor --queue`, `fleet --status` and the node
+    probe `doctor`."""
+    from tpulsar_torch.fleet import controller as fleet_ctl
+    from tpulsar_torch.frontdoor import queue as fq
+    from tpulsar_torch.obs import health, journal
+
+    nsamp, fns, solo = p7["nsamp"], p7["fns"], p7["solo"]
+    srv = server_setup(tmp, "fleet")
+    spool = srv["spool"]
+    os.makedirs(spool)
+    queue_url = f"sqlite:{os.path.join(spool, 'queue.db')}"
+    q = fq.get_ticket_queue(queue_url)
+    outs = {t: os.path.join(tmp, f"fleet_{t}") for t in ("stolen", "own")}
+    wids = ("w0", "w1")
+    hold = {w: os.path.join(tmp, f"fleet_go_{w}") for w in wids}
+    counts = {w: os.path.join(tmp, f"fleet_{w}_counts.json") for w in wids}
+
+    def worker_cmd(wid):
+        return srv["cmd"] + ["--worker-id", wid, "--queue", queue_url]
+
+    def worker_env(wid):
+        return dict(srv["env"], SMOKE_COUNTS=counts[wid],
+                    SMOKE_HOLD=hold[wid],
+                    TPULSAR_STAGE_HEARTBEAT=f"{srv['hb']}.{wid}")
+
+    torch.cuda.empty_cache()
+    ctrl = fleet_ctl.FleetController(
+        spool, workers=2, worker_cmd=worker_cmd, worker_env=worker_env,
+        once=True, max_worker_restarts=0, ticket_max_attempts=3,
+        queue=q, poll_s=0.2, drain_timeout_s=120.0)
+    result: dict = {}
+
+    def run():
+        try:
+            result["rc"] = ctrl.run()
+        except BaseException as e:          # re-raised below
+            result["error"] = e
+
+    def wait(pred, what, timeout_s=300.0):
+        t0 = time.time()
+        while not pred():
+            if "error" in result or "rc" in result:
+                raise AssertionError(f"phase 10: the controller stopped "
+                                     f"({result}) while waiting for "
+                                     f"{what}")
+            if time.time() - t0 > timeout_s:
+                raise AssertionError(f"phase 10: {what} (after "
+                                     f"{timeout_s} s)")
+            time.sleep(0.01)
+        return time.time()
+
+    t_phase = time.time()
+    th = threading.Thread(target=run, name="fleet-controller")
+    with DeviceMemoryPeak() as mem:
+        th.start()
+        try:
+            wait(lambda: all(os.path.exists(counts[w] + ".booted")
+                             for w in wids), "both workers booted")
+            t_booted = time.time()
+            boots = {}
+            for w in wids:
+                with open(counts[w] + ".booted") as fh:
+                    boots[w] = json.load(fh)["boot_seconds"]
+            q.submit("stolen", fns, outs["stolen"])
+            open(hold["w0"], "w").close()
+            wait(lambda: _claims(spool, "stolen"), "w0's claim of "
+                 "stolen", 60)
+            q.submit("own", fns, outs["own"])
+            open(hold["w1"], "w").close()
+            wait(lambda: _claims(spool, "own"), "a claim of own", 60)
+            ckdir = ckpt.default_root(outs["stolen"])
+            mark_pass = f"pass_{K_RESUME - 1:04d}"
+            wait(lambda: mark_pass in ((ckpt.read_manifest(ckdir) or {})
+                                       .get("entries") or {}),
+                 f"stolen's checkpoint never named {mark_pass}", 600)
+            w0 = ctrl.workers[0]
+            held = {t for t in outs
+                    if [w for w, _ in _claims(spool, t)] == ["w0"]}
+            pid0 = w0.pid
+            t_kill = time.time()
+            os.kill(pid0, signal.SIGKILL)
+            wait(lambda: w0.last_rc is not None, "w0's exit reaped", 60)
+            kept = {t: (_present_passes(ckpt.default_root(outs[t]))
+                        if t in held else []) for t in outs}
+            for t in held:
+                if kept[t] != list(range(len(kept[t]))):
+                    raise AssertionError(f"phase 10: {t}'s checkpoint "
+                                         f"after the kill {kept[t]}")
+            wait(lambda: all(len(_claims(spool, t)) == 2 for t in held),
+                 "w1's claim of w0's beams", 120)
+            th.join(timeout=900)
+            if th.is_alive():
+                raise AssertionError("phase 10: the fleet did not stop")
+        finally:
+            if th.is_alive():
+                ctrl.request_drain()
+                th.join(timeout=180)
+            for w in ctrl.workers:
+                if w.alive:
+                    w.proc.kill()
+                    w.proc.wait()
+    if "error" in result:
+        raise result["error"]
+    phase_wall = time.time() - t_phase
+    if result["rc"] != 0:
+        raise AssertionError(f"phase 10: the controller exited "
+                             f"{result['rc']}")
+    if held != {"stolen"}:
+        log(f"phase 10: NOTE w0 held {sorted(held)} at the kill (w1's "
+            f"prefetch lost the race for own)")
+
+    # the tickets: done once each, by w1; the stolen chain
+    recs = {t: q.read_result(t) for t in outs}
+    chains = {}
+    for t, r in recs.items():
+        if r is None or r["status"] != "done" or r["worker"] != "w1" \
+                or r["attempts"] != (1 if t in held else 0):
+            raise AssertionError(f"phase 10: {t}'s result {r}")
+        evs = journal.read_events(spool, ticket=t)
+        problems = journal.validate_chain(evs)
+        names = [(e["event"], e.get("worker"), e.get("from_worker"))
+                 for e in evs]
+        want_claims = ["w0", "w1"] if t in held else ["w1"]
+        terminal = [n for n in names if n[0] == journal.TERMINAL_EVENT]
+        steals = [n for n in names if n[0] == "takeover"]
+        if problems or [w for w, _ in _claims(spool, t)] != want_claims \
+                or len(terminal) != 1 or len(
+                    {e["trace_id"] for e in evs if e.get("trace_id")}) != 1 \
+                or [s[2] for s in steals] != (["w0"] if t in held else []):
+            raise AssertionError(f"phase 10: {t}'s journal chain "
+                                 f"{names}: {problems}")
+        seq = [n[0] for n in names]
+        chains[t] = [f"{n} x{seq.count(n)}" if seq.count(n) > 1 else n
+                     for i, n in enumerate(seq) if n not in seq[:i]]
+    t_reclaim = _claims(spool, "stolen")[-1][1]
+    t_steal = next(e["t"] for e in journal.read_events(
+        spool, ticket="stolen") if e["event"] == "takeover")
+
+    # the science: both results equal phase 7's solo search
+    diff = results_diff().diff_results
+    for t, out in outs.items():
+        problems = diff(out, solo["resultsdir"])
+        if problems:
+            raise AssertionError(f"phase 10: {t}'s results differ from "
+                                 f"phase 7's solo search's: "
+                                 + "; ".join(problems[:10]))
+        check_pulsar(out, solo["basenm"], f"phase 10 {t}")
+        if os.path.exists(ckpt.default_root(out)):
+            raise AssertionError(f"phase 10: {t}'s checkpoint was not "
+                                 f"cleaned")
+
+    # w1's launches: a whole beam each, less the passes w0's
+    # checkpoints held
+    with open(counts["w1"]) as fh:
+        c1 = json.load(fh)
+    if os.path.exists(counts["w0"]):
+        raise AssertionError("phase 10: the killed w0 wrote its counts")
+    whole = {"form_subbands": sum(solo["n1"].values()),
+             "dedisperse_subbands": sum(solo["n2"].values())}
+    want = {k: 0 for k in whole}
+    for t in outs:
+        skip = _search_launches(plan, nsamp, len(kept[t]))
+        for k in want:
+            want[k] += whole[k] - skip[k]
+    got = {k: c1["served"].get(k, 0) for k in want}
+    if got != want or c1["served"].get("dedisperse_subbands_beams"):
+        raise AssertionError(f"phase 10: w1's launches {c1['served']} "
+                             f"!= expected {want}")
+    resumed = {t: len(kept[t]) for t in held}
+    log(f"phase 10 launches of w1 after boot: {got} (expected {want}: "
+        f"one whole beam of {whole} for own, and for stolen the passes "
+        f"{resumed['stolen'] if 'stolen' in resumed else 0}..56 its "
+        f"checkpoint lacked plus refinement and folds)")
+
+    # the fleet's own records
+    with open(os.path.join(spool, fleet_ctl.FLEET_JSON)) as fh:
+        fleet = json.load(fh)
+    fw = {w["id"]: w for w in fleet["workers"]}
+    if fleet["status"] != "stopped" or not fw["w0"]["gave_up"] or \
+            fw["w0"]["last_rc"] != -signal.SIGKILL or \
+            fw["w1"]["last_rc"] != 0 or fleet["done"] != 2:
+        raise AssertionError(f"phase 10: fleet.json {fleet}")
+    with open(os.path.join(spool, fleet_ctl.FLEET_PROM)) as fh:
+        prom = fh.read()
+    for line in ('tpulsar_fleet_slo_seconds{series="beam_e2e",'
+                 'quantile="p95"}',
+                 'tpulsar_fleet_slo_source_workers{series="beam_e2e"} 2',
+                 'tpulsar_alerts_active{rule="takeover_rate",'
+                 'severity="warn"} 1'):
+        if line not in prom:
+            raise AssertionError(f"phase 10: fleet.prom lacks {line!r}")
+    e2e = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'tpulsar_fleet_slo_seconds\{series="beam_e2e",quantile="(p\d+)"\}'
+        r' (\S+)', prom)}
+
+    # the hosted doctor
+    fired = [e for e in journal.read_events(spool)
+             if e["event"] == "alert_fired"]
+    doc = health.read_active_alerts(spool) or {}
+    active = {a["rule"] for a in doc.get("alerts", [])}
+    if "takeover_rate" not in {e["rule"] for e in fired} or \
+            "takeover_rate" not in active:
+        raise AssertionError(f"phase 10: the doctor fired "
+                             f"{[e['rule'] for e in fired]}, "
+                             f"alerts.json {sorted(active)}")
+    t_alert = next(e["t"] for e in fired if e["rule"] == "takeover_rate")
+    gw, url, gw_log = start_gateway(srv, queue_url)
+    try:
+        code, body = http("GET", url + "/v1/alerts")
+    finally:
+        stop_gateway(gw, gw_log, "phase 10")
+    if code != 200 or body.get("doctor") != "ok" or "takeover_rate" not in \
+            {a["rule"] for a in body.get("alerts", [])}:
+        raise AssertionError(f"phase 10: GET /v1/alerts {code} {body}")
+
+    def cli(*args):
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "tpulsar_torch", "--config", srv["cfg"],
+             *args], env=srv["env"], capture_output=True, text=True,
+            timeout=300)
+        return res, time.time() - t0
+
+    res, doctor_s = cli("doctor", "--queue", queue_url)
+    if res.returncode != 1 or "takeover_rate" not in res.stdout:
+        raise AssertionError(f"phase 10: doctor --queue exited "
+                             f"{res.returncode}: {res.stdout[-2000:]}"
+                             f"{res.stderr[-2000:]}")
+    res, status_s = cli("fleet", "--status", "--spool", spool, "--queue",
+                        queue_url)
+    if res.returncode != 0 or " stopped (fleet.json" not in res.stdout:
+        raise AssertionError(f"phase 10: fleet --status exited "
+                             f"{res.returncode}: {res.stdout[-2000:]}")
+    for line in res.stdout.strip().splitlines():
+        log(f"  fleet --status: {line}")
+    res, probe_s = cli("doctor")
+    probe = next((ln for ln in res.stdout.splitlines()
+                  if "device probe" in ln), "")
+    if "[ok] device probe" not in probe:
+        raise AssertionError(f"phase 10: the node probe's device probe: "
+                             f"{res.stdout[-3000:]}{res.stderr[-2000:]}")
+    log(f"phase 10: doctor (node probe) {probe_s:.3f} s: "
+        f"{probe.strip()}; its verdict: "
+        f"{res.stdout.strip().splitlines()[-1]}")
+
+    beam_s = {t: recs[t]["beam_seconds"] for t in outs}
+    log(f"phase 10: boots w0 {boots['w0']:.3f} s, w1 {boots['w1']:.3f} s "
+        f"(both booted {t_booted - t_phase:.1f} s after the controller "
+        f"started); beam_seconds own {beam_s['own']:.3f} s, stolen "
+        f"{beam_s['stolen']:.3f} s (w1's resume; phase 7's solo "
+        f"{solo['wall_s']:.3f} s); w0 killed at pass "
+        f"{len(kept['stolen']) - 1} ({len(kept['stolen'])} passes "
+        f"durable), {t_kill - t_booted:.1f} s after release; takeover "
+        f"{t_steal - t_kill:.3f} s and w1's re-claim "
+        f"{t_reclaim - t_kill:.3f} s after the kill; takeover_rate fired "
+        f"{t_alert - t_kill:.3f} s after it; peak device memory in use "
+        f"(every process) {mem.peak / 2**30:.3f} GiB, w1's own peak "
+        f"{c1['peak_bytes'] / 2**30:.3f} GiB; beam_e2e {e2e}; the phase "
+        f"{phase_wall:.1f} s (fleet), doctor --queue {doctor_s:.3f} s, "
+        f"fleet --status {status_s:.3f} s")
+    log(f"phase 10 journal chains: {json.dumps(chains)}")
+    return dict(launches=c1["served"], want=want, beam_s=beam_s,
+                boot_s=boots, resumed=resumed,
+                takeover_s=t_steal - t_kill, reclaim_s=t_reclaim - t_kill,
+                alert_s=t_alert - t_kill, peak_bytes=mem.peak,
+                w1_peak_bytes=c1["peak_bytes"], phase_s=phase_wall,
+                e2e=e2e)
 
 
 #: the per-beam job of phase 9 (its jobpooler.submit_script runs this
@@ -2989,8 +3342,8 @@ def _passes(plan) -> list:
 
 
 def slice_phase(nsamp: int) -> dict:
-    """The read phase and phases 4 to 7 and 9 on one synthesized beam
-    (phase 7 on a shorter one of its own)."""
+    """The read phase and phases 4 to 7, 10 and 9 on one synthesized
+    beam (phases 7 and 10 on a shorter one of their own)."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
         fns = write_beam(os.path.join(tmp, "beam"), nsamp)
@@ -3006,6 +3359,8 @@ def slice_phase(nsamp: int) -> dict:
         p4["serve"] = serve_phase(fns, tmp, p4)
         mark("phase 7: batch")
         p4["batch"] = batch_phase(tmp, plan)
+        mark("phase 10: fleet")
+        p4["fleet"] = fleet_phase(tmp, plan, p4["batch"])
         mark("phase 9: pipeline")
         p4["pipeline"] = pipeline_phase(fns, tmp, nsamp, plan, p4)
         return p4
@@ -3128,8 +3483,12 @@ def main() -> None:
             "launches_first"].get(name, 0)
         # and the served stream session of phase 8 (after boot)
         r["launches_stream"] = stream["launches_served"][name]
+        # the fleet's surviving worker w1 (phase 10, after its boot):
+        # its own quarter beam and the stolen one's missing passes
+        r["launches_fleet"] = res["fleet"]["launches"].get(name, 0)
         solo_paths = ("launches", "launches_resumed", "launches_served",
-                      "launches_batch", "launches_pipeline")
+                      "launches_batch", "launches_pipeline",
+                      "launches_fleet")
         if name == "dedisperse_subbands":
             r["launches"] = res["launches"][name]
             paths = solo_paths + ("launches_stream",)

@@ -66,6 +66,8 @@ import tpulsar_torch.kernels.beam_batch
 import tpulsar_torch.stream, tpulsar_torch.stream.ingest
 import tpulsar_torch.stream.dedisp_state, tpulsar_torch.stream.trigger
 import tpulsar_torch.stream.worker
+import tpulsar_torch.fleet, tpulsar_torch.fleet.controller
+import tpulsar_torch.fleet.autoscale
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tpulsar" or m.startswith("tpulsar."))

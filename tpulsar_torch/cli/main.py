@@ -15,6 +15,20 @@ Subcommands so far:
             package's ``serve`` flags plus ``--device`` (cuda, the
             default, or cpu; without a GPU it fails unless ``--device
             cpu`` is given).
+  fleet   — the serving fleet (fleet/): a controller spawning and
+            supervising N ``serve`` workers on one spool or queue
+            (crash restart under a backoff budget, the janitor's
+            requeue of a dead worker's claim, quarantine, rolling
+            restart, fleet.json/fleet.prom, the hosted health
+            doctor); ``--status``, ``--drain`` and
+            ``--rolling-restart`` talk to a running fleet.  The
+            workers run on the card unless given ``--worker-arg
+            --device --worker-arg cpu``.
+  doctor  — the node probe (dependencies, config, directories, job
+            tracker, queue manager, a ``torch.cuda`` device probe in
+            a subprocess, build state and pins); with
+            ``--spool``/``--queue``/``--rules``/``--watch`` the fleet
+            verdict from the alert rules (obs/alerts.py, health.py).
   gateway — the network front door (frontdoor/gateway.py) over a
             ticket queue, or with ``--federate`` a router over member
             gateways; mounts the blob store (``--blob-root``).
@@ -46,10 +60,11 @@ which runs on the GPU and fails without one (``jobpooler.submit_script``
 names another command, e.g. one adding ``--device cpu``).
 
 Every command but serve is control plane: it touches no tensor,
-takes no ``--device`` and never initializes CUDA; the gateway and the
-daemons start and run on a host with no GPU.  The per-beam job keeps
-its own entry point, ``python -m tpulsar_torch.cli.search_job``.  The
-JAX CLI's other subcommands (fleet, obs, doctor, plan, ...) are not
+takes no ``--device`` and never initializes CUDA (the doctor's device
+probe runs in a subprocess); the gateway, the fleet controller and
+the daemons start and run on a host with no GPU.  The per-beam job
+keeps its own entry point, ``python -m tpulsar_torch.cli.search_job``.
+The JAX CLI's other subcommands (obs, chaos, lint, plan, ...) are not
 ported yet.
 """
 
@@ -149,6 +164,79 @@ def cmd_serve(args) -> int:
         rc = server.serve(once=args.once)
     finally:
         _export_metrics("serve")
+    return rc
+
+
+def cmd_fleet(args):
+    """Multi-worker serving fleet (fleet/): a controller spawning and
+    supervising N `serve` workers on one spool — or, with
+    --status/--drain/--rolling-restart, talk to the running fleet
+    through its spool.  The workers run on the card unless
+    ``--worker-arg --device --worker-arg cpu`` is given; the
+    controller itself never imports torch."""
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.fleet import controller as fleet_ctl
+
+    cfg = settings()
+    spool = args.spool or _serve_spool(cfg)
+    queue_url = args.queue or _default_queue_url()
+    queue = None
+    if queue_url:
+        from tpulsar_torch.frontdoor.queue import get_ticket_queue
+        queue = get_ticket_queue(queue_url)
+    if args.status:
+        print(fleet_ctl.render_status(spool, queue=queue))
+        # scriptable health: nonzero when a running controller's
+        # fleet.json went stale past the heartbeat grace
+        return fleet_ctl.status_rc(spool)
+    if args.drain:
+        path = fleet_ctl.write_control(spool, "drain")
+        print(f"fleet: drain requested ({path})")
+        return 0
+    if args.rolling_restart:
+        path = fleet_ctl.write_control(spool, "rolling-restart")
+        print(f"fleet: rolling restart requested ({path})")
+        return 0
+    nworkers = (args.workers if args.workers is not None
+                else cfg.jobpooler.fleet_workers)
+    autoscale_cfg = cfg.fleet_autoscale_config()
+    if args.autoscale:
+        # --autoscale MIN:MAX overrides (and enables) the config's
+        # elastic policy for this controller; the knob->config
+        # mapping itself lives in ONE place (fleet_autoscale_config)
+        import dataclasses as _dc
+        try:
+            lo, _, hi = args.autoscale.partition(":")
+            base = autoscale_cfg \
+                or cfg.fleet_autoscale_config(force=True)
+            autoscale_cfg = _dc.replace(
+                base, min_workers=int(lo),
+                max_workers=int(hi)).validate()
+        except ValueError as e:
+            print(f"--autoscale wants MIN:MAX within a sane elastic "
+                  f"policy, got {args.autoscale!r}: {e}",
+                  file=sys.stderr)
+            return 2
+    ctrl = fleet_ctl.FleetController(
+        spool=spool, workers=nworkers, once=args.once,
+        queue=queue,
+        max_worker_restarts=args.max_restarts,
+        ticket_max_attempts=cfg.jobpooler.serve_max_attempts,
+        autoscale=autoscale_cfg,
+        worker_args=tuple(args.worker_arg))
+    print(f"fleet: {len(ctrl.workers)} worker(s) on spool {spool} "
+          + (f"queue {ctrl.q.url} " if ctrl.q.backend != "spool"
+             else "")
+          + f"(restart budget {args.max_restarts}, ticket attempts cap "
+          f"{cfg.jobpooler.serve_max_attempts}"
+          + (f", elastic [{autoscale_cfg.min_workers}, "
+             f"{autoscale_cfg.max_workers}] class "
+             f"{autoscale_cfg.worker_class or 'ondemand'}"
+             if autoscale_cfg else "") + ")", flush=True)
+    try:
+        rc = ctrl.run()
+    finally:
+        _export_metrics("fleet")
     return rc
 
 
@@ -900,6 +988,252 @@ def cmd_db_shell(args):
 
 
 
+def _obs_queue(args, spool):
+    """Resolve a doctor ``--queue`` URL to (backend, journal root):
+    reads route through the TicketQueue so ``sqlite:`` fleets are
+    first-class, and the filesystem root (worker metric snapshots,
+    alerts.json) follows the backend's journal_root.  The bare token
+    'sqlite' expands to sqlite:<spool>/queue.db."""
+    url = getattr(args, "queue", "") or ""
+    if not url:
+        return None, spool
+    if url == "sqlite":
+        url = f"sqlite:{os.path.join(spool, 'queue.db')}"
+    from tpulsar_torch.frontdoor.queue import get_ticket_queue
+    q = get_ticket_queue(url)
+    return q, q.journal_root or spool
+
+
+def _doctor_alerts(args):
+    """Fleet health verdict from the declarative alert pack
+    (obs/health.py + obs/alerts.py): one-shot evaluates the rules
+    read-only against the journal/metrics/fsck surfaces and exits
+    0 healthy / 1 firing; ``--watch`` hosts a resident
+    HealthDetector instead (journaling alert transitions, persisting
+    alerts.json, fanning out through the notifier) — the standalone
+    spelling of the loop every FleetController already runs."""
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.obs import alerts as alerts_lib, health
+
+    spool = args.spool or _serve_spool(settings())
+    queue, root = _obs_queue(args, spool)
+    rules = alerts_lib.load_rules(args.rules) if args.rules else None
+    title = f"fleet health: {root}"
+    if not args.watch:
+        active = health.evaluate_once(root, queue=queue, rules=rules)
+        print(health.render_alerts(active, title=title))
+        return 1 if active else 0
+    det = health.HealthDetector(root, queue=queue, rules=rules)
+    interval = (args.interval if args.interval > 0
+                else health.alert_interval_s())
+    try:
+        while True:
+            active = det.tick()
+            print(health.render_alerts(
+                active, title=f"{title} (watch, {interval:g}s)"),
+                flush=True)
+            time.sleep(interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+#: the device probe, run in a subprocess under --device-timeout: one
+#: small matmul on the card, its device count and name, and whether
+#: the CUDA kernel library of this checkout is built
+_DEVICE_PROBE = """
+import json, os, torch
+rec = {"torch": torch.__version__, "cuda": torch.version.cuda,
+       "ndev": torch.cuda.device_count()}
+if torch.cuda.is_available():
+    x = torch.ones((64, 64), device="cuda")
+    rec["ok"] = float((x @ x).sum().item()) == 64.0 ** 3
+    rec["name"] = torch.cuda.get_device_name(0)
+from tpulsar_torch.kernels import cuda_dd
+rec["cuda_lib"] = cuda_dd.library_path()
+rec["cuda_lib_built"] = os.path.exists(rec["cuda_lib"])
+print(json.dumps(rec))
+"""
+
+#: the environment pins the port's search reads (the JAX doctor's
+#: TPULSAR_PALLAS and TPULSAR_ACCEL_NATIVE have no meaning here)
+_DOCTOR_PINS = ("TPULSAR_DD_FAMILY", "TPULSAR_ACCEL_BATCH",
+                "TPULSAR_ACCEL_PLANE_DTYPE", "TPULSAR_SP_DETREND")
+
+
+def cmd_doctor(args):
+    """Environment probe — counterpart of the JAX CLI's ``doctor``:
+    the reference's install_test.py dependency check and test_job.py
+    worker-node probe (imports, config, directories writable, job
+    tracker reachable, queue-manager contract, and a device probe in
+    a subprocess under a timeout) rolled into one operator command.
+    Exit 0 = healthy.
+
+    Adapted to this package: the accelerator probe is a ``torch.cuda``
+    probe (one small matmul on the card, printing the device count
+    and name; a node without a CUDA device fails it, since the
+    entry points default to the card), and the JAX doctor's
+    "fallback paths" section (smoke caches under its compile cache)
+    becomes this package's own state: whether the CUDA kernel
+    library and the native library of this checkout are built in
+    ``tpulsar_torch/_build/``, the ``TPULSAR_*`` pins the search
+    reads, and ``degraded.snapshot()``.  The doctor process itself
+    imports no torch.
+
+    With --spool/--queue/--rules/--watch the doctor judges the FLEET
+    instead of the node: the declarative alert pack against the live
+    journal (see _doctor_alerts)."""
+    if args.watch or args.spool or args.queue or args.rules:
+        return _doctor_alerts(args)
+    import importlib
+    import json
+    import subprocess
+    import tempfile
+
+    from tpulsar_torch.config import settings
+
+    failures = []
+
+    def report(name: str, ok: bool, detail: str = "") -> None:
+        print(f"  [{'ok' if ok else 'FAIL'}] {name}"
+              + (f" — {detail}" if detail else ""))
+        if not ok:
+            failures.append(name)
+
+    print("dependencies:")
+    for mod, hint in [("numpy", "pip install numpy"),
+                      ("scipy", "pip install scipy"),
+                      ("matplotlib", "pip install matplotlib "
+                                     "(plots/stats dashboards)"),
+                      ("yaml", "pip install pyyaml (YAML configs; "
+                               "python configs work without it)")]:
+        try:
+            importlib.import_module(mod)
+            report(f"import {mod}", True)
+        except ImportError as e:
+            report(f"import {mod}", False, f"{e}; hint: {hint}")
+
+    cfg = settings()
+    print("config:")
+    try:
+        # create_dirs: a fresh install's missing directories are not a
+        # health problem — the writability probes below verify them
+        cfg.check_sanity(create_dirs=True)
+        report("check_sanity", True)
+    except Exception as e:
+        report("check_sanity", False, str(e)[:200])
+
+    print("directories writable:")
+    for name, path in [
+            ("basic.log_dir", cfg.basic.log_dir),
+            ("download.datadir", cfg.download.datadir),
+            ("processing.base_working_directory",
+             cfg.processing.base_working_directory),
+            ("processing.base_results_directory",
+             cfg.processing.base_results_directory)]:
+        try:
+            os.makedirs(path, exist_ok=True)
+            with tempfile.TemporaryFile(dir=path):
+                pass
+            report(f"{name} = {path}", True)
+        except OSError as e:
+            report(f"{name} = {path}", False, str(e))
+
+    print("job tracker:")
+    try:
+        from tpulsar_torch.orchestrate import jobtracker
+
+        db = jobtracker.JobTracker(args.db or cfg.background.jobtracker_db)
+        n = db.query("SELECT count(*) FROM jobs", fetchone=True)
+        report("query jobs table", True, f"{n[0]} jobs")
+    except Exception as e:
+        report("query jobs table", False,
+               f"{e}; hint: run `python -m tpulsar_torch init-db` "
+               f"first")
+
+    print("queue manager:")
+    try:
+        from tpulsar_torch.orchestrate.queue_managers import \
+            get_queue_manager
+
+        qm = get_queue_manager(cfg.jobpooler.queue_manager,
+                               **_queue_manager_kwargs(cfg))
+        missing = [m for m in ("submit", "can_submit", "is_running",
+                               "delete", "status", "had_errors",
+                               "get_errors")
+                   if not callable(getattr(qm, m, None))]
+        report(f"{cfg.jobpooler.queue_manager} implements the 7-method "
+               f"contract", not missing, ",".join(missing))
+    except Exception as e:
+        report("instantiate queue manager", False, str(e)[:200])
+
+    print("device:")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    probe_env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH", "")) if p))
+    rec = None
+    try:
+        out = subprocess.run([sys.executable, "-c", _DEVICE_PROBE],
+                             capture_output=True, text=True,
+                             env=probe_env,
+                             timeout=args.device_timeout)
+        for line in reversed(out.stdout.strip().splitlines()):
+            try:
+                rec = json.loads(line)
+                break
+            except json.JSONDecodeError:
+                continue
+        if out.returncode != 0 or rec is None:
+            rec = None
+            report("device probe", False,
+                   out.stderr.strip()[-200:] or "no output")
+        elif rec.get("ok"):
+            report("device probe", True,
+                   f"{rec['ndev']}x {rec['name']} (torch "
+                   f"{rec['torch']}, CUDA {rec['cuda']})")
+        else:
+            report("device probe", False,
+                   f"no CUDA device (torch {rec['torch']}, CUDA "
+                   f"{rec['cuda']}); the entry points need --device "
+                   f"cpu on this node")
+    except subprocess.TimeoutExpired:
+        report("device probe", False,
+               f"hung > {args.device_timeout:.0f} s (wedged card?)")
+
+    print("build state and pins:")
+    if rec is not None:
+        print(f"  [{'ok' if rec['cuda_lib_built'] else '--'}] CUDA "
+              f"kernels: {rec['cuda_lib']}"
+              + ("" if rec["cuda_lib_built"] else
+                 " not built — the first run on the card builds it "
+                 "with nvcc"))
+    from tpulsar_torch import native
+
+    lib = native.library_path()
+    built = os.path.exists(lib)
+    print(f"  [{'ok' if built else '--'}] native library: {lib}"
+          + ("" if built else " not built — the first read builds "
+             "it with g++"))
+    for var in _DOCTOR_PINS:
+        val = os.environ.get(var)
+        if val is not None:
+            print(f"  [pin] {var}={val}")
+    from tpulsar_torch.search import degraded
+
+    snap = degraded.snapshot()
+    if snap:
+        for flag, detail in sorted(snap.items()):
+            print(f"  [degraded] {flag}: {detail}")
+    else:
+        print("  [ok] no degraded modes noted in this process "
+              "(per-run flags land in each results dir's .report)")
+
+    print(("all checks passed" if not failures
+           else f"{len(failures)} check(s) FAILED: "
+                + ", ".join(failures)))
+    return 0 if not failures else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tpulsar_torch",
                                 description=__doc__,
@@ -1029,6 +1363,91 @@ def build_parser() -> argparse.ArgumentParser:
                          "cpu; the server never moves to the CPU by "
                          "itself")
     sp.set_defaults(fn=cmd_serve)
+
+    sp = sub.add_parser(
+        "fleet",
+        help="multi-worker serving fleet: spawn/supervise N `serve` "
+             "workers on one spool (work-stealing claims, crash "
+             "restart with backoff budget, poisoned-beam quarantine, "
+             "rolling restart)")
+    sp.add_argument("--workers", type=int, default=None,
+                    help="worker count (default: "
+                         "jobpooler.fleet_workers; 0 = janitor/"
+                         "aggregator only, for externally-launched "
+                         "workers; with autoscaling this is the "
+                         "INITIAL count, clamped into [min, max])")
+    sp.add_argument("--autoscale", default="", metavar="MIN:MAX",
+                    help="run the fleet elastic: scale workers "
+                         "between MIN and MAX from journal-derived "
+                         "signals (queue-wait SLO, backlog per "
+                         "worker, advertised headroom) with "
+                         "hysteresis + cooldown; scale-down drains "
+                         "on-demand workers and SIGKILLs spot ones "
+                         "(config: jobpooler.fleet_autoscale and the "
+                         "autoscale_* knobs)")
+    sp.add_argument("--spool", default=None,
+                    help="spool dir (default: jobpooler.serve_spool "
+                         "or <base_working_directory>/.serve_spool)")
+    sp.add_argument("--queue", default="",
+                    help="ticket-queue backend URL the whole fleet "
+                         "claims from (sqlite:<path> / spool:<dir>); "
+                         "default: TPULSAR_QUEUE_URL or the spool.  "
+                         "Workers inherit it on their command line")
+    sp.add_argument("--once", action="store_true",
+                    help="exit 0 once the spool's tickets are all "
+                         "terminal (CI / cron mode; workers run "
+                         "serve --once)")
+    sp.add_argument("--status", action="store_true",
+                    help="print fleet health (heartbeats, spool "
+                         "counts, fleet.json) and exit")
+    sp.add_argument("--drain", action="store_true",
+                    help="ask the running controller to drain the "
+                         "fleet and exit")
+    sp.add_argument("--rolling-restart", action="store_true",
+                    dest="rolling_restart",
+                    help="ask the running controller to cycle "
+                         "workers one at a time (never fully cold)")
+    sp.add_argument("--max-restarts", type=int, default=5,
+                    help="crash-restart budget per worker before the "
+                         "controller leaves it down")
+    sp.add_argument("--worker-arg", action="append", default=[],
+                    metavar="ARG",
+                    help="extra argument passed to every `serve` "
+                         "worker (repeatable), e.g. "
+                         "--worker-arg=--no-warmstart; the workers "
+                         "run on the card unless given "
+                         "--worker-arg --device --worker-arg cpu")
+    sp.set_defaults(fn=cmd_fleet)
+
+    sp = sub.add_parser(
+        "doctor",
+        help="health doctor: with no flags, probe the NODE (imports, "
+             "config, directories, job tracker, queue manager, "
+             "CUDA device, build state); with --spool/--queue/"
+             "--watch, judge the FLEET against the declarative alert pack (SLO burn "
+             "rate, worker flap, quarantine, fsck, ...) — rc 0 "
+             "healthy / 1 firing")
+    sp.add_argument("--device-timeout", type=float, default=60.0,
+                    help="device probe timeout, seconds")
+    sp.add_argument("--spool", default="",
+                    help="fleet mode: evaluate the alert rules over "
+                         "this spool's journal + metric snapshots")
+    sp.add_argument("--queue", default="",
+                    help="fleet mode: route reads through this "
+                         "ticket-queue backend URL ('sqlite' expands "
+                         "to sqlite:<spool>/queue.db)")
+    sp.add_argument("--rules", default="",
+                    help="JSON alert-rules file extending/replacing "
+                         "the built-in pack (default: "
+                         "TPULSAR_ALERT_RULES)")
+    sp.add_argument("--watch", action="store_true",
+                    help="host a resident detector loop: journal "
+                         "alert transitions, persist alerts.json, "
+                         "notify via TPULSAR_ALERT_NOTIFY")
+    sp.add_argument("--interval", type=float, default=0.0,
+                    help="--watch tick period seconds (default: "
+                         "TPULSAR_ALERT_INTERVAL_S)")
+    sp.set_defaults(fn=cmd_doctor)
 
     sp = sub.add_parser(
         "gateway",

@@ -9,9 +9,8 @@ a filesystem or type validator there has one here
 (config_types.py:121-247), and all violations are reported together
 (InsaneConfigsError, config_types.py:45-65).
 
-One check of the JAX package lives in a module this package does not
-have yet and is not made here: the fleet autoscaler's knobs
-(fleet_autoscale_config).  The front door's tenant policy
+The fleet autoscaler's knobs are checked through
+fleet_autoscale_config, the front door's tenant policy
 (frontdoor.tenants) is validated, and settings() installs the serve
 heartbeat window (_apply_runtime_knobs), as in the JAX package.
 """
@@ -304,6 +303,10 @@ class TpulsarConfig:
                 f"({self.jobpooler.heartbeat_max_age_s:g}) must be "
                 f">= 3 x serve_heartbeat_interval_s "
                 f"({self.jobpooler.serve_heartbeat_interval_s:g})")
+        try:
+            self.fleet_autoscale_config()
+        except ValueError as e:
+            problems.append(f"jobpooler autoscale: {e}")
         if (self.jobpooler.queue_manager == "tpu_slice"
                 and not self.jobpooler.tpu_hosts.strip()):
             problems.append(
@@ -336,6 +339,29 @@ class TpulsarConfig:
 
         if problems:
             raise InsaneConfigsError(problems)
+
+    def fleet_autoscale_config(self, force: bool = False):
+        """The jobpooler autoscale knobs as a validated
+        fleet.autoscale.AutoscaleConfig (None when autoscaling is
+        off; ``force=True`` builds it regardless — the CLI's
+        ``--autoscale MIN:MAX`` path, so the knob->config mapping
+        lives in exactly one place).  Raises ValueError on
+        inconsistent knobs — called from check_sanity so a bad
+        elastic config fails at load, not at the first scale
+        decision."""
+        jp = self.jobpooler
+        if not jp.fleet_autoscale and not force:
+            return None
+        from tpulsar_torch.fleet.autoscale import AutoscaleConfig
+        return AutoscaleConfig(
+            min_workers=jp.fleet_min_workers,
+            max_workers=jp.fleet_max_workers,
+            queue_wait_slo_s=jp.autoscale_queue_wait_slo_s,
+            backlog_per_worker=jp.autoscale_backlog_per_worker,
+            cooldown_s=jp.autoscale_cooldown_s,
+            idle_window_s=jp.autoscale_idle_window_s,
+            drain_deadline_s=jp.autoscale_drain_deadline_s,
+            worker_class=jp.autoscale_worker_class).validate()
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

@@ -18,10 +18,16 @@ whichever package searched it.
     capacity and routing counters) and the blob data plane's
     (dataplane/blobstore.py, transfer.py and the server's stage-in:
     bytes, blob operations, verify failures, transfer seconds);
+  * the fleet's (fleet/controller.py: worker states, restarts,
+    requeues, quarantines, scale decisions, capacity; the
+    journal-derived SLO, ticket and event-rate gauges fleetview.py
+    builds into a caller-owned registry) and the health doctor's
+    ``tpulsar_alerts_active`` (obs/health.py);
   * ``event_record``, the one heartbeat/journal event shape.
 
-The fleet, download, upload and compile-cache families come with the
-modules that record them.
+The compile-cache family is the JAX package's alone: nothing in this
+package compiles through a persistent cache (obs/alerts.py names it
+by its literal for the one rule that reads it).
 stdlib only.
 """
 
@@ -307,6 +313,66 @@ def serve_stagein_seconds() -> metrics.Histogram:
         buckets=STAGE_BUCKETS)
 
 
+def fleet_workers() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_fleet_workers",
+        "fleet workers by state: fresh (heartbeat current, accepting "
+        "work), stale (process alive, heartbeat old — wedged?), dead "
+        "(process gone)",
+        labelnames=("state",))
+
+
+def fleet_restarts_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_fleet_restarts_total",
+        "worker restarts issued by the fleet controller (crash "
+        "restarts count against the backoff budget; rolling-restart "
+        "cycles do not)",
+        labelnames=("worker", "kind"))       # kind: crash | rolling
+
+
+def fleet_requeued_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_fleet_requeued_total",
+        "tickets the fleet janitor reclaimed from dead workers "
+        "(work-stealing requeues; each increments the ticket's "
+        "attempts counter)")
+
+
+def fleet_quarantined_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_fleet_quarantined_total",
+        "poisoned beams isolated in quarantine/ after repeatedly "
+        "killing their worker (attempts reached the cap)")
+
+
+def fleet_scale_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_fleet_scale_total",
+        "autoscaler decisions executed, by direction (up = workers "
+        "added from journal-derived load signals, down = a victim "
+        "drained or — spot class — SIGKILLed; every decision is also "
+        "journaled as a scale_up/scale_down event with its signals)",
+        labelnames=("direction",))
+
+
+def fleet_autoscale_workers() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_fleet_autoscale_workers",
+        "the autoscaler's current active worker-slot count (within "
+        "configured [min, max]); absent when autoscaling is off")
+
+
+def fleet_capacity() -> metrics.Gauge:
+    return metrics.gauge(
+        "tpulsar_fleet_capacity",
+        "aggregate remaining admission capacity: sum of fresh "
+        "workers' advertised queue depths minus tickets waiting "
+        "(what the warm backend's can_submit consults); 0 = fresh "
+        "workers but a saturated queue (backpressure), -1 = ZERO "
+        "fresh workers (clients load-shed to process-per-beam)")
+
+
 #: histogram buckets for gateway HTTP handling: sub-millisecond local
 #: routing up to multi-second federation forwards and staging waits
 GATEWAY_BUCKETS = (0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0, 60.0)
@@ -368,6 +434,59 @@ def frontdoor_routed_total() -> metrics.Counter:
         "federation router submissions by member host and outcome "
         "(ok | error)",
         labelnames=("host", "outcome"))
+
+
+# the journal-derived fleet SLO instruments: built into a CALLER-
+# OWNED registry, not the process-global one — the fleet aggregator
+# derives them from the spool journal on every aggregation pass and
+# merges the fresh registry into fleet.prom, so a half-updated
+# global series is never scraped.  Catalog membership is what the
+# contract linter checks; the registry handle is the caller's.
+
+def fleet_slo_seconds(reg: metrics.Registry) -> metrics.Gauge:
+    return reg.gauge(
+        "tpulsar_fleet_slo_seconds",
+        "journal-derived fleet latency quantiles: queue_wait = "
+        "gateway receipt (HTTP arrival; spool submit when no "
+        "gateway) -> first claim, claim_to_start = claim -> device "
+        "work, beam_e2e = receipt -> terminal result (exact "
+        "quantiles over the journal's raw durations, spanning every "
+        "worker that touched each beam)",
+        labelnames=("series", "quantile"))
+
+
+def fleet_slo_source_workers(reg: metrics.Registry) -> metrics.Gauge:
+    return reg.gauge(
+        "tpulsar_fleet_slo_source_workers",
+        "distinct workers whose journal events feed each SLO series",
+        labelnames=("series",))
+
+
+def fleet_tickets(reg: metrics.Registry) -> metrics.Gauge:
+    return reg.gauge(
+        "tpulsar_fleet_tickets",
+        "journal tickets by lifecycle status (terminal statuses "
+        "from the result event; in-flight = no terminal yet)",
+        labelnames=("status",))
+
+
+def fleet_event_rate(reg: metrics.Registry) -> metrics.Gauge:
+    return reg.gauge(
+        "tpulsar_fleet_event_rate",
+        "journal takeovers/quarantines per TERMINAL ticket — the "
+        "fleet's crash-recovery and poison pressure",
+        labelnames=("event",))
+
+
+def alerts_active(reg: metrics.Registry) -> metrics.Gauge:
+    return reg.gauge(
+        "tpulsar_alerts_active",
+        "health-doctor alert rules currently firing (value 1 per "
+        "active rule), by rule id and severity — each transition is "
+        "also journaled as an alert_fired/alert_resolved event "
+        "carrying the rule's signal values and window, so the gauge "
+        "is the live view and the journal the evidence",
+        labelnames=("rule", "severity"))
 
 
 #: histogram buckets for ticket-queue backend operations: healthy
