@@ -121,7 +121,9 @@ these phases:
      cleaned, the triggers read back through
      `GET /v1/stream/<s>/triggers` with the control's digest.
 
-  9. pipeline (run after phase 7, on phase 4's beam): the
+  9. pipeline (run after phase 11, on phase 7's shorter beam, which
+     keeps the smoke inside its time limit; held against its solo
+     search): the
      orchestration daemons, each a `python -m tpulsar_torch`
      subprocess under one configuration file (TPULSAR_CONFIG: the
      tracker DB, download.datadir, the results directory and DB, the
@@ -137,8 +139,8 @@ these phases:
      same directory, where it resumes from the checkpoint: the passes
      it computes (metrics.json) and its launches are those the
      checkpoint lacked (expected_launches), its stderr file empty;
-     `jobpool --once` marks it processed; the results equal phase 4's
-     (the backend's stderr files aside), the pulsar folded, the
+     `jobpool --once` marks it processed; the results equal phase 7's
+     solo search's (the backend's stderr files aside), the pulsar folded, the
      checkpoint cleaned; `uploader --once` uploads it (one headers
      row, a pdm_candidates row per .accelcands row with the pulsar
      among them, the single-pulse rows, >= 5 diagnostics; the seconds
@@ -170,7 +172,29 @@ these phases:
      prints the boots, each beam's beam_seconds, the takeover latency,
      the resumed passes and the card's peak memory in use.
 
-Phases 4-7, 9 and 10 search with the zaplist the job picks under the
+  11. chaos (run after phase 10, on phase 7's beam, held against its
+     solo search): the port's chaos harness conducts a storm with
+     worker_kind "serve" (CHAOS_SCENARIO, through scenario.from_dict):
+     ChaosRunner in this process runs a FleetController with two
+     `python -m tpulsar_torch serve` workers on the card (the runner's
+     own command line through the smoke's wrapper) behind the gateway
+     on a sqlite queue in the spool, three tickets for the beam under
+     a tenant cap, a spool.io fault window on w1 (t = 2-40 s), a
+     gateway restart (8 s), w0 SIGKILLed (20 s) and a janitor pause
+     (30 s).  w1 is held after its boot until w0 has claimed a ticket.
+     It checks that the storm quiesced, the port's invariant verifier
+     (no violation) in process and as `chaos verify` (exit 0), `chaos
+     report`'s MTTR of the kill, each ticket done once, a takeover of
+     w0's claim and the resume of its beam from the checkpoint, every
+     results directory equal to phase 7's solo search's with the pulsar
+     folded, tpulsar_chaos_actions_total, and the surviving workers'
+     launches (each beam whole less its resumed passes); it prints the
+     boots, each ticket's beam_seconds and attempts, kill -> takeover
+     and -> re-claim, the storm's wall and the card's peak memory in
+     use.  Then the packaged ci_smoke scenario (stub workers) through
+     `chaos run` and `chaos verify` as subprocesses.
+
+Phases 4-7 and 9-11 search with the zaplist the job picks under the
 default configuration (the packaged default.zaplist), as the server
 does.
 
@@ -2349,6 +2373,316 @@ def fleet_phase(tmp: str, plan, p7: dict) -> dict:
                 e2e=e2e)
 
 
+#: phase 11's storm: the JAX package's serve worker kind, two workers
+#: on a sqlite queue in the spool behind the gateway, a tenant cap,
+#: three quarter beams, and the timeline's four failures (its
+#: datafiles are phase 7's beam).  duration_s and quiesce_timeout_s
+#: leave room for three quarter beams on two workers and w0's restart
+CHAOS_SCENARIO = {
+    "name": "serve-storm", "seed": 11, "duration_s": 600.0,
+    "workers": 2, "worker_kind": "serve", "gateway": True,
+    "queue_url": "sqlite", "max_attempts": 3,
+    "tenants": {"survey": {"max_inflight": 3}},
+    "workload": {"beams": 3, "via": "gateway", "tenant": "survey",
+                 "interval_s": 0.25},
+    "timeline": [
+        {"t": 2.0, "action": "set_faults", "worker": "w1", "until": 40.0,
+         "faults": "spool.io:unimplemented:count=2,errno=ENOSPC"},
+        {"t": 8.0, "action": "restart_gateway"},
+        {"t": 20.0, "action": "kill_worker", "worker": "w0",
+         "signal": "KILL"},
+        {"t": 30.0, "action": "pause_janitor", "seconds": 1.0}],
+    "quiesce_timeout_s": 540.0}
+
+
+def _pass_launches(plan, nsamp: int, passes) -> dict:
+    """The stage-1 and stage-2 launches of the given search passes."""
+    out = {"form_subbands": 0, "dedisperse_subbands": 0}
+    for p in passes:
+        a = _search_launches(plan, nsamp, p + 1)
+        b = _search_launches(plan, nsamp, p)
+        for k in out:
+            out[k] += a[k] - b[k]
+    return out
+
+
+def chaos_phase(tmp: str, plan, p7: dict) -> dict:
+    """Phase 11: a conducted storm of the port's chaos harness with
+    worker_kind "serve" on phase 7's beam (CHAOS_SCENARIO, built with
+    scenario.from_dict and used as is): ChaosRunner in this process
+    runs a FleetController with two `python -m tpulsar_torch serve`
+    workers on the card (its own command line, through SERVE_WRAPPER,
+    which turns plots off and counts launches after boot), the
+    gateway in process on a sqlite queue inside the spool, three
+    tickets submitted through it, a spool.io window on w1, a gateway
+    restart, w0 SIGKILLed at 20 s and a janitor pause.  w1 is held
+    after its boot until w0 has claimed a ticket, so w0 holds one at
+    the kill (a worker's prefetch may claim up to three).  It checks
+    the manifest's quiescence, the port's verifier (no violation),
+    `chaos verify` as a subprocess (exit 0), `chaos report` (the
+    kill's MTTR), each ticket done once with a valid chain, a takeover
+    of w0's claim and the resume of the beam w0 was searching from its
+    checkpoint, every results directory equal to phase 7's solo search
+    and folding the pulsar, tpulsar_chaos_actions_total and the
+    schedule file, and the surviving workers' launches: each beam's
+    whole count less the passes its finishing attempt resumed.  Then
+    the packaged ci_smoke scenario (stub workers, no card) through
+    `chaos run` and `chaos verify` as subprocesses."""
+    from tpulsar_torch.chaos import invariants
+    from tpulsar_torch.chaos import runner as chaos_runner
+    from tpulsar_torch.chaos import scenario
+    from tpulsar_torch.frontdoor import queue as fq
+    from tpulsar_torch.obs import journal
+
+    nsamp, fns, solo = p7["nsamp"], p7["fns"], p7["solo"]
+    srv = server_setup(tmp, "chaos")
+    spool = srv["spool"]
+    wids = ("w0", "w1")
+    counts = {w: os.path.join(tmp, f"chaos_{w}_counts.json") for w in wids}
+    hold = os.path.join(tmp, "chaos_go_w1")
+    doc = json.loads(json.dumps(CHAOS_SCENARIO))
+    doc["workload"]["datafiles"] = list(fns)
+    sc = scenario.from_dict(doc)
+    log(f"phase 11: scenario {sc.name!r} ({sc.workers} {sc.worker_kind} "
+        f"workers, {sc.workload.beams} beams via {sc.workload.via}, "
+        f"duration_s {sc.duration_s:g}, quiesce_timeout_s "
+        f"{sc.quiesce_timeout_s:g}): "
+        + ", ".join(f"t={a.t:g} {a.action} {a.worker or ''}".strip()
+                    for a in sc.timeline))
+
+    class SmokeRunner(chaos_runner.ChaosRunner):
+        def _worker_cmd(self, wid):
+            argv = super()._worker_cmd(wid)
+            i = argv.index("-m")
+            if argv[i + 1] != "tpulsar_torch":
+                raise AssertionError(f"phase 11: worker command {argv}")
+            return [sys.executable, "-c", SERVE_WRAPPER] + argv[i + 2:]
+
+        def _worker_env(self, wid):
+            env = dict(super()._worker_env(wid), SMOKE_COUNTS=counts[wid],
+                       PYTHONPATH=srv["env"]["PYTHONPATH"],
+                       TPULSAR_STAGE_HEARTBEAT=f"{srv['hb']}.{wid}")
+            if wid == "w1":
+                env["SMOKE_HOLD"] = hold
+            return env
+
+    jpath = journal.journal_path(spool)
+    done = threading.Event()
+
+    def release_w1():
+        while not done.is_set():
+            if os.path.exists(jpath) and any(
+                    e["event"] == "claimed" and e.get("worker") == "w0"
+                    for e in journal.read_events(spool)):
+                break
+            done.wait(0.05)
+        open(hold, "w").close()
+
+    actions = telemetry.chaos_actions_total()
+    before = {a: actions.value(action=a) for a in
+              ("kill_worker", "restart_gateway", "pause_janitor")}
+    old_cfg = os.environ.get("TPULSAR_CONFIG")
+    os.environ["TPULSAR_CONFIG"] = srv["cfg"]
+    torch.cuda.empty_cache()
+    r = SmokeRunner(sc, spool)
+    log(f"phase 11: worker command {r._worker_cmd('w0')[3:]}")
+    t_phase = time.time()
+    releaser = threading.Thread(target=release_w1, daemon=True)
+    releaser.start()
+    try:
+        with DeviceMemoryPeak() as mem:
+            manifest = r.run()
+    finally:
+        done.set()
+        releaser.join()
+        if old_cfg is None:
+            os.environ.pop("TPULSAR_CONFIG", None)
+        else:
+            os.environ["TPULSAR_CONFIG"] = old_cfg
+        for w in (r._ctrl.workers if r._ctrl is not None else ()):
+            if w.alive:
+                w.proc.kill()
+                w.proc.wait()
+    phase_wall = time.time() - t_phase
+    boots = {}
+    for w in wids:
+        with open(os.path.join(spool, "workers", f"{w}.log"),
+                  errors="replace") as fh:
+            text = fh.read()
+        boots[w] = [float(x) for x in re.findall(r"boot took ([\d.]+) s",
+                                                 text)]
+        for line in text.splitlines():
+            if re.search(r"Traceback|Error", line):
+                log(f"  chaos {w}: {line[:300]}")
+    if manifest["status"] != "quiesced" or not manifest["quiesced"]:
+        raise AssertionError(f"phase 11: the storm did not quiesce: "
+                             f"{manifest['status']}")
+    queue_url = manifest["queue_url"]
+    q = fq.get_ticket_queue(queue_url)
+    tickets = manifest["tickets"]
+    if len(tickets) != sc.workload.beams:
+        raise AssertionError(f"phase 11: tickets {tickets}")
+
+    # the verifier, in process and as the CLI
+    report = invariants.verify(queue_url, tenants=sc.tenants,
+                               max_attempts=sc.max_attempts)
+    if not report["ok"] or any(report["invariants"].values()):
+        raise AssertionError("phase 11: the verifier: "
+                             + invariants.render_verify(report))
+
+    def cli(*args):
+        return subprocess.run(
+            [sys.executable, "-m", "tpulsar_torch", *args],
+            env=srv["env"], capture_output=True, text=True, timeout=300)
+    res = cli("chaos", "verify", "--spool", spool)
+    if res.returncode != 0 or "PASS: 0 invariant violations" not in \
+            res.stdout:
+        raise AssertionError(f"phase 11: chaos verify exited "
+                             f"{res.returncode}: {res.stdout[-3000:]}"
+                             f"{res.stderr[-2000:]}")
+    res = cli("chaos", "report", "--spool", spool)
+    m = re.search(r"kill w0: (\d+) victim beam\(s\), takeover latency "
+                  r"(\S+) s, mttr ([\d.]+) s", res.stdout)
+    if res.returncode != 0 or not m or int(m.group(1)) < 1:
+        raise AssertionError(f"phase 11: chaos report exited "
+                             f"{res.returncode}: {res.stdout[-3000:]}"
+                             f"{res.stderr[-2000:]}")
+    for line in res.stdout.splitlines()[:8]:
+        log(f"  chaos report: {line}")
+
+    # each ticket done once; w0's claims taken over; its beam resumed
+    evs = journal.read_events(spool)
+    kill = next(e for e in evs if e["event"] == "chaos_action"
+                and e.get("action") == "kill_worker")
+    t_kill = kill["t"]
+    recs, chains, resumed = {}, {}, {}
+    steals = [e for e in evs if e["event"] == "takeover"
+              and e.get("from_worker") == "w0"]
+    if not steals:
+        raise AssertionError("phase 11: no takeover of a claim of w0's")
+    for t in tickets:
+        rec = q.read_result(t)
+        chain = [e for e in evs if e.get("ticket") == t]
+        names = [e["event"] for e in chain]
+        problems = journal.validate_chain(chain)
+        if rec is None or rec["status"] != "done" or problems or \
+                names.count(journal.TERMINAL_EVENT) != 1:
+            raise AssertionError(f"phase 11: {t}: {rec}; chain {names}: "
+                                 f"{problems}")
+        recs[t] = rec
+        chains[t] = [f"{n} x{names.count(n)}" if names.count(n) > 1 else n
+                     for i, n in enumerate(names) if n not in names[:i]]
+        final = [e for e in chain if e["event"] == "pass_complete"
+                 and e.get("worker") == rec["worker"]
+                 and e.get("attempt") == rec["attempts"]]
+        computed = sorted({e["pass_idx"] for e in final})
+        npass = sum(1 for _ in _passes(plan))
+        res_ev = [e for e in chain if e["event"] == "resume"
+                  and e.get("attempt") == rec["attempts"]]
+        kept = sorted(set(range(npass)) - set(computed))
+        if (kept and (not res_ev or res_ev[-1]["passes_done"] != len(kept)))\
+                or (not kept and res_ev):
+            raise AssertionError(f"phase 11: {t} computed passes "
+                                 f"{computed}, resume events {res_ev}")
+        resumed[t] = kept
+        w0_search = [e for e in chain if e["event"] == "pass_complete"
+                     and e.get("worker") == "w0" and e["t"] < t_kill]
+        if w0_search and not kept:
+            raise AssertionError(f"phase 11: {t} was searched by w0 before "
+                                 f"the kill and not resumed")
+    victims = [t for t in tickets if resumed[t]]
+    if not victims:
+        raise AssertionError("phase 11: no beam resumed from w0's "
+                             "checkpoint")
+    t_steal = min(e["t"] for e in steals)
+    # the fleet's boot as the storm saw it: spawn -> both fresh
+    fresh_s = manifest["t0"] - min(e["t"] for e in evs
+                                   if e["event"] == "worker_spawn")
+    t_reclaim = min(e["t"] for e in evs if e["event"] == "claimed"
+                    and e.get("ticket") in {s["ticket"] for s in steals}
+                    and e["t"] > t_steal)
+
+    # the science: every results directory equals phase 7's solo search
+    diff = results_diff().diff_results
+    for t, rec in recs.items():
+        problems = diff(rec["outdir"], solo["resultsdir"])
+        if problems:
+            raise AssertionError(f"phase 11: {t}'s results differ from "
+                                 f"phase 7's solo search's: "
+                                 + "; ".join(problems[:10]))
+        check_pulsar(rec["outdir"], solo["basenm"], f"phase 11 {t}")
+
+    # the conductor's counters and the schedule file
+    got_actions = {a: actions.value(action=a) - before[a] for a in before}
+    with open(scenario.schedule_path(spool)) as fh:
+        sched = json.load(fh)
+    if got_actions != {a: 1 for a in before} or [
+            e["faults"] for e in sched["entries"]] != [
+            sc.fault_windows()[0].faults]:
+        raise AssertionError(f"phase 11: tpulsar_chaos_actions_total "
+                             f"{got_actions}, schedule {sched}")
+
+    # the surviving workers' launches (w1 and w0's second incarnation;
+    # the killed one writes none): each beam whole, less the passes
+    # its finishing attempt resumed
+    served = {}
+    for w in wids:
+        with open(counts[w]) as fh:
+            for k, v in json.load(fh)["served"].items():
+                served[k] = served.get(k, 0) + v
+    whole = {"form_subbands": sum(solo["n1"].values()),
+             "dedisperse_subbands": sum(solo["n2"].values())}
+    want = {k: 0 for k in whole}
+    for t in tickets:
+        skip = _pass_launches(plan, nsamp, resumed[t])
+        for k in want:
+            want[k] += whole[k] - skip[k]
+    got = {k: served.get(k, 0) for k in want}
+    if got != want or served.get("dedisperse_subbands_beams"):
+        raise AssertionError(f"phase 11: the surviving workers' launches "
+                             f"{served} != expected {want}")
+    log(f"phase 11 launches of the surviving workers after boot: {got} "
+        f"(expected {want}: three whole beams less the passes resumed "
+        f"{ {t: len(v) for t, v in resumed.items()} })")
+    log(f"phase 11: boots {json.dumps(boots)} s (w0 twice: the killed "
+        f"incarnation and its restart), both fresh {fresh_s:.3f} s after "
+        f"the spawn; tickets "
+        + json.dumps({t: {"worker": r["worker"], "attempts": r["attempts"],
+                          "beam_seconds": round(r["beam_seconds"], 3)}
+                      for t, r in recs.items()})
+        + f"; kill -> takeover {t_steal - t_kill:.3f} s, -> re-claim "
+        f"{t_reclaim - t_kill:.3f} s; mttr {m.group(3)} s; the storm "
+        f"{manifest['wall_s']:.3f} s (the phase {phase_wall:.1f} s); peak "
+        f"device memory in use (every process) {mem.peak / 2**30:.3f} GiB; "
+        f"tpulsar_chaos_actions_total {got_actions}")
+    log(f"phase 11 journal chains: {json.dumps(chains)}")
+
+    # the packaged ci_smoke scenario: stub workers, no card
+    ci_spool = os.path.join(tmp, "chaos_ci_spool")
+    ci_path = os.path.join(os.path.dirname(scenario.__file__), "scenarios",
+                           "ci_smoke.json")
+    t0 = time.time()
+    res = cli("chaos", "run", "--scenario", ci_path, "--spool", ci_spool)
+    ci_run_s = time.time() - t0
+    ver = cli("chaos", "verify", "--spool", ci_spool)
+    if res.returncode != 0 or ver.returncode != 0 or \
+            "PASS: 0 invariant violations" not in ver.stdout:
+        raise AssertionError(f"phase 11: ci_smoke: run exited "
+                             f"{res.returncode}, verify {ver.returncode}:"
+                             f"\n{res.stdout[-2000:]}{res.stderr[-2000:]}"
+                             f"\n{ver.stdout[-2000:]}")
+    log(f"phase 11: the packaged ci_smoke storm (stub workers) "
+        f"{ci_run_s:.1f} s; {ver.stdout.strip().splitlines()[1].strip()}")
+    return dict(launches=served, want=want, boots=boots, fresh_s=fresh_s,
+                beam_s={t: r["beam_seconds"] for t, r in recs.items()},
+                attempts={t: r["attempts"] for t, r in recs.items()},
+                takeover_s=t_steal - t_kill, reclaim_s=t_reclaim - t_kill,
+                mttr_s=float(m.group(3)), storm_s=manifest["wall_s"],
+                phase_s=phase_wall, peak_bytes=mem.peak,
+                resumed={t: len(v) for t, v in resumed.items()},
+                ci_run_s=ci_run_s)
+
+
 #: the per-beam job of phase 9 (its jobpooler.submit_script runs this
 #: file): the port's job, `search_job.main()` with its defaults (the
 #: card, the configuration of TPULSAR_CONFIG), with plots turned off as
@@ -2496,9 +2830,8 @@ def _present_passes(ckdir: str) -> list[int]:
                   if k.startswith("pass_"))
 
 
-def pipeline_phase(fns: list[str], tmp: str, nsamp: int, plan,
-                   p4: dict) -> dict:
-    """Phase 9: the beam through the orchestration daemons, each a
+def pipeline_phase(tmp: str, plan, p7: dict) -> dict:
+    """Phase 9: phase 7's beam through the orchestration daemons, each a
     `python -m tpulsar_torch` subprocess under one configuration:
     `downloader --once` fetches it from a local archive; `jobpool
     --once` makes one job and submits the port's job (PIPELINE_JOB)
@@ -2507,9 +2840,12 @@ def pipeline_phase(fns: list[str], tmp: str, nsamp: int, plan,
     `jobpool --once` retries it into the same output directory, where
     it resumes from the checkpoint; `jobpool --once` marks it
     processed; `uploader --once` writes it to the results DB, and a
-    second upload inserts nothing."""
+    second upload inserts nothing.  Held against phase 7's solo
+    search."""
     from tpulsar_torch.io import datafile
     from tpulsar_torch.orchestrate.jobtracker import JobTracker
+
+    fns, nsamp, ref = p7["fns"], p7["nsamp"], p7["solo"]
 
     pipe = pipeline_setup(tmp)
     du = shutil.disk_usage(tmp)
@@ -2688,8 +3024,7 @@ def pipeline_phase(fns: list[str], tmp: str, nsamp: int, plan,
         f"{a1['launches']}), second {a2['t_end'] - a2['t_start']:.3f} s "
         f"(start to exit, run_search {a2['run_search_s']:.3f} s; rc 0; "
         f"the backend saw it end {retry_wall:.3f} s after the submit); "
-        f"phase 5's in-process resume at pass {K_RESUME} "
-        f"{p4['resume']['wall_s']:.3f} s")
+        f"phase 7's solo search_beam {ref['wall_s']:.3f} s")
 
     # 5. results
     cmp_dir = os.path.join(pipe["root"], "searched")
@@ -2698,15 +3033,15 @@ def pipeline_phase(fns: list[str], tmp: str, nsamp: int, plan,
         if not name.endswith(".stderr"):
             os.link(os.path.join(outdir, name),
                     os.path.join(cmp_dir, name))
-    problems = results_diff().diff_results(p4["resultsdir"], cmp_dir)
+    problems = results_diff().diff_results(ref["resultsdir"], cmp_dir)
     if problems:
-        raise AssertionError("phase 9 results differ from phase 4's: "
-                             + "; ".join(problems[:10]))
-    check_pulsar(outdir, p4["basenm"], "phase 9")
+        raise AssertionError("phase 9 results differ from phase 7's solo "
+                             "search's: " + "; ".join(problems[:10]))
+    check_pulsar(outdir, ref["basenm"], "phase 9")
     if os.path.exists(ckdir):
         raise AssertionError("phase 9: the checkpoint was not cleaned")
     log(f"phase 9: the job's {len(os.listdir(cmp_dir))} results files "
-        f"equal phase 4's; the checkpoint is cleaned")
+        f"equal phase 7's solo search's; the checkpoint is cleaned")
 
     # 6. upload
     shown, _ = pipeline_cli(pipe, "show", "uploading")
@@ -2726,8 +3061,8 @@ def pipeline_phase(fns: list[str], tmp: str, nsamp: int, plan,
     with open(os.path.join(outdir, "header.json")) as fh:
         hdr = json.load(fh)
     cands = accelcands.parse_candlist(os.path.join(
-        outdir, f"{p4['basenm']}.accelcands"))
-    with np.load(os.path.join(outdir, f"{p4['basenm']}_sp.npz")) as z:
+        outdir, f"{ref['basenm']}.accelcands"))
+    with np.load(os.path.join(outdir, f"{ref['basenm']}_sp.npz")) as z:
         nsp = len(z["events"])
     con = sqlite3.connect(pipe["results_db"])
     h = con.execute("SELECT source_name, beam_id, version_number "
@@ -3342,8 +3677,9 @@ def _passes(plan) -> list:
 
 
 def slice_phase(nsamp: int) -> dict:
-    """The read phase and phases 4 to 7, 10 and 9 on one synthesized
-    beam (phases 7 and 10 on a shorter one of their own)."""
+    """The read phase and phases 4 to 7, 10, 11 and 9 on one
+    synthesized beam (phases 7, 10, 11 and 9 on a shorter one of
+    their own)."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
         fns = write_beam(os.path.join(tmp, "beam"), nsamp)
@@ -3361,8 +3697,10 @@ def slice_phase(nsamp: int) -> dict:
         p4["batch"] = batch_phase(tmp, plan)
         mark("phase 10: fleet")
         p4["fleet"] = fleet_phase(tmp, plan, p4["batch"])
+        mark("phase 11: chaos")
+        p4["chaos"] = chaos_phase(tmp, plan, p4["batch"])
         mark("phase 9: pipeline")
-        p4["pipeline"] = pipeline_phase(fns, tmp, nsamp, plan, p4)
+        p4["pipeline"] = pipeline_phase(tmp, plan, p4["batch"])
         return p4
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3486,9 +3824,12 @@ def main() -> None:
         # the fleet's surviving worker w1 (phase 10, after its boot):
         # its own quarter beam and the stolen one's missing passes
         r["launches_fleet"] = res["fleet"]["launches"].get(name, 0)
+        # the chaos storm's surviving serve workers (phase 11, after
+        # each boot): three quarter beams less the resumed passes
+        r["launches_chaos"] = res["chaos"]["launches"].get(name, 0)
         solo_paths = ("launches", "launches_resumed", "launches_served",
                       "launches_batch", "launches_pipeline",
-                      "launches_fleet")
+                      "launches_fleet", "launches_chaos")
         if name == "dedisperse_subbands":
             r["launches"] = res["launches"][name]
             paths = solo_paths + ("launches_stream",)

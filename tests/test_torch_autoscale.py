@@ -8,9 +8,10 @@ both configurations validate and map the autoscale knobs alike.
 
 Every comparison is exact.  The cases of tests/test_autoscale.py
 that read the chaos harness (the scaling_bounded / no_elastic_strike
-invariants, the scenario schema) wait for the port's chaos harness;
-its elastic end-to-end case is marked slow there and is not run
-here."""
+invariants, the scenario schema for surges and flaps) run on each
+package's chaos verifier and scenario; its elastic end-to-end case
+runs the port's stub worker (``python -m tpulsar_torch.chaos.worker``)
+under each package's controller and is marked slow, as there."""
 
 from __future__ import annotations
 
@@ -23,11 +24,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import test_autoscale as jcases  # noqa: E402
+import tpulsar.chaos  # noqa: E402
+from test_torch_fleet import PORT_STUB  # noqa: E402
+from tpulsar.chaos import invariants as jinvariants  # noqa: E402
 from tpulsar.config import core as jcore  # noqa: E402
 from tpulsar.fleet import autoscale as jautoscale  # noqa: E402
 from tpulsar.fleet import controller as jctl  # noqa: E402
 from tpulsar.obs import journal as jjournal  # noqa: E402
 from tpulsar.serve import protocol as jprotocol  # noqa: E402
+from tpulsar_torch.chaos import invariants as tinvariants  # noqa: E402
+from tpulsar_torch.chaos import scenario as tscenario  # noqa: E402
 from tpulsar_torch.config import core as tcore  # noqa: E402
 from tpulsar_torch.fleet import autoscale as tautoscale  # noqa: E402
 from tpulsar_torch.fleet import controller as tctl  # noqa: E402
@@ -36,9 +42,10 @@ from tpulsar_torch.serve import protocol as tprotocol  # noqa: E402
 
 PACKAGES = {
     "jax": dict(autoscale=jautoscale, fleet_ctl=jctl, journal=jjournal,
-                protocol=jprotocol),
+                protocol=jprotocol, invariants=jinvariants),
     "torch": dict(autoscale=tautoscale, fleet_ctl=tctl,
-                  journal=tjournal, protocol=tprotocol),
+                  journal=tjournal, protocol=tprotocol,
+                  invariants=tinvariants),
 }
 CORES = {"jax": jcore, "torch": tcore}
 
@@ -54,10 +61,14 @@ def _heartbeat_knob_reset():
 @pytest.fixture(params=sorted(PACKAGES))
 def pkg(request, monkeypatch):
     """The package under test: tests/test_autoscale.py's module
-    globals pointed at its autoscale, controller, journal and
-    protocol."""
+    globals pointed at its autoscale, controller, journal, protocol
+    and chaos verifier (and the scenario module its cases import
+    inside their bodies); the stub worker is the port's."""
     for name, mod in PACKAGES[request.param].items():
         monkeypatch.setattr(jcases, name, mod)
+    monkeypatch.setattr(jcases, "_STUB_ARGV", PORT_STUB)
+    if request.param == "torch":
+        monkeypatch.setattr(tpulsar.chaos, "scenario", tscenario)
     return request.param
 
 
@@ -81,11 +92,27 @@ def pkg(request, monkeypatch):
     "test_restart_budget_still_caps_crash_loops",
     "test_restart_decay_disabled_with_zero_window",
     "test_decision_trail_renders",
+    "test_scaling_bounded_passes_clean_history",
+    "test_scaling_bounded_flags_band_and_arithmetic",
+    "test_scaling_bounded_flags_cooldown_thrash",
+    "test_no_elastic_strike_flags_struck_victim",
 ])
 def test_autoscale_case_on_both_packages(case, pkg, tmp_path):
     """Each case of tests/test_autoscale.py, unchanged, on the
     package's autoscaler, controller and spool protocol."""
     getattr(jcases, case)(tmp_path)
+
+
+def test_scenario_validates_surge_and_flap(pkg):
+    jcases.test_scenario_validates_surge_and_flap()
+
+
+@pytest.mark.slow
+def test_controller_elastic_surge_and_lull_e2e(pkg, tmp_path):
+    """The elastic end-to-end case: the package's controller scales a
+    fleet of the port's stub workers up through a surge and down
+    through the lull, zero strikes, its verifier clean."""
+    jcases.test_controller_elastic_surge_and_lull_e2e(tmp_path)
 
 
 @pytest.mark.parametrize("case", [

@@ -7,14 +7,18 @@ The JAX package's own tests of tests/test_dataplane.py run here on the
 port's modules (their module globals pointed at the port's, as
 test_torch_serve.py does for the queue contract); the stage-in cases,
 which import the stage-in module inside their bodies, are written out
-against the port's.  A store one package writes is verified and served
-by the other package's store and gateway, in both directions.
+against the port's; the chaos cases (the spool-less storm, the
+packaged dataplane_smoke scenario, the scenario's data-plane rules)
+run on the port's chaos harness, whose modules they import inside
+their bodies.  A store one package writes is verified and served by
+the other package's store and gateway, in both directions.
 
 Everything compares exactly: bytes, digests, refcounts, index rows.
 No device work; each test takes well under a second."""
 
 from __future__ import annotations
 
+import inspect
 import os
 import types
 
@@ -23,12 +27,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import test_dataplane as jax_dataplane  # noqa: E402
+import tpulsar.chaos.runner  # noqa: E402
 from test_torch_slice import one_torch_thread  # noqa: E402, F401
 from tpulsar.dataplane import blobstore as jblobstore  # noqa: E402
 from tpulsar.dataplane import transfer as jtransfer  # noqa: E402
 from tpulsar.frontdoor import queue as jfq  # noqa: E402
 from tpulsar.frontdoor.gateway import GatewayServer as JGateway  # noqa: E402
 from tpulsar.resilience import faults as jfaults  # noqa: E402
+from tpulsar_torch.chaos import invariants as tinvariants  # noqa: E402
+from tpulsar_torch.chaos import runner as trunner  # noqa: E402
+from tpulsar_torch.chaos import scenario as tscenario  # noqa: E402
 from tpulsar_torch.dataplane import blobstore as tblobstore  # noqa: E402
 from tpulsar_torch.dataplane import index as tindex  # noqa: E402
 from tpulsar_torch.dataplane import transfer as ttransfer  # noqa: E402
@@ -195,6 +203,29 @@ def test_stage_blobs_refuses_a_lying_store(tmp_path, monkeypatch):
          "blobs": {"beam.dat": digest}}, str(tmp_path / "work"))
     assert "BlobVerifyError" in prep.error
     assert os.listdir(tmp_path / "work") == []
+
+
+# ------------------------------------------ the spool-less chaos storm
+
+@pytest.mark.parametrize("name", [
+    "test_spoolless_storm_stages_by_digest_and_indexes",
+    "test_packaged_dataplane_scenario_loads",
+    "test_scenario_dataplane_validation",
+])
+def test_chaos_dataplane_case(name, tmp_path, monkeypatch):
+    """tests/test_dataplane.py's chaos cases on the port's harness: the
+    spool-less storm (two of the port's stub workers staging in by
+    digest from the port's gateway CAS, one SIGKILLed; every artifact
+    re-hashes clean, the index rows equal the outdir parse, the port's
+    verifier clean), the packaged scenario and its validation."""
+    monkeypatch.setattr(tpulsar.chaos, "invariants", tinvariants)
+    monkeypatch.setattr(tpulsar.chaos, "runner", trunner)
+    monkeypatch.setattr(tpulsar.chaos, "scenario", tscenario)
+    fn = _port(name)
+    if inspect.signature(fn).parameters:
+        fn(tmp_path)
+    else:
+        fn()
 
 
 # --------------------------------------- a CAS across the packages

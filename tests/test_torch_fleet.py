@@ -9,10 +9,11 @@ CPU (w0 crashed mid-beam by the ``fleet.worker`` fault, its beam
 taken over by w1 and equal to the port's solo job on that beam), and
 the controller's import without torch.
 
-The stub worker of every controller case is the JAX package's
-protocol-faithful ``python -m tpulsar.chaos.worker`` (given through
-``worker_cmd``): the spool, journal and heartbeat files are the same
-in both packages, so one stub drives either controller.
+The stub worker of every controller case is the port's
+protocol-faithful ``python -m tpulsar_torch.chaos.worker`` (given
+through ``worker_cmd``; tests/test_torch_chaos.py holds it to the JAX
+package's): the spool, journal and heartbeat files are the same in
+both packages, so one stub drives either controller.
 
 Tolerances: spool records, journal chains, fleet.json and fleet.prom
 lines compare exactly; the served results directory and the solo
@@ -60,6 +61,9 @@ PACKAGES = {
                   faults=tfaults),
 }
 TELEMETRY = {"jax": jtelemetry, "torch": ttelemetry}
+#: the port's stub worker, in place of the JAX package's
+#: (tests/test_fleet.py's _STUB_ARGV)
+PORT_STUB = [sys.executable, "-m", "tpulsar_torch.chaos.worker"]
 CLI = {"jax": jcli_main, "torch": tcli_main}
 
 
@@ -76,6 +80,7 @@ def pkg(request, monkeypatch):
     pointed at its controller, protocol, journal and faults."""
     for name, mod in PACKAGES[request.param].items():
         monkeypatch.setattr(jfleet, name, mod)
+    monkeypatch.setattr(jfleet, "_STUB_ARGV", PORT_STUB)
     return request.param
 
 
@@ -89,7 +94,7 @@ def pkg(request, monkeypatch):
 ])
 def test_controller_case_on_both_packages(case, pkg, tmp_path):
     """Each controller case of tests/test_fleet.py, unchanged, on the
-    package's controller (the JAX stub worker on the package's
+    package's controller (the port's stub worker on the package's
     spool)."""
     getattr(jfleet, case)(tmp_path)
 

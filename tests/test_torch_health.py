@@ -7,14 +7,17 @@ render_alerts equal on the same seeded frames; a HealthDetector tick
 of each package on copies of one journal and spool persisting the
 same alerts.json rule set; merge_snapshots, slo_snapshot, render_top
 and stitch equal on one fleet's spool; the 12 new families matching
-the JAX catalog; and both halves of the port's ``doctor``.
+the JAX catalog; both halves of the port's ``doctor``; and the
+alert-fidelity cases of tests/test_health.py (the chaos verifier's
+alert sweeps and injected fault classes) on both packages' chaos
+harnesses.
 
 Every comparison is exact (the modules are copies working on the
 same files); wall-clock fields (alerts' ``since``, a file's ``t``)
-are left out of them.  The blackbox reader cases
-(load_blackbox/render_blackbox) and the chaos-invariant cases of
-tests/test_health.py wait for the port's ``obs`` command and chaos
-harness."""
+are left out of them.  The stub fleet's worker is the port's ``python
+-m tpulsar_torch.chaos.worker``.  The blackbox reader cases
+(load_blackbox/render_blackbox) of tests/test_health.py wait for the
+port's ``obs`` command."""
 
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ torch = pytest.importorskip("torch")
 
 import test_fleet as jfleet  # noqa: E402
 import test_health as jhealth_cases  # noqa: E402
+import tpulsar.chaos  # noqa: E402
+from test_torch_fleet import PORT_STUB  # noqa: E402
 from test_torch_checkpoint import ROOT  # noqa: E402
 from test_torch_obs import _catalog  # noqa: E402
 from tpulsar.cli.main import main as jcli_main  # noqa: E402
@@ -44,6 +49,8 @@ from tpulsar.obs import metrics as jmetrics  # noqa: E402
 from tpulsar.obs import telemetry as jtelemetry  # noqa: E402
 from tpulsar.resilience import faults as jfaults  # noqa: E402
 from tpulsar.serve import protocol as jprotocol  # noqa: E402
+from tpulsar_torch.chaos import invariants as tinvariants  # noqa: E402
+from tpulsar_torch.chaos import scenario as tscenario  # noqa: E402
 from tpulsar_torch.cli.main import main as tcli_main  # noqa: E402
 from tpulsar_torch.obs import alerts as talerts  # noqa: E402
 from tpulsar_torch.obs import fleetview as tfleetview  # noqa: E402
@@ -117,6 +124,31 @@ def test_detector_case_on_both_packages(case, pkg, tmp_path):
     """Each rules-file and detector case of tests/test_health.py,
     unchanged, on the package's detector."""
     getattr(jhealth_cases, case)(tmp_path)
+
+
+@pytest.mark.parametrize("case", [
+    "test_alert_sweep_false_alarm_detected",
+    "test_alert_sweep_missed_alarm_gated_on_doctor",
+    "test_injected_classes_from_schedule_and_worker_args",
+])
+def test_alert_fidelity_case_on_both_packages(case, pkg, tmp_path,
+                                              monkeypatch):
+    """Each alert-fidelity case of tests/test_health.py, unchanged, on
+    the package's chaos verifier and scenario paths (the cases import
+    them inside their bodies, from the package the fixture names)."""
+    if pkg == "torch":
+        monkeypatch.setattr(tpulsar.chaos, "invariants", tinvariants)
+        monkeypatch.setattr(tpulsar.chaos, "scenario", tscenario)
+    getattr(jhealth_cases, case)(tmp_path)
+
+
+def test_alert_fidelity_invariants_registered(pkg, monkeypatch):
+    """The alert-fidelity invariants are registered in the package's
+    verifier, and every rule its fault-class maps name is a rule of
+    the package's pack."""
+    if pkg == "torch":
+        monkeypatch.setattr(tpulsar.chaos, "invariants", tinvariants)
+    jhealth_cases.test_alert_fidelity_invariants_registered()
 
 
 def test_flight_recorder_disabled_and_clean_exit(pkg, tmp_path,
@@ -239,10 +271,13 @@ def test_render_alerts_equal():
 @pytest.fixture(scope="module")
 def fleet_spool(tmp_path_factory):
     """One stub fleet's spool: the JAX controller's crash-recovery
-    case (two stub workers, w0 crashing on its first beam), then the
-    journal's worker metric snapshots and a trace file for one beam."""
+    case (two of the port's stub workers, w0 crashing on its first
+    beam), then the journal's worker metric snapshots and a trace file
+    for one beam."""
     tmp = tmp_path_factory.mktemp("fleet")
-    jfleet.test_controller_crash_recovery_exactly_once(tmp)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jfleet, "_STUB_ARGV", PORT_STUB)
+        jfleet.test_controller_crash_recovery_exactly_once(tmp)
     spool = str(tmp / "spool")
     reg = jmetrics.Registry()
     reg.counter("tpulsar_serve_beams_total", "beams",

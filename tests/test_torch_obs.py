@@ -233,6 +233,24 @@ def test_front_door_and_data_plane_families_match_the_jax_catalog(name):
         assert port[name].get(key) == catalog[name].get(key), key
 
 
+@pytest.mark.parametrize("name", [
+    "tpulsar_chaos_actions_total",
+    "tpulsar_chaos_violations_total",
+])
+def test_chaos_families_match_the_jax_catalog(name):
+    """The chaos harness's families (the conductor's timeline actions,
+    the verifier's violations) are in the port's catalog with the JAX
+    catalog's type, help and labels."""
+    from tpulsar.obs import telemetry as jtelemetry
+    from tpulsar_torch.obs import telemetry as ttelemetry
+
+    catalog = _catalog(jtelemetry)
+    port = _catalog(ttelemetry)
+    assert name in port, name
+    for key in ("type", "help", "labelnames", "buckets"):
+        assert port[name].get(key) == catalog[name].get(key), key
+
+
 def test_stage_timer_is_one_span_and_one_observation():
     ttrace.start(clear=True)
     try:

@@ -796,7 +796,7 @@ def test_cli_has_the_jax_daemon_commands_and_flags():
     for name in names:
         assert tc[name] == jc[name], name
     assert flags(tparser()) == flags(jparser())
-    assert len(tc) == 20        # with the fleet's `fleet` and `doctor`
+    assert len(tc) == 21        # with `fleet`, `doctor` and `chaos`
 
 
 def _daemon_config(root, **extra) -> str:

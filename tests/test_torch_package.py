@@ -68,6 +68,9 @@ import tpulsar_torch.stream.dedisp_state, tpulsar_torch.stream.trigger
 import tpulsar_torch.stream.worker
 import tpulsar_torch.fleet, tpulsar_torch.fleet.controller
 import tpulsar_torch.fleet.autoscale
+import tpulsar_torch.chaos, tpulsar_torch.chaos.scenario
+import tpulsar_torch.chaos.worker, tpulsar_torch.chaos.runner
+import tpulsar_torch.chaos.invariants
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tpulsar" or m.startswith("tpulsar."))
@@ -142,6 +145,25 @@ def test_serve_entry_point_pulls_in_no_jax_and_nothing_of_tpulsar():
     lines = res.stdout.splitlines()
     assert "EXIT:0" in lines and any("--device" in ln for ln in lines)
     assert [ln for ln in lines if ln.startswith("BAD:")][-1] == "BAD:"
+
+
+def test_chaos_control_plane_imports_no_torch():
+    """The chaos harness is control plane: importing its stub worker,
+    runner and verifier in a fresh interpreter loads no torch, no jax
+    and nothing of tpulsar (a stub boots in milliseconds; only the
+    serve workers a storm spawns touch the device)."""
+    probe = ("import sys\n"
+             "import tpulsar_torch.chaos.worker, "
+             "tpulsar_torch.chaos.runner, tpulsar_torch.chaos.invariants\n"
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'jaxlib', 'tpulsar'))\n"
+             "print('BAD:' + ','.join(bad))\n")
+    res = subprocess.run([sys.executable, "-c", probe],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, cwd=str(ROOT),
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "BAD:"
 
 
 def test_source_never_imports_jax_or_tpulsar():

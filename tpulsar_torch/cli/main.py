@@ -38,6 +38,17 @@ Subcommands so far:
             (``--root``) or through a gateway (``--url``).
   queue   — ``queue fsck`` of a spool or sqlite queue.
   index   — rebuild/fsck/query the candidate index.
+  chaos   — the chaos harness (chaos/): ``run`` a seeded scenario (a
+            controller-supervised fleet of stub, stream or ``serve``
+            workers, optionally behind the gateway, under a timeline
+            of kills, fault windows, gateway restarts and janitor
+            pauses; exit 1 unless the storm quiesced), ``verify`` the
+            system invariants over a spool or queue (exit 1 on any
+            violation; ``--tail`` follows a live run), ``report`` the
+            post-run digest with the MTTR of each kill.  A ``serve``
+            storm runs its workers on the card; without a GPU the
+            scenario's workers need ``--device cpu`` (the runner's
+            ``worker_extra_args``).
 
 and the orchestration daemons and their operator commands
 (orchestrate/; the JAX CLI's, with the same tracker DB, results DB and
@@ -64,8 +75,8 @@ takes no ``--device`` and never initializes CUDA (the doctor's device
 probe runs in a subprocess); the gateway, the fleet controller and
 the daemons start and run on a host with no GPU.  The per-beam job
 keeps its own entry point, ``python -m tpulsar_torch.cli.search_job``.
-The JAX CLI's other subcommands (obs, chaos, lint, plan, ...) are not
-ported yet.
+The JAX CLI's other subcommands (aot, checkpoint, lint, obs, plan,
+search, trace) are not ported yet: 21 of its 28 are.
 """
 
 from __future__ import annotations
@@ -339,6 +350,94 @@ def _index_queue(args, spool):
     from tpulsar_torch.frontdoor.queue import get_ticket_queue
     q = get_ticket_queue(url)
     return q, q.journal_root or spool
+
+
+def cmd_chaos(args):
+    """The chaos harness (chaos/; the JAX CLI's command):
+
+      run    — execute a declarative, seeded scenario: stand up a
+               controller-supervised fleet (optionally behind the
+               HTTP gateway) on a spool, submit a synthetic beam
+               workload, run the failure timeline (worker kills,
+               fault windows via the shared schedule file, gateway
+               restarts), quiesce, and write the run manifest
+      verify — replay the journal + spool + result store and assert
+               the system invariants (exactly-once, no lost ticket,
+               attempts discipline, quotas, trace ids, side-files);
+               exit 1 on any violation; --tail audits live
+      report — the post-run digest: actions, per-status counts,
+               MTTR after each kill, and the invariant verdict
+
+    The verifier is deliberately scenario-independent: it audits any
+    spool a fleet has run on, chaos-conducted or not."""
+    import json as _json
+
+    from tpulsar_torch.chaos import invariants, runner, scenario
+    from tpulsar_torch.obs import telemetry
+
+    spool = args.spool
+    if not spool:
+        from tpulsar_torch.config import settings
+        spool = _serve_spool(settings())
+    if args.chaos_cmd == "run":
+        sc = scenario.load(args.scenario)
+        url = sc.effective_queue_url(spool, override=args.queue)
+        print(f"chaos run: scenario {sc.name!r} (seed {sc.seed}, "
+              f"{sc.workers} {sc.worker_kind} worker(s)"
+              + (", gateway" if sc.gateway else "")
+              + f") on spool {spool}"
+              + (f" queue {url}" if not url.startswith("spool:")
+                 else ""), flush=True)
+        manifest = runner.run_scenario(sc, spool,
+                                       queue_url=args.queue)
+        print(_json.dumps({k: manifest[k] for k in
+                           ("scenario", "status", "quiesced",
+                            "wall_s", "tickets", "actions")},
+                          indent=1))
+        return 0 if manifest["quiesced"] else 1
+    from tpulsar_torch.serve import protocol as _protocol
+    # the manifest is ALWAYS consulted for run facts (quiesced);
+    # --scenario only overrides the contract inputs (tenant table,
+    # attempts cap) — quiescence is a property of the run, not the
+    # scenario
+    manifest = _protocol._read_json(scenario.run_path(spool))
+    tenants = (manifest or {}).get("tenants") or {}
+    max_attempts = (manifest or {}).get("max_attempts",
+                                        args.max_attempts)
+    if args.scenario:
+        sc = scenario.load(args.scenario)
+        tenants, max_attempts = sc.tenants, sc.max_attempts
+    # the audit target: --queue override > the manifest's recorded
+    # queue_url > the bare spool (the 'sqlite' token expands to the
+    # run's queue.db, mirroring the scenario field)
+    target = args.queue or (manifest or {}).get("queue_url") or ""
+    if target == "sqlite":
+        target = f"sqlite:{os.path.join(spool, 'queue.db')}"
+    target = target or spool
+    if args.chaos_cmd == "verify":
+        if args.tail:
+            report = invariants.tail_verify(
+                target, tenants=tenants, max_attempts=max_attempts,
+                timeout_s=args.timeout)
+        else:
+            quiesced = not args.live and (
+                manifest is None or bool(manifest.get("quiesced",
+                                                      True)))
+            report = invariants.verify(
+                target, tenants=tenants, max_attempts=max_attempts,
+                quiesced=quiesced)
+        print(invariants.render_verify(report))
+        for name, n in report["invariants"].items():
+            if n:
+                telemetry.chaos_violations_total().inc(
+                    n, invariant=name)
+        return 0 if report["ok"] else 1
+    if args.chaos_cmd == "report":
+        print(invariants.render_report(target))
+        return 0
+    return 2
+
+
 
 
 def cmd_queue(args):
@@ -1298,6 +1397,65 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--interval", type=float, default=2.0)
     sp.add_argument("--once", action="store_true")
     sp.set_defaults(fn=cmd_monitor)
+
+    sp = sub.add_parser(
+        "chaos",
+        help="chaos harness: run a seeded fleet-wide failure "
+             "scenario (run), audit the journal/spool against the "
+             "system invariants (verify), or print the post-run "
+             "digest incl. MTTR (report)")
+    csub = sp.add_subparsers(dest="chaos_cmd", required=True)
+    cp = csub.add_parser(
+        "run", help="execute a scenario file against a fresh fleet "
+                    "on the spool")
+    cp.add_argument("--scenario", required=True,
+                    help="scenario JSON path, or a packaged name "
+                         "(e.g. ci_smoke)")
+    cp.add_argument("--spool", default=None,
+                    help="spool dir (default: the serve spool)")
+    cp.add_argument("--queue", default="",
+                    help="ticket-queue backend URL for the storm "
+                         "(overrides the scenario's queue_url); the "
+                         "bare token 'sqlite' expands to "
+                         "sqlite:<spool>/queue.db")
+    cp.set_defaults(fn=cmd_chaos)
+    cp = csub.add_parser(
+        "verify", help="assert the system invariants over the "
+                       "spool's journal + state; exit 1 on any "
+                       "violation")
+    cp.add_argument("--spool", default=None)
+    cp.add_argument("--queue", default="",
+                    help="audit this queue backend URL instead of "
+                         "the spool (default: the run manifest's "
+                         "recorded queue_url); 'sqlite' expands to "
+                         "sqlite:<spool>/queue.db")
+    cp.add_argument("--scenario", default=None,
+                    help="scenario providing the tenant table / "
+                         "attempts cap (default: the spool's run "
+                         "manifest)")
+    cp.add_argument("--max-attempts", type=int, default=3)
+    cp.add_argument("--tail", action="store_true",
+                    help="follow the journal live (offset-tailed) "
+                         "and report violations as evidence lands; "
+                         "final full audit on chaos_run_end")
+    cp.add_argument("--timeout", type=float, default=0.0,
+                    help="--tail gives up after this many seconds "
+                         "(0 = until run end / Ctrl-C)")
+    cp.add_argument("--live", action="store_true",
+                    help="audit a still-running fleet: skip the "
+                         "quiesce-only judgments (lost tickets, "
+                         "leftover side-files)")
+    cp.set_defaults(fn=cmd_chaos)
+    cp = csub.add_parser(
+        "report", help="post-run digest: actions, statuses, MTTR "
+                       "per kill, invariant verdict")
+    cp.add_argument("--spool", default=None)
+    cp.add_argument("--queue", default="",
+                    help="report against this queue backend URL "
+                         "(default: the run manifest's queue_url)")
+    cp.add_argument("--scenario", default=None)
+    cp.add_argument("--max-attempts", type=int, default=3)
+    cp.set_defaults(fn=cmd_chaos)
 
     sp = sub.add_parser(
         "serve",

@@ -23,6 +23,8 @@ whichever package searched it.
     journal-derived SLO, ticket and event-rate gauges fleetview.py
     builds into a caller-owned registry) and the health doctor's
     ``tpulsar_alerts_active`` (obs/health.py);
+  * the chaos harness's (chaos/runner.py's timeline actions, the
+    verifier's violations);
   * ``event_record``, the one heartbeat/journal event shape.
 
 The compile-cache family is the JAX package's alone: nothing in this
@@ -586,6 +588,24 @@ def stream_triggers_total() -> metrics.Counter:
         "rate; zero over a session with injected pulses is a "
         "detection regression, not quiet sky",
     )
+
+
+def chaos_actions_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_chaos_actions_total",
+        "chaos-conductor timeline actions executed (kill_worker | "
+        "stop_worker | cont_worker | restart_gateway | "
+        "pause_janitor | submit_refused)",
+        labelnames=("action",))
+
+
+def chaos_violations_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_chaos_violations_total",
+        "invariant violations reported by the chaos verifier, by "
+        "invariant name — nonzero means the serving contract BROKE "
+        "under the scenario, alert at any value",
+        labelnames=("invariant",))
 
 
 # --------------------------------------------------------------------
