@@ -194,9 +194,28 @@ these phases:
      use.  Then the packaged ci_smoke scenario (stub workers) through
      `chaos run` and `chaos verify` as subprocesses.
 
-Phases 4-7 and 9-11 search with the zaplist the job picks under the
-default configuration (the packaged default.zaplist), as the server
-does.
+  12. operator surface (run after phase 9, on phase 7's beam, held
+     against its solo search): `python -m tpulsar_torch search <beam>
+     --outdir D` in a subprocess on the card with TPULSAR_TRACE=1
+     (through the same wrapper: plots off, the cleaned checkpoint kept,
+     launches counted from the process start): exit 0, the results
+     equal to phase 7's solo search's with the trace file set aside,
+     the pulsar folded, both kernels launched as often as there.  Then
+     in this process, through the CLI's main: `trace D` (the span
+     table) and tools/torch_trace_summarize.py --compare-report (5%,
+     50 ms), `plan <beam>` (the 57-pass Mock survey plan of the
+     header), `checkpoint` of the kept checkpoint (every artifact
+     listed, `--verify` exit 0; a copy with one byte of a pass flipped:
+     exit 1 naming it), and `obs timeline stolen`, `obs top --once`
+     and `obs tail --lines 5` over phase 10's sqlite queue (claimed by
+     w0, the takeover from w0, claimed by w1, one result; w0 and w1
+     named) and `obs timeline` of the ticket phase 11 took over from
+     w0.  It prints the search's wall, its .report stages, the trace's
+     top spans and the phase's seconds.
+
+Phases 4-7, 9-11 and 12 search with the zaplist the job picks under
+the default configuration (the packaged default.zaplist), as the
+server does.
 
 Output: progress lines, then the card's name and power limit, one JSON
 line with every kernel's numbers, and as the last line
@@ -207,6 +226,7 @@ it imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -1429,16 +1449,20 @@ def truncate_checkpoint(ckdir: str, keep_passes: int) -> list[str]:
     return dropped
 
 
-def results_diff():
-    """tools/torch_results_diff.py of this checkout, loaded by path."""
+def tool(name: str):
+    """tools/<name>.py of this checkout, loaded by path."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "tools", "torch_results_diff.py")
-    spec = importlib.util.spec_from_file_location("torch_results_diff",
-                                                  path)
+                        "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def results_diff():
+    """tools/torch_results_diff.py of this checkout."""
+    return tool("torch_results_diff")
 
 
 def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
@@ -1523,13 +1547,17 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
 #: does) with plots off, as phase 4 searches (the card's machine has
 #: no matplotlib); resets the kernels' launch counts and the peak
 #: device memory right after the server's boot and writes them, with
-#: the boot's own counts, to $SMOKE_COUNTS at exit; keeps a copy of
-#: each checkpoint the job cleans, beside its output directory, as
-#: <outdir>.checkpoint.  With $SMOKE_HOLD set (phase 10's fleet
-#: workers) it also writes the boot's counts to $SMOKE_COUNTS.booted
-#: and claims nothing until the file $SMOKE_HOLD exists
+#: the boot's own counts, to $SMOKE_COUNTS at exit (a command without a
+#: boot, phase 12's `search`, counts from the process start), with its
+#: start and end times; keeps a copy of each checkpoint the job cleans,
+#: beside its output directory, as <outdir>.checkpoint.  With
+#: $SMOKE_HOLD set (phase 10's fleet workers) it also writes the boot's
+#: counts to $SMOKE_COUNTS.booted and claims nothing until the file
+#: $SMOKE_HOLD exists
 SERVE_WRAPPER = r"""
-import dataclasses, json, os, runpy, shutil, sys, time
+import time
+t_start = time.time()
+import dataclasses, json, os, runpy, shutil, sys
 import torch
 from tpulsar_torch import checkpoint
 from tpulsar_torch.kernels import cuda_dd
@@ -1574,6 +1602,7 @@ try:
 finally:
     counts["served"] = dict(cuda_dd.LAUNCHES)
     counts["peak_bytes"] = torch.cuda.max_memory_allocated()
+    counts["t_start"], counts["t_end"] = t_start, time.time()
     with open(os.environ["SMOKE_COUNTS"], "w") as fh:
         json.dump(counts, fh)
 """
@@ -2366,7 +2395,8 @@ def fleet_phase(tmp: str, plan, p7: dict) -> dict:
         f"fleet --status {status_s:.3f} s")
     log(f"phase 10 journal chains: {json.dumps(chains)}")
     return dict(launches=c1["served"], want=want, beam_s=beam_s,
-                boot_s=boots, resumed=resumed,
+                boot_s=boots, resumed=resumed, spool=spool,
+                queue_url=queue_url,
                 takeover_s=t_steal - t_kill, reclaim_s=t_reclaim - t_kill,
                 alert_s=t_alert - t_kill, peak_bytes=mem.peak,
                 w1_peak_bytes=c1["peak_bytes"], phase_s=phase_wall,
@@ -2680,7 +2710,8 @@ def chaos_phase(tmp: str, plan, p7: dict) -> dict:
                 mttr_s=float(m.group(3)), storm_s=manifest["wall_s"],
                 phase_s=phase_wall, peak_bytes=mem.peak,
                 resumed={t: len(v) for t, v in resumed.items()},
-                ci_run_s=ci_run_s)
+                ci_run_s=ci_run_s, spool=spool, queue_url=queue_url,
+                victim=steals[0]["ticket"])
 
 
 #: the per-beam job of phase 9 (its jobpooler.submit_script runs this
@@ -3630,6 +3661,225 @@ def stream_phase() -> dict:
                 replayed=r2["replayed"], triggers=len(recs))
 
 
+#: the seconds phase 12 allows its search subprocess (a quarter beam:
+#: phase 7's solo search takes 32-35 s, a process start ~10 s)
+OPS_SEARCH_TIMEOUT_S = 300
+
+
+def ops_cli(*args) -> tuple[int, str]:
+    """`python -m tpulsar_torch ARGS` in this process (cli.main.main,
+    which the package's __main__ calls): its exit code, and its
+    standard output followed by its standard error."""
+    from tpulsar_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main.main([str(a) for a in args])
+    return rc, out.getvalue() + err.getvalue()
+
+
+def _check_cli(what: str, rc: int, text: str, want_rc: int = 0) -> str:
+    if rc != want_rc:
+        raise AssertionError(f"phase 12: `{what}` exited {rc} (expected "
+                             f"{want_rc}):\n{text[-4000:]}")
+    return text
+
+
+def _timeline_rows(text: str) -> list[tuple[str, str, str]]:
+    """(event, worker, detail) of each row of `obs timeline`."""
+    rows = []
+    for line in text.splitlines()[3:]:
+        parts = line.split(None, 5)
+        if len(parts) >= 4 and re.match(r"-?[\d.]+$", parts[0]):
+            rows.append((parts[2], parts[3], line))
+    return rows
+
+
+def _check_takeover_chain(text: str, tid: str, what: str,
+                          reclaim: str | None) -> list[str]:
+    """The timeline holds, in order: claimed by w0, a takeover from w0,
+    a claim by `reclaim` (any worker if None), and exactly one result;
+    returns the chain's (event, worker) steps."""
+    rows = _timeline_rows(text)
+    steps, want = [], [("claimed", "w0"), ("takeover", "from_worker=w0"),
+                       ("claimed", reclaim), ("result", None)]
+    for ev, worker, line in rows:
+        if not want:
+            break
+        w_ev, w_who = want[0]
+        if ev == w_ev and (w_who is None or worker == w_who
+                           or (w_ev == "takeover" and w_who in line)):
+            steps.append(f"{ev} from w0" if ev == "takeover"
+                         else f"{ev} {worker}")
+            want.pop(0)
+    results = [r for r in rows if r[0] == "result"]
+    if want or len(results) != 1:
+        raise AssertionError(f"phase 12: `obs timeline {tid}` ({what}) "
+                             f"lacks {want} or has {len(results)} "
+                             f"results:\n{text[-3000:]}")
+    return steps
+
+
+def ops_phase(tmp: str, p7: dict, fleet: dict, chaos: dict) -> dict:
+    """Phase 12: the operator surface.  `python -m tpulsar_torch search`
+    in a subprocess on the card over phase 7's beam, with TPULSAR_TRACE=1
+    (and no TPULSAR_TRACE_SYNC), through SERVE_WRAPPER: exit 0, results
+    equal to phase 7's solo search's (the trace file set aside), the
+    pulsar folded, both kernels launched as often as phase 7's solo
+    search.  Then, in this process: `trace` and
+    tools/torch_trace_summarize.py --compare-report over its output,
+    `plan` of the beam (the 57-pass Mock survey plan), `checkpoint
+    [--verify]` of the checkpoint the job cleaned (and of a copy with
+    one byte flipped: exit 1, the artifact named), and `obs timeline |
+    top | tail` over phase 10's sqlite queue and a phase 11 ticket."""
+    from tpulsar_torch.io import datafile
+    from tpulsar_torch.obs import trace as trace_lib
+
+    fns, solo = p7["fns"], p7["solo"]
+    t_phase = time.time()
+    srv = server_setup(tmp, "ops")
+    out = os.path.join(tmp, "ops_search")
+    env = dict(srv["env"], TPULSAR_TRACE="1")
+    env.pop("TPULSAR_TRACE_SYNC", None)
+    cmd = [sys.executable, "-c", SERVE_WRAPPER, "--config", srv["cfg"],
+           "search", *fns, "--outdir", out]
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    try:
+        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=OPS_SEARCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(
+            f"phase 12: `search` did not end within "
+            f"{OPS_SEARCH_TIMEOUT_S} s:\n{(e.stdout or '')[-3000:]}"
+            f"\n{(e.stderr or '')[-3000:]}") from None
+    wall = time.time() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"phase 12: `search` exited "
+                             f"{res.returncode}:\n{res.stdout[-3000:]}\n"
+                             f"{res.stderr[-3000:]}")
+    with open(srv["counts"]) as fh:
+        counts = json.load(fh)
+    launches = counts["served"]
+    base = solo["basenm"]
+    trace_name = f"{base}_trace.json"
+    names = sorted(os.listdir(out))
+    if trace_name not in names:
+        raise AssertionError(f"phase 12: no {trace_name} in {names}")
+    cmp_dir = os.path.join(tmp, "ops_cmp")
+    os.makedirs(cmp_dir)
+    for name in names:
+        if name != trace_name and not name.endswith(".stderr"):
+            os.link(os.path.join(out, name), os.path.join(cmp_dir, name))
+    problems = results_diff().diff_results(solo["resultsdir"], cmp_dir)
+    if problems:
+        raise AssertionError("phase 12: the search command's results "
+                             "differ from phase 7's solo search's: "
+                             + "; ".join(problems[:10]))
+    check_pulsar(out, base, "phase 12")
+    want = {k: solo["launches"][k] for k in SOLO_KERNELS}
+    got = {k: launches.get(k, 0) for k in SOLO_KERNELS}
+    if got != want or launches.get("dedisperse_subbands_beams"):
+        raise AssertionError(f"phase 12: the search command's launches "
+                             f"{launches} != phase 7's solo search's "
+                             f"{want}")
+    stages = report_stages(os.path.join(out, f"{base}.report"))
+    log(f"phase 12: `search` exited 0 in {wall:.3f} s (process "
+        f"{counts['t_end'] - counts['t_start']:.3f} s from its first "
+        f"line); {len(names) - 1} results files equal phase 7's solo "
+        f"search's (the trace file set aside); launches {got} (phase 7's "
+        f"solo search's); .report stages: "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+
+    # (b) the trace: `trace`, and the summarize tool against the .report
+    t_cmds = time.time()
+    text = _check_cli("trace", *ops_cli("trace", out))
+    if "search_block" not in text or "dm_chunk" not in text:
+        raise AssertionError(f"phase 12: `trace` printed no span table:"
+                             f"\n{text[-3000:]}")
+    roll = trace_lib.summarize_file(os.path.join(out, trace_name))["rollup"]
+    top = sorted(roll, key=lambda n: -roll[n]["seconds"])[:6]
+    log("phase 12: trace top spans: " + ", ".join(
+        f"{n} {roll[n]['seconds']:.3f} s x{roll[n]['count']}" for n in top))
+    ts = tool("torch_trace_summarize")
+    report = os.path.join(out, f"{base}.report")
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = ts.main([out, "--compare-report", report])
+    _check_cli("tools/torch_trace_summarize.py --compare-report", rc,
+               buf.getvalue() + err.getvalue())
+    log(f"phase 12: {buf.getvalue().strip().splitlines()[-1]}")
+
+    # (c) the plan of the beam's header: the 57-pass Mock survey plan
+    text = _check_cli("plan", *ops_cli("plan", *fns))
+    _steps, obs, _nsub = ddplan.plan_for(
+        datafile.autogen_dataobj(fns).specinfo, 0.0, 1000.0, 96)
+    survey = ddplan.survey_plan("pdev")
+    npass = sum(s.numpasses for s in survey)
+    if text.strip() != ddplan.describe_plan(survey, obs).strip() or \
+            npass != 57:
+        raise AssertionError(f"phase 12: `plan` printed another plan "
+                             f"({npass} passes):\n{text}")
+
+    # (d) the checkpoint the job cleaned (kept by the wrapper)
+    kept = out + ".checkpoint"
+    entries = (ckpt.read_manifest(kept) or {}).get("entries") or {}
+    passes = sorted(k for k in entries if k.startswith("pass_"))
+    text = _check_cli("checkpoint", *ops_cli("checkpoint", kept))
+    missing = [k for k in entries if f"  {k} " not in text]
+    if len(passes) != npass or missing:
+        raise AssertionError(f"phase 12: `checkpoint` of {len(entries)} "
+                             f"artifacts ({len(passes)} passes) lacks "
+                             f"{missing}:\n{text[-3000:]}")
+    _check_cli("checkpoint --verify", *ops_cli("checkpoint", kept,
+                                               "--verify"))
+    bad = kept + ".flipped"
+    shutil.copytree(kept, bad)
+    victim = passes[len(passes) // 2]
+    with open(os.path.join(bad, entries[victim]["file"]), "r+b") as fh:
+        b = fh.read(1)
+        fh.seek(0)
+        fh.write(bytes([b[0] ^ 0xFF]))
+    text = _check_cli("checkpoint --verify (one byte flipped)",
+                      *ops_cli("checkpoint", bad, "--verify"), want_rc=1)
+    flagged = re.findall(r"INVALID (\S+):", text)
+    if flagged != [victim]:
+        raise AssertionError(f"phase 12: `checkpoint --verify` flagged "
+                             f"{flagged}, not {victim}:\n{text[-2000:]}")
+
+    # (e) the ops console over phase 10's sqlite queue and a phase 11
+    # ticket
+    fq_args = ("--queue", fleet["queue_url"], "--spool", fleet["spool"])
+    text = _check_cli("obs timeline stolen",
+                      *ops_cli("obs", "timeline", "stolen", *fq_args))
+    fleet_chain = _check_takeover_chain(text, "stolen", "phase 10", "w1")
+    text = _check_cli("obs top --once",
+                      *ops_cli("obs", "top", "--once", *fq_args))
+    if not re.search(r"^w0 ", text, re.M) or \
+            not re.search(r"^w1 ", text, re.M):
+        raise AssertionError(f"phase 12: `obs top --once` does not name "
+                             f"w0 and w1:\n{text}")
+    text = _check_cli("obs tail --lines 5",
+                      *ops_cli("obs", "tail", "--lines", 5, *fq_args))
+    if len([ln for ln in text.splitlines() if ln.startswith("{")]) != 5:
+        raise AssertionError(f"phase 12: `obs tail --lines 5`:\n{text}")
+    ct = chaos["victim"]
+    text = _check_cli(f"obs timeline {ct}", *ops_cli(
+        "obs", "timeline", ct, "--queue", chaos["queue_url"], "--spool",
+        chaos["spool"]))
+    chaos_chain = _check_takeover_chain(text, ct, "phase 11", None)
+    cmds_s = time.time() - t_cmds
+    phase_s = time.time() - t_phase
+    log(f"phase 12: `trace`, the summarize tool, `plan` ({npass} passes), "
+        f"`checkpoint` of {len(entries)} artifacts, `--verify` (clean, "
+        f"then {victim} flagged), `obs timeline|top|tail` in "
+        f"{cmds_s:.3f} s; timelines: stolen {fleet_chain}, {ct} "
+        f"{chaos_chain}; the phase {phase_s:.1f} s")
+    return dict(launches=got, wall_s=wall, stages=stages, cmds_s=cmds_s,
+                phase_s=phase_s, top_spans={n: roll[n]["seconds"]
+                                            for n in top})
+
+
 def report_stages(path: str) -> dict:
     """Stage seconds of a beam's .report (its 'Total time' as
     'total')."""
@@ -3677,8 +3927,8 @@ def _passes(plan) -> list:
 
 
 def slice_phase(nsamp: int) -> dict:
-    """The read phase and phases 4 to 7, 10, 11 and 9 on one
-    synthesized beam (phases 7, 10, 11 and 9 on a shorter one of
+    """The read phase and phases 4 to 7, 10, 11, 9 and 12 on one
+    synthesized beam (phases 7, 10, 11, 9 and 12 on a shorter one of
     their own)."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
@@ -3701,6 +3951,8 @@ def slice_phase(nsamp: int) -> dict:
         p4["chaos"] = chaos_phase(tmp, plan, p4["batch"])
         mark("phase 9: pipeline")
         p4["pipeline"] = pipeline_phase(tmp, plan, p4["batch"])
+        mark("phase 12: operator surface")
+        p4["ops"] = ops_phase(tmp, p4["batch"], p4["fleet"], p4["chaos"])
         return p4
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3827,9 +4079,12 @@ def main() -> None:
         # the chaos storm's surviving serve workers (phase 11, after
         # each boot): three quarter beams less the resumed passes
         r["launches_chaos"] = res["chaos"]["launches"].get(name, 0)
+        # `python -m tpulsar_torch search` (phase 12), from its process
+        # start: phase 7's beam searched through the command
+        r["launches_cli"] = res["ops"]["launches"].get(name, 0)
         solo_paths = ("launches", "launches_resumed", "launches_served",
                       "launches_batch", "launches_pipeline",
-                      "launches_fleet", "launches_chaos")
+                      "launches_fleet", "launches_chaos", "launches_cli")
         if name == "dedisperse_subbands":
             r["launches"] = res["launches"][name]
             paths = solo_paths + ("launches_stream",)

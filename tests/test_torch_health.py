@@ -16,8 +16,8 @@ Every comparison is exact (the modules are copies working on the
 same files); wall-clock fields (alerts' ``since``, a file's ``t``)
 are left out of them.  The stub fleet's worker is the port's ``python
 -m tpulsar_torch.chaos.worker``.  The blackbox reader cases
-(load_blackbox/render_blackbox) of tests/test_health.py wait for the
-port's ``obs`` command."""
+(load_blackbox/render_blackbox) of tests/test_health.py run on both
+packages in test_torch_cli_ops.py, beside the ``obs`` command."""
 
 from __future__ import annotations
 
@@ -153,9 +153,9 @@ def test_alert_fidelity_invariants_registered(pkg, monkeypatch):
 
 def test_flight_recorder_disabled_and_clean_exit(pkg, tmp_path,
                                                  monkeypatch):
-    """test_health.py's disable-switch case without the blackbox
-    reader (not ported yet): a disabled, a spool-less and a disarmed
-    recorder leave no dump."""
+    """test_health.py's disable-switch case read without the blackbox
+    reader (test_torch_cli_ops.py runs it with the reader): a disabled,
+    a spool-less and a disarmed recorder leave no dump."""
     health = PACKAGES[pkg]["health"]
     monkeypatch.setenv("TPULSAR_BLACKBOX", "0")
     box = health.FlightRecorder("w0", spool=str(tmp_path))

@@ -166,6 +166,40 @@ def test_chaos_control_plane_imports_no_torch():
     assert res.stdout.strip().splitlines()[-1] == "BAD:"
 
 
+_OPERATOR_PROBE = r"""
+import contextlib, io, sys
+import tpulsar_torch.analysis, tpulsar_torch.analysis.cli
+import tpulsar_torch.config.knobs
+from tpulsar_torch.cli import main
+with contextlib.redirect_stdout(io.StringIO()):
+    rcs = [main.main(["lint", "--list"]),
+           main.main(["obs", "top", "--once", "--spool", sys.argv[1]]),
+           main.main(["obs", "tail", "--spool", sys.argv[1]]),
+           main.main(["obs", "blackbox", "w0", "--spool", sys.argv[1]])]
+print("RCS:" + ",".join(map(str, rcs)))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("torch", "numpy", "jax", "jaxlib", "tpulsar"))
+print("BAD:" + ",".join(bad))
+"""
+
+
+def test_linter_knobs_and_obs_console_import_no_torch(tmp_path):
+    """The contract linter, the knob registry and the obs console are
+    stdlib only: importing them and running `lint --list` and `obs
+    top|tail|blackbox` over an empty spool in a fresh interpreter
+    loads no torch, no numpy, no jax and nothing of tpulsar."""
+    res = subprocess.run([sys.executable, "-c", _OPERATOR_PROBE,
+                          str(tmp_path)],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, cwd=str(ROOT),
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    # tail and blackbox find nothing in an empty spool (exit 1)
+    assert "RCS:0,0,1,1" in lines
+    assert lines[-1] == "BAD:"
+
+
 def test_source_never_imports_jax_or_tpulsar():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
                      r"from\s+tpulsar(\.|\s+import)|import\s+tpulsar\b)",

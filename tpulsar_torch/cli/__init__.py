@@ -1,4 +1,4 @@
 """Command-line entry points — counterpart of tpulsar/cli/: the
-operator CLI ``python -m tpulsar_torch`` (main.py; so far its
-``serve`` subcommand) and the per-beam job
+operator CLI ``python -m tpulsar_torch`` (main.py, also runnable as
+``python -m tpulsar_torch.cli``) and the per-beam job
 ``python -m tpulsar_torch.cli.search_job``."""

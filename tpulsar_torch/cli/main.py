@@ -3,7 +3,7 @@
     python -m tpulsar_torch [--config PATH] [--db PATH] [--debug-*]
         <subcommand> [options]
 
-Subcommands so far:
+Subcommands:
 
   serve   — the resident search server (serve/server.py): one
             device-owning process drains the admission queue, paying
@@ -38,6 +38,22 @@ Subcommands so far:
             (``--root``) or through a gateway (``--url``).
   queue   — ``queue fsck`` of a spool or sqlite queue.
   index   — rebuild/fsck/query the candidate index.
+  search  — one beam through the per-beam job (cli/search_job.py):
+            ``search FILES --outdir DIR [--no-accel]`` plus
+            ``--device`` (cuda, the default, or cpu; without a GPU it
+            exits 2 unless ``--device cpu`` is given).
+  plan    — the dedispersion plan of a file's header, of explicit
+            geometry or of a survey (``--png`` plots it; matplotlib).
+  checkpoint — a beam's checkpoint manifest (either package's: the
+            schema is shared); ``--verify`` re-hashes every artifact
+            (exit 1 on a mismatch).
+  trace   — the span table of a results directory's newest
+            ``<basenm>_trace.json`` (a TPULSAR_TRACE=1 search).
+  obs     — the ops console over a spool or ``--queue``: ``timeline
+            <ticket> [--stitch OUT]``, ``top [--once]``, ``tail [-n N]
+            [--follow]``, ``blackbox [worker]``.
+  lint    — the contract linter (analysis/; exit 0 clean, 1
+            findings, 2 internal error).
   chaos   — the chaos harness (chaos/): ``run`` a seeded scenario (a
             controller-supervised fleet of stub, stream or ``serve``
             workers, optionally behind the gateway, under a timeline
@@ -70,13 +86,13 @@ backend's default worker is ``python -m tpulsar_torch.cli.search_job``,
 which runs on the GPU and fails without one (``jobpooler.submit_script``
 names another command, e.g. one adding ``--device cpu``).
 
-Every command but serve is control plane: it touches no tensor,
-takes no ``--device`` and never initializes CUDA (the doctor's device
-probe runs in a subprocess); the gateway, the fleet controller and
-the daemons start and run on a host with no GPU.  The per-beam job
-keeps its own entry point, ``python -m tpulsar_torch.cli.search_job``.
-The JAX CLI's other subcommands (aot, checkpoint, lint, obs, plan,
-search, trace) are not ported yet: 21 of its 28 are.
+Every command but serve and search is control plane: it touches no
+tensor, takes no ``--device`` and never initializes CUDA (the doctor's
+device probe runs in a subprocess); the gateway, the fleet controller,
+the daemons, the ops console and the linter start and run on a host
+with no GPU.  The per-beam job keeps its own entry point, ``python -m
+tpulsar_torch.cli.search_job``.  The JAX CLI's ``aot`` is not ported
+yet: 27 of its 28 subcommands are.
 """
 
 from __future__ import annotations
@@ -1086,13 +1102,13 @@ def cmd_db_shell(args):
     return 0
 
 
-
 def _obs_queue(args, spool):
-    """Resolve a doctor ``--queue`` URL to (backend, journal root):
-    reads route through the TicketQueue so ``sqlite:`` fleets are
-    first-class, and the filesystem root (worker metric snapshots,
-    alerts.json) follows the backend's journal_root.  The bare token
-    'sqlite' expands to sqlite:<spool>/queue.db."""
+    """Resolve an obs/doctor ``--queue`` URL to (backend, journal
+    root): reads route through the TicketQueue so ``sqlite:`` fleets
+    are first-class, and the filesystem root (worker metric
+    snapshots, blackbox dumps, alerts.json) follows the backend's
+    journal_root.  The bare token 'sqlite' expands to
+    sqlite:<spool>/queue.db, mirroring the chaos commands."""
     url = getattr(args, "queue", "") or ""
     if not url:
         return None, spool
@@ -1101,6 +1117,229 @@ def _obs_queue(args, spool):
     from tpulsar_torch.frontdoor.queue import get_ticket_queue
     q = get_ticket_queue(url)
     return q, q.journal_root or spool
+
+
+def cmd_plan(args):
+    """Show (and optionally plot) the dedispersion plan for an
+    observation or explicit parameters (reference DDplan2b.py CLI)."""
+    from tpulsar_torch.plan import ddplan
+
+    # An explicit DM range suppresses the file-backend survey plan —
+    # the operator's range always wins; --survey always forces the
+    # hardcoded plan.
+    explicit_range = args.lodm is not None or args.hidm is not None
+    lodm = args.lodm if args.lodm is not None else 0.0
+    hidm = args.hidm if args.hidm is not None else 1000.0
+    if args.files:
+        from tpulsar_torch.io import datafile
+        si = datafile.autogen_dataobj(args.files).specinfo
+        survey = args.survey if args.survey is not None else \
+            ("" if explicit_range else None)
+        steps, obs, _nsub = ddplan.plan_for(
+            si, lodm, hidm, args.numsub, survey=survey)
+    else:
+        obs = ddplan.Observation(dt=args.dt, fctr=args.fctr, bw=args.bw,
+                                 numchan=args.numchan,
+                                 blocklen=args.blocklen)
+        if args.survey:
+            steps = ddplan.survey_plan(args.survey)
+        else:
+            steps = ddplan.generate_ddplan(obs, lodm, hidm,
+                                           numsub=args.numsub)
+    print(ddplan.describe_plan(steps, obs))
+    if args.png:
+        print("wrote", ddplan.plot_plan(steps, obs, args.png))
+    return 0
+
+
+def cmd_trace(args):
+    """Summarize the last beam's telemetry trace in a results dir
+    (the `<basenm>_trace.json` a TPULSAR_TRACE=1 search writes):
+    per-span seconds/share/scope-count table, newest file wins.
+    Same find/summarize/render implementation as
+    tools/torch_trace_summarize.py — this is the operator-facing
+    spelling."""
+    from tpulsar_torch.obs import trace as trace_lib
+
+    try:
+        trace_file = trace_lib.find_trace_file(args.path)
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    print(trace_lib.render_summary(trace_lib.summarize_file(
+        trace_file)))
+    return 0
+
+
+def cmd_obs(args):
+    """The fleet ops console (obs/journal.py + fleetview.py +
+    health.py):
+
+      timeline <ticket> — one beam's full lifecycle from the spool's
+                          ticket journal, across every worker that
+                          touched it (claims, steals, quarantine),
+                          with durations between transitions
+      top               — live per-worker state, queue depths, and
+                          journal-derived SLO quantiles (refresh
+                          loop; --once for scripts)
+      tail              — follow the ticket journal as events land
+      blackbox <worker> — render a dead worker's flight-recorder
+                          dump (the last seconds before death)
+
+    All of them read spool/backend state only — no connection to any
+    worker or controller process is needed.  ``--queue`` routes the
+    reads through a ticket-queue backend (the ``sqlite:`` path)."""
+    from tpulsar_torch.config import settings
+    from tpulsar_torch.obs import fleetview, journal
+
+    spool = args.spool or _serve_spool(settings())
+    queue, root = _obs_queue(args, spool)
+    if args.obs_cmd == "timeline":
+        text = journal.render_timeline(root, args.ticket,
+                                       queue=queue)
+        print(text)
+        if args.stitch:
+            import json as _json
+            try:
+                obj = fleetview.stitch(root, args.ticket)
+            except FileNotFoundError as e:
+                print(str(e), file=sys.stderr)
+                return 1
+            with open(args.stitch, "w") as fh:
+                _json.dump(obj, fh)
+            print(f"stitched Perfetto timeline -> {args.stitch} "
+                  f"({len(obj['traceEvents'])} events)")
+        return 0 if not text.startswith("no journal events") else 1
+    if args.obs_cmd == "top":
+        try:
+            while True:
+                text = fleetview.render_top(root, queue=queue)
+                if not args.once:
+                    os.system("clear" if os.name != "nt" else "cls")
+                print(text, flush=True)
+                if args.once:
+                    return 0
+                time.sleep(args.interval)
+        except KeyboardInterrupt:
+            return 0
+    if args.obs_cmd == "blackbox":
+        from tpulsar_torch.obs import health
+        text = health.render_blackbox(root, args.worker)
+        print(text)
+        return 0 if not text.startswith("no blackbox dump") else 1
+    if args.obs_cmd == "tail":
+        # ride the journal's offset-tailed reader: the attach read
+        # replays history once, each poll then costs O(new bytes)
+        # (rotation handled inside read_events; torn appends are
+        # recovered or skipped by its tail-line contract)
+        import json as _json
+
+        def _tail_read(off):
+            # corruption is WARNED and skipped, never fatal: an
+            # operator's tail must keep following past a bad line
+            # (the chaos verifier is the strict reader), and raising
+            # here would stall the loop at the same offset forever
+            bad: list = []
+            try:
+                if queue is not None:
+                    evs, off = queue.read_events_after(off)
+                else:
+                    evs, off = journal.read_events(root,
+                                                   after_offset=off,
+                                                   bad_lines=bad)
+            except OSError:
+                return [], off
+            for b in bad:
+                print(f"# journal corrupt line skipped: "
+                      f"{b['text'][:80]!r}", file=sys.stderr)
+            return evs, off
+
+        events, offset = _tail_read(0)
+        for ev in events[-args.lines:]:
+            print(_json.dumps(ev, sort_keys=True))
+        if not args.follow:
+            return 0 if events else 1
+        try:
+            while True:
+                time.sleep(args.interval)
+                new, offset = _tail_read(offset)
+                for ev in new:
+                    print(_json.dumps(ev, sort_keys=True),
+                          flush=True)
+        except KeyboardInterrupt:
+            return 0
+    return 2
+
+
+def cmd_checkpoint(args):
+    """Inspect/audit a beam's crash-resume checkpoints (checkpoint/;
+    the schema is the JAX package's, so either package's checkpoints
+    read here): render the manifest — fingerprint, one row per
+    artifact (key, kind, bytes, sha256 prefix, age) — and with
+    --verify re-hash every artifact against its manifest entry (exit
+    1 on any mismatch: the beam would recompute those on resume).
+    Accepts either a checkpoint dir or a beam outdir containing
+    ``.checkpoint``."""
+    from tpulsar_torch import checkpoint as ckpt
+
+    root = args.dir
+    if not os.path.exists(ckpt.manifest_path(root)) \
+            and os.path.exists(
+                ckpt.manifest_path(ckpt.default_root(root))):
+        root = ckpt.default_root(root)
+    doc = ckpt.read_manifest(root)
+    if doc is None:
+        print(f"no readable checkpoint manifest under {root} "
+              f"(schema {ckpt.SCHEMA})")
+        return 1
+    entries = doc.get("entries") or {}
+    print(f"checkpoint: {root}")
+    print(f"  schema {doc.get('schema')}  fingerprint "
+          f"{str(doc.get('fingerprint'))[:16]}…  "
+          f"{len(entries)} artifact(s)")
+    now = time.time()
+    for key, e in sorted(entries.items()):
+        age = now - float(e.get("written_at", now))
+        print(f"  {key:<12s} {e.get('kind', '?'):<9s} "
+              f"{e.get('bytes', -1):>10d} B  "
+              f"sha256 {str(e.get('sha256'))[:12]}…  "
+              f"{age:7.1f} s old")
+    if not args.verify:
+        return 0
+    report = ckpt.verify_root(root)
+    bad = [e for e in report["entries"] if not e["ok"]]
+    for e in bad:
+        print(f"  INVALID {e['key']}: {e['reason']}")
+    print("verify: OK — every artifact matches its manifest entry"
+          if report["ok"] else
+          f"verify: {len(bad)} invalid artifact(s) — resume would "
+          f"recompute them")
+    return 0 if report["ok"] else 1
+
+
+def cmd_lint(args):
+    from tpulsar_torch.analysis import cli as lint_cli
+    return lint_cli.run(args)
+
+
+def cmd_search(args):
+    """One beam through the per-beam job (cli/search_job.py), on the
+    card unless --device cpu.  Without a GPU and without --device cpu
+    it exits 2, naming the device, before anything is read."""
+    from tpulsar_torch import resolve_device
+    from tpulsar_torch.cli import search_job
+
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"search: cannot run on device {args.device!r}: {e}",
+              file=sys.stderr)
+        return 2
+    argv = list(args.files) + ["--outdir", args.outdir,
+                               "--device", args.device]
+    if args.no_accel:
+        argv.append("--no-accel")
+    return search_job.main(argv)
 
 
 def _doctor_alerts(args):
@@ -1397,6 +1636,115 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--interval", type=float, default=2.0)
     sp.add_argument("--once", action="store_true")
     sp.set_defaults(fn=cmd_monitor)
+
+    sp = sub.add_parser("plan")
+    sp.add_argument("files", nargs="*", help="observation files")
+    sp.add_argument("--dt", type=float, default=65.476e-6)
+    sp.add_argument("--fctr", type=float, default=1375.5)
+    sp.add_argument("--bw", type=float, default=322.617)
+    sp.add_argument("--numchan", type=int, default=960)
+    sp.add_argument("--blocklen", type=int, default=2048)
+    sp.add_argument("--lodm", type=float, default=None)
+    sp.add_argument("--hidm", type=float, default=None)
+    sp.add_argument("--numsub", type=int, default=96)
+    sp.add_argument("--survey", default=None,
+                    help="use the hardcoded survey plan (pdev|wapp)")
+    sp.add_argument("--png", default=None,
+                    help="also plot the plan (needs matplotlib)")
+    sp.set_defaults(fn=cmd_plan)
+
+    sp = sub.add_parser(
+        "search", help="search one beam through the per-beam job, on "
+                       "the card unless --device cpu")
+    sp.add_argument("files", nargs="+")
+    sp.add_argument("--outdir", required=True)
+    sp.add_argument("--no-accel", action="store_true")
+    sp.add_argument("--device", default="cuda",
+                    help="where the search runs: cuda (default) or "
+                         "cpu; without a GPU the command exits 2 "
+                         "unless cpu is asked for")
+    sp.set_defaults(fn=cmd_search)
+
+    sp = sub.add_parser(
+        "obs",
+        help="fleet observability console: per-ticket lifecycle "
+             "timeline from the spool journal, live fleet top, "
+             "journal tail, and crashed-worker blackbox dumps — all "
+             "from spool/backend state alone")
+    osub = sp.add_subparsers(dest="obs_cmd", required=True)
+
+    def _obs_queue_arg(op):
+        op.add_argument(
+            "--queue", default="",
+            help="route reads through this ticket-queue backend URL "
+                 "(sqlite:<path> / spool:<dir>); the bare token "
+                 "'sqlite' expands to sqlite:<spool>/queue.db")
+
+    op = osub.add_parser(
+        "timeline", help="one beam's lifecycle across the fleet "
+                         "(journal events + durations)")
+    op.add_argument("ticket")
+    op.add_argument("--spool", default=None)
+    _obs_queue_arg(op)
+    op.add_argument("--stitch", default=None, metavar="OUT.json",
+                    help="also write the stitched Perfetto timeline "
+                         "(journal events + this beam's trace spans "
+                         "from every worker, one time axis)")
+    op.set_defaults(fn=cmd_obs)
+    op = osub.add_parser(
+        "top", help="live per-worker state, queue depths, and "
+                    "journal SLO quantiles")
+    op.add_argument("--spool", default=None)
+    _obs_queue_arg(op)
+    op.add_argument("--interval", type=float, default=2.0)
+    op.add_argument("--once", action="store_true")
+    op.set_defaults(fn=cmd_obs)
+    op = osub.add_parser("tail", help="follow the ticket journal")
+    op.add_argument("--spool", default=None)
+    _obs_queue_arg(op)
+    op.add_argument("-n", "--lines", type=int, default=20)
+    op.add_argument("-f", "--follow", action="store_true")
+    op.add_argument("--interval", type=float, default=0.5)
+    op.set_defaults(fn=cmd_obs)
+    op = osub.add_parser(
+        "blackbox", help="render a crashed worker's flight-recorder "
+                         "dump: the bounded ring of its last "
+                         "claims/journal appends/heartbeats, written "
+                         "to <spool>/blackbox/ on abnormal exit")
+    op.add_argument("worker", nargs="?", default="",
+                    help="worker id (empty = the single-server dump)")
+    op.add_argument("--spool", default=None)
+    _obs_queue_arg(op)
+    op.set_defaults(fn=cmd_obs)
+
+    sp = sub.add_parser(
+        "checkpoint",
+        help="inspect a beam's crash-resume checkpoints: render the "
+             "sha256 manifest, --verify re-hashes every artifact "
+             "(exit 1 on mismatch)")
+    sp.add_argument("dir", help="checkpoint dir, or a beam outdir "
+                                "containing .checkpoint")
+    sp.add_argument("--verify", action="store_true",
+                    help="re-hash every artifact against the manifest")
+    sp.set_defaults(fn=cmd_checkpoint)
+
+    sp = sub.add_parser(
+        "trace",
+        help="per-stage rollup of the last beam's telemetry trace "
+             "(TPULSAR_TRACE=1 searches write <basenm>_trace.json)")
+    sp.add_argument("path", help="results dir (newest *_trace.json "
+                                 "wins) or a trace file")
+    sp.set_defaults(fn=cmd_trace)
+
+    sp = sub.add_parser(
+        "lint",
+        help="static contract linter: prove the fault-point / "
+             "metric / journal-event / env-knob catalogs and the "
+             "spool-write discipline have not drifted (rc 0 clean / "
+             "1 findings / 2 internal error; no torch)")
+    from tpulsar_torch.analysis.cli import add_arguments as _lint_args
+    _lint_args(sp)
+    sp.set_defaults(fn=cmd_lint)
 
     sp = sub.add_parser(
         "chaos",

@@ -1,8 +1,5 @@
 """The fleet health doctor: detector loop + per-worker flight recorder
-— counterpart of tpulsar/obs/health.py (a copy up to
-``render_alerts``; the blackbox reader and renderer,
-``load_blackbox``/``render_blackbox``, come with the port's ``obs``
-command).
+— counterpart of tpulsar/obs/health.py (a copy).
 
 Two halves, both consumers of evidence other modules already emit:
 
@@ -28,8 +25,9 @@ to ``<spool>/blackbox/<worker>.<pid>.json`` on crash or abnormal
 exit — atexit for unexpected interpreter death, explicit ``dump()``
 on the fatal paths that bypass atexit (``os._exit`` crash
 injection).  The dump write is itself fault-injectable
-(``blackbox.dump`` fires mid-write), because a crashing worker can
-die mid-dump too.
+(``blackbox.dump`` fires mid-write) and the renderer
+(``load_blackbox``/``render_blackbox``, the ``obs blackbox`` command)
+salvages torn dumps, because a crashing worker can die mid-dump too.
 
 Knobs:
   TPULSAR_ALERT_INTERVAL_S  detector tick period in the controller
@@ -45,6 +43,7 @@ from __future__ import annotations
 
 import atexit
 import collections
+import glob
 import json
 import os
 import threading
@@ -470,3 +469,83 @@ class FlightRecorder:
         except OSError:
             pass            # torn dump: the prefix already landed
         return path
+
+
+def load_blackbox(spool: str, worker_id: str = "") -> dict | None:
+    """Newest dump for the worker, parsed tolerantly: unreadable or
+    truncated lines are counted, not fatal, and a missing end marker
+    flags the dump as torn.  None when the worker never dumped."""
+    paths = glob.glob(os.path.join(
+        spool, BLACKBOX_DIR, f"{worker_id or 'server'}.*.json"))
+    if not paths:
+        return None
+
+    def _mtime(p):
+        try:
+            return os.path.getmtime(p)
+        except OSError:
+            return 0.0
+    path = max(paths, key=_mtime)
+    header: dict = {}
+    entries: list[dict] = []
+    bad = 0
+    complete = False
+    try:
+        with open(path) as fh:
+            lines = fh.readlines()
+    except OSError:
+        return None
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            bad += 1
+            continue
+        if not isinstance(rec, dict):
+            bad += 1
+        elif rec.get("kind") == "blackbox" and not header:
+            header = rec
+        elif rec.get("kind") == "end":
+            complete = True
+        else:
+            entries.append(rec)
+    return {"path": path, "header": header, "entries": entries,
+            "torn": not complete, "bad_lines": bad}
+
+
+def render_blackbox(spool: str, worker_id: str = "") -> str:
+    """``python -m tpulsar_torch obs blackbox <worker>``: the last seconds before
+    death as a relative-time table."""
+    box = load_blackbox(spool, worker_id)
+    if box is None:
+        return (f"no blackbox dump for worker "
+                f"{worker_id or 'server'!s} under "
+                f"{os.path.join(spool, BLACKBOX_DIR)}")
+    hdr = box["header"]
+    lines = [f"blackbox {box['path']}",
+             f"worker={hdr.get('worker', '?') or '(single)'} "
+             f"pid={hdr.get('pid', '?')} "
+             f"reason={hdr.get('reason', '?') or '-'} "
+             f"rc={hdr.get('rc')}"]
+    if box["torn"]:
+        lines.append(f"TORN DUMP: no end marker — the worker died "
+                     f"mid-dump ({len(box['entries'])} entries "
+                     f"salvaged)")
+    if box["bad_lines"]:
+        lines.append(f"({box['bad_lines']} unparseable line(s) "
+                     f"skipped)")
+    t_end = hdr.get("t") or (box["entries"][-1].get("t", 0.0)
+                             if box["entries"] else 0.0)
+    lines.append(f"{'t-death':>9s}  {'kind':16s} detail")
+    for rec in box["entries"]:
+        detail = " ".join(
+            f"{k}={str(v)[:48]}" for k, v in rec.items()
+            if k not in ("t", "kind"))
+        lines.append(f"{rec.get('t', 0.0) - t_end:9.3f}  "
+                     f"{str(rec.get('kind', '?')):16s} {detail}")
+    if not box["entries"]:
+        lines.append("  (empty ring)")
+    return "\n".join(lines)
