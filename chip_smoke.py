@@ -42,9 +42,10 @@ these phases:
   3. small parity: the zero-accel configuration and the default
      configuration (with an accelerated pulsar) on a small block, on
      the card and on the CPU;
-  read: the full beam below read by read_all_uint8 through the
-     native unpack and through the NumPy unpack, byte-identical, with
-     the read times;
+  read (run after phase 7, on phase 7's shorter beam, which keeps the
+     smoke inside its time limit): the beam read by read_all_uint8
+     through the native unpack and through the NumPy unpack,
+     byte-identical, with the read times;
   4. the main path: one full-geometry PALFA Mock beam (960 channels,
      65.476 us, 3,932,160 samples, 4-bit, the 57-pass Mock survey
      plan) with one injected pulsar, written to a temporary directory
@@ -56,16 +57,20 @@ these phases:
      often as the plan and the outcome require, and reports what the
      checkpoint cost (artifacts, bytes, seconds in store.save,
      manifest size);
-  5. resume: phase 4's checkpoint cut back to the state a kill after
+  5. resume (run after phase 7, on phase 7's shorter beam, which keeps
+     the smoke inside its time limit): phase 7's solo search's
+     checkpoint cut back to the state a kill after
      pass K_RESUME - 1 leaves (pass artifacts >= K_RESUME, the sifted
      list and the folds dropped) in a new output directory, and the
      same beam searched again through the job's run_search.  It checks
      that only passes K_RESUME..56 were computed (metrics.json and the
-     kernels' launch counts), that every results file equals phase 4's
-     (tools/torch_results_diff.py: timing-bearing files by presence,
+     kernels' launch counts), that every results file equals the solo
+     search's (tools/torch_results_diff.py: timing-bearing files by presence,
      .npz by arrays, tarballs by members), that the pulsar is
      recovered and folded, and that the checkpoint is gone;
-  6. serve, through the front door and the blob data plane: a token'd
+  6. serve (run after phase 7, on phase 7's shorter beam, which keeps
+     the smoke inside its time limit; held against its solo search),
+     through the front door and the blob data plane: a token'd
      gateway (`python -m tpulsar_torch gateway`) on a sqlite: queue
      with a content-addressed store; the beam uploaded by
      `python -m tpulsar_torch blob put` (its seconds printed); the
@@ -81,11 +86,11 @@ these phases:
      poisoned one failed in its stage-in, the final 'stopped'
      heartbeat, each ticket's journal chain (the stage-in by digest
      and the artifact push included), that the results directory
-     equals phase 4's, the pulsar, the candidate index's rows,
+     equals the solo search's, the pulsar, the candidate index's rows,
      /v1/candidates answered from the index with the pulsar in it,
      every artifact fetched by `blob get` byte-identical to the
      outdir's copy, and that the served beam launched each kernel
-     exactly as often as phase 4; it prints the blob PUT, the
+     exactly as often as the solo search; it prints the blob PUT, the
      stage-in and beam_seconds.
   7. batch, on a shorter beam of its own (the cut that keeps the
      smoke inside its time limit): the Mock geometry at a quarter of
@@ -178,7 +183,7 @@ these phases:
      ChaosRunner in this process runs a FleetController with two
      `python -m tpulsar_torch serve` workers on the card (the runner's
      own command line through the smoke's wrapper) behind the gateway
-     on a sqlite queue in the spool, three tickets for the beam under
+     on a sqlite queue in the spool, two tickets for the beam under
      a tenant cap, a spool.io fault window on w1 (t = 2-40 s), a
      gateway restart (8 s), w0 SIGKILLed (20 s) and a janitor pause
      (30 s).  w1 is held after its boot until w0 has claimed a ticket.
@@ -213,9 +218,39 @@ these phases:
      w0.  It prints the search's wall, its .report stages, the trace's
      top spans and the phase's seconds.
 
-Phases 4-7, 9-11 and 12 search with the zaplist the job picks under
-the default configuration (the packaged default.zaplist), as the
-server does.
+  13. mesh (run after phase 12, on phase 7's beam, held against its
+     solo search): the parallel layer (tpulsar_torch/parallel/) on a
+     mesh of MESH_SHARDS logical shards of the card
+     (make_mesh(1, 4, devices=[cuda] * 4)), in this process.  (a)
+     search_beam(mesh=) at the default configuration with the
+     packaged zaplist and a checkpoint directory: the solo search's
+     sifted candidates (r and z to
+     2 decimals, numharm, DM to 3; sigma within rel 1e-3), SP event
+     set and trial count, the pulsar folded, no degraded flag (the hi
+     stage ran sharded), each kernel launched as often as the plan
+     gives (mesh_launches), peak memory within 10% of the solo's;
+     (b) search_block over the plan's first step (ds 1) with
+     seq_shard "on" (time shards, ring halo, all_to_all) and a
+     checkpoint directory, its 28 pass artifacts equal by that rule to
+     (a)'s, which are DM-sharded ("auto" shards no pass of this beam by
+     time), every chunk through the seq route (seq_dedisperse, no
+     _dd_local, no fallback warning), and seq_dedisperse of pass 0
+     torch.equal to one solo stage-2 launch; (c) _dd_local, the
+     stage-2 kernel in each shard, at the shapes the mesh path
+     launches it: the first pass of each plan step, its table padded
+     and cut by the executor's chunk rule, each chunk split over the
+     shards; every launch torch.equal to the plain version and to the
+     solo launch's rows, each pass's launches timed with the bound and
+     summed over the beam; (d) dist_fft_natural of 2^21 points within 1e-4 (relative
+     max norm) of torch.fft.fft, and seq_dist_search (through the
+     executor's sharded pass, with a spectral budget one byte below a
+     trial's tail) on the ds-1 pass of the pulsar's DM: the fundamental
+     within one Fourier bin among its candidates.  Each part's wall is
+     printed.
+
+Phases 4-7, 9-11, 12 and 13 search with the zaplist the job picks
+under the default configuration (the packaged default.zaplist), as
+the server does.
 
 Output: progress lines, then the card's name and power limit, one JSON
 line with every kernel's numbers, and as the last line
@@ -227,6 +262,7 @@ it imports nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -1412,7 +1448,8 @@ def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan,
         f"{host_ms * len(out.folded) / 1e3:.3f} s)")
     return dict(launches=launches, n1=n1, n2=n2, wall_s=wall,
                 peak_bytes=peak, stages=stages, checkpoint=cost,
-                resultsdir=out.resultsdir, ckdir=ck4, basenm=out.basenm)
+                resultsdir=out.resultsdir, ckdir=ck4, basenm=out.basenm,
+                outcome=out)
 
 
 def check_hi_stage(ntrials: int) -> None:
@@ -1466,13 +1503,14 @@ def results_diff():
 
 
 def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
-                 p4: dict) -> dict:
-    """Phase 5: phase 4's checkpoint cut back to pass K_RESUME in a new
-    output directory, the beam searched again through the job's
+                 ref: dict) -> dict:
+    """Phase 5, on phase 7's beam (`fns`): its solo search's checkpoint
+    (`ref`, main_path_phase's record) cut back to pass K_RESUME in a
+    new output directory, the beam searched again through the job's
     run_search on the card."""
     out5 = os.path.join(tmp, "out5")
     ck5 = ckpt.default_root(out5)
-    shutil.copytree(p4["ckdir"], ck5)
+    shutil.copytree(ref["ckdir"], ck5)
     dropped = truncate_checkpoint(ck5, K_RESUME)
     kept = ckpt.read_manifest(ck5)["entries"]
     log(f"phase 5: checkpoint cut back to passes 0..{K_RESUME - 1} "
@@ -1519,21 +1557,21 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
     if min(launches[k] for k in SOLO_KERNELS) < 1:
         raise AssertionError(f"phase 5: a kernel never launched: "
                              f"{launches}")
-    problems = results_diff().diff_results(p4["resultsdir"], out5)
+    problems = results_diff().diff_results(ref["resultsdir"], out5)
     if problems:
-        raise AssertionError("phase 5 results differ from phase 4's: "
-                             + "; ".join(problems[:10]))
-    log(f"phase 5: all {len(os.listdir(out5))} results files equal "
-        f"phase 4's (timing-bearing files by presence, .npz by arrays, "
-        f"tarballs by members)")
+        raise AssertionError("phase 5 results differ from the solo "
+                             "search's: " + "; ".join(problems[:10]))
+    log(f"phase 5: all {len(os.listdir(out5))} results files equal the "
+        f"solo search's (timing-bearing files by presence, .npz by "
+        f"arrays, tarballs by members)")
     check_pulsar(out5, out.basenm, "phase 5")
     if os.path.exists(ck5):
         raise AssertionError("phase 5: the checkpoint was not cleaned")
     stages = dict(out.timers.times)
     stages["other"] = wall - sum(stages.values())
-    log(f"phase 5 run_search wall {wall:.3f} s (phase 4 "
-        f"{p4['wall_s']:.3f} s); stage seconds, phase 5 vs phase 4: "
-        + json.dumps({k: [round(v, 3), round(p4["stages"].get(k, 0.0),
+    log(f"phase 5 run_search wall {wall:.3f} s (the solo search "
+        f"{ref['wall_s']:.3f} s); stage seconds, phase 5 vs the solo: "
+        + json.dumps({k: [round(v, 3), round(ref["stages"].get(k, 0.0),
                                              3)]
                       for k, v in stages.items()}))
     resumed = metrics["tpulsar_checkpoint_events_total"]["series"]
@@ -1767,8 +1805,10 @@ def http(method: str, url: str, data: bytes | None = None,
         return e.code, json.loads(e.read() or b"{}")
 
 
-def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
-    """Phase 6: the front door and the blob data plane.  A token'd
+def serve_phase(fns: list[str], tmp: str, ref: dict) -> dict:
+    """Phase 6, on phase 7's beam (`fns`), held against its solo
+    search (`ref`, main_path_phase's record): the front door and the
+    blob data plane.  A token'd
     gateway (`python -m tpulsar_torch gateway`) on a sqlite queue with
     a CAS; the beam uploaded by `python -m tpulsar_torch blob put`;
     the resident server (`serve --queue sqlite:...`, TPULSAR_DATA_URL
@@ -1872,15 +1912,17 @@ def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
             "t2": check_journal(gwdir, tids["t2"], [
                 "received", "claimed", "stagein_failed", "result"],
                 "phase 6")}
-        problems = results_diff().diff_results(outs["t0"], p4["resultsdir"])
+        problems = results_diff().diff_results(outs["t0"],
+                                               ref["resultsdir"])
         if problems:
-            raise AssertionError("phase 6: t0's results differ from phase "
-                                 "4's: " + "; ".join(problems[:10]))
-        log(f"phase 6: t0's results directory equals phase 4's "
+            raise AssertionError("phase 6: t0's results differ from the "
+                                 "solo search's: "
+                                 + "; ".join(problems[:10]))
+        log(f"phase 6: t0's results directory equals the solo search's "
             f"({len(os.listdir(outs['t0']))} files)")
-        check_pulsar(outs["t0"], p4["basenm"], "phase 6 t0")
+        check_pulsar(outs["t0"], ref["basenm"], "phase 6 t0")
         stages = report_stages(os.path.join(outs["t0"],
-                                            f"{p4['basenm']}.report"))
+                                            f"{ref['basenm']}.report"))
         idx = dp_index.CandidateIndex(dp_index.index_path(gwdir))
         rows = idx.candidate_rows(tids["t0"])
         if not rows or rows != dp_index.candidate_rows(outs["t0"]):
@@ -1915,33 +1957,33 @@ def serve_phase(fns: list[str], tmp: str, p4: dict) -> dict:
                 raise AssertionError(f"phase 6: blob get {aname}: rc "
                                      f"{got.returncode}, identical {same}")
         served = counts["served"]
-        if served != p4["launches"]:
+        if served != ref["launches"]:
             raise AssertionError(f"phase 6: served launches {served} != "
-                                 f"phase 4's {p4['launches']}")
+                                 f"the solo search's {ref['launches']}")
         stagein = stagein_seconds(gwdir, tids["t0"])
         log(f"phase 6: /v1/candidates from the index ({cands['total']} "
             f"rows, {len(hits)} of the pulsar, best sigma "
             f"{max(c['sigma'] for c in hits):.2f}); {len(arts)} artifact(s) "
             f"fetched by digest byte-identical to the outdir's")
         log(f"phase 6: blob put {put_s:.3f} s; stage-in t0 {stagein} s "
-            f"(by digest over HTTP, verified, then staged; phase 4's "
-            f"native read {p4['read']['native_s']:.3f} s); beam_seconds "
-            f"t0 {r['beam_seconds']:.3f} s (phase 4 search_beam "
-            f"{p4['wall_s']:.3f} s, served / solo "
-            f"{r['beam_seconds'] / p4['wall_s']:.4f}); t2 "
+            f"(by digest over HTTP, verified, then staged); beam_seconds "
+            f"t0 {r['beam_seconds']:.3f} s (the solo search_beam "
+            f"{ref['wall_s']:.3f} s, served / solo "
+            f"{r['beam_seconds'] / ref['wall_s']:.4f}); t2 "
             f"{bad['beam_seconds']:.3f} s; boot "
             f"{counts['boot_seconds']:.3f} s (boot launches "
             f"{counts['boot']}), capacity advertised {t_ready:.1f} s after "
             f"start; peak device memory after boot "
             f"{counts['peak_bytes'] / 2**30:.3f} GiB; server process "
             f"{wall:.3f} s")
-        log(f"phase 6: served launches {served} (phase 4's); journal chains "
+        log(f"phase 6: served launches {served} (the solo search's); "
+            f"journal chains "
             f"{json.dumps(chains)}")
         with open(srv["hb"]) as fh:
             log(f"phase 6: the stage heartbeat's last record: "
                 f"{fh.read().strip()}")
-        log("phase 6 stage seconds (the beam's .report), t0 / phase 4: "
-            + json.dumps({k: [v, round(p4["stages"].get(k, 0.0), 2)]
+        log("phase 6 stage seconds (the beam's .report), t0 / solo: "
+            + json.dumps({k: [v, round(ref["stages"].get(k, 0.0), 2)]
                           for k, v in stages.items()}))
     finally:
         if proc is not None and proc.poll() is None:
@@ -2405,15 +2447,16 @@ def fleet_phase(tmp: str, plan, p7: dict) -> dict:
 
 #: phase 11's storm: the JAX package's serve worker kind, two workers
 #: on a sqlite queue in the spool behind the gateway, a tenant cap,
-#: three quarter beams, and the timeline's four failures (its
-#: datafiles are phase 7's beam).  duration_s and quiesce_timeout_s
-#: leave room for three quarter beams on two workers and w0's restart
+#: two quarter beams (cut from three to keep the smoke inside its time
+#: limit), and the timeline's four failures (its datafiles are phase 7's beam).
+#: duration_s and quiesce_timeout_s leave room for the beams on two
+#: workers and w0's restart
 CHAOS_SCENARIO = {
     "name": "serve-storm", "seed": 11, "duration_s": 600.0,
     "workers": 2, "worker_kind": "serve", "gateway": True,
     "queue_url": "sqlite", "max_attempts": 3,
     "tenants": {"survey": {"max_inflight": 3}},
-    "workload": {"beams": 3, "via": "gateway", "tenant": "survey",
+    "workload": {"beams": 2, "via": "gateway", "tenant": "survey",
                  "interval_s": 0.25},
     "timeline": [
         {"t": 2.0, "action": "set_faults", "worker": "w1", "until": 40.0,
@@ -2443,11 +2486,11 @@ def chaos_phase(tmp: str, plan, p7: dict) -> dict:
     runs a FleetController with two `python -m tpulsar_torch serve`
     workers on the card (its own command line, through SERVE_WRAPPER,
     which turns plots off and counts launches after boot), the
-    gateway in process on a sqlite queue inside the spool, three
+    gateway in process on a sqlite queue inside the spool, two
     tickets submitted through it, a spool.io window on w1, a gateway
     restart, w0 SIGKILLed at 20 s and a janitor pause.  w1 is held
     after its boot until w0 has claimed a ticket, so w0 holds one at
-    the kill (a worker's prefetch may claim up to three).  It checks
+    the kill (a worker's prefetch may claim more than one).  It checks
     the manifest's quiescence, the port's verifier (no violation),
     `chaos verify` as a subprocess (exit 0), `chaos report` (the
     kill's MTTR), each ticket done once with a valid chain, a takeover
@@ -2672,7 +2715,8 @@ def chaos_phase(tmp: str, plan, p7: dict) -> dict:
         raise AssertionError(f"phase 11: the surviving workers' launches "
                              f"{served} != expected {want}")
     log(f"phase 11 launches of the surviving workers after boot: {got} "
-        f"(expected {want}: three whole beams less the passes resumed "
+        f"(expected {want}: {len(tickets)} whole beams less the passes "
+        f"resumed "
         f"{ {t: len(v) for t, v in resumed.items()} })")
     log(f"phase 11: boots {json.dumps(boots)} s (w0 twice: the killed "
         f"incarnation and its restart), both fresh {fresh_s:.3f} s after "
@@ -3880,6 +3924,428 @@ def ops_phase(tmp: str, p7: dict, fleet: dict, chaos: dict) -> dict:
                                             for n in top})
 
 
+#: phase 13's mesh: four logical shards of the one card
+MESH_SHARDS = 4
+
+
+def _cand_key(c) -> tuple:
+    return (round(c.r, 2), round(c.z, 2), c.numharm, round(c.dm, 3))
+
+
+def _event_set(ev) -> set:
+    return {(round(float(e["dm"]), 3), int(e["sample"]), int(e["downfact"]))
+            for e in ev}
+
+
+def same_search(got: tuple, want: tuple, what: str) -> None:
+    """The rule the reference holds its own mesh to
+    (tests/test_parallel.py): the sifted candidates' keys (r and z to 2
+    decimals, numharm, DM to 3) equal, each sigma within rel 1e-3, the
+    SP event sets (DM, sample, downfact) equal, the trial count equal.
+    got and want are (candidates, sp_events, num_dm_trials)."""
+    (gc, ge, gn), (wc, we, wn) = got, want
+    if gn != wn:
+        raise AssertionError(f"{what}: {gn} DM trials against {wn}")
+    gk, wk = {_cand_key(c) for c in gc}, {_cand_key(c) for c in wc}
+    if gk != wk:
+        raise AssertionError(f"{what}: candidate keys differ: only here "
+                             f"{sorted(gk - wk)[:5]}, only there "
+                             f"{sorted(wk - gk)[:5]}")
+    by_key = {_cand_key(c): c.sigma for c in wc}
+    worst = max((abs(c.sigma / by_key[_cand_key(c)] - 1.0) for c in gc),
+                default=0.0)
+    if worst > 1e-3:
+        raise AssertionError(f"{what}: a sigma {worst:.2e} off (rel)")
+    gs, ws = _event_set(ge), _event_set(we)
+    if gs != ws:
+        raise AssertionError(f"{what}: SP events differ: only here "
+                             f"{sorted(gs - ws)[:5]}, only there "
+                             f"{sorted(ws - gs)[:5]}")
+    log(f"{what}: {len(gk)} candidate keys, {len(gs)} SP events and {gn} "
+        f"trials equal; worst sigma {worst:.3e} (rel)")
+
+
+def same_passes(ck_a: str, ck_b: str, npass: int, what: str) -> int:
+    """Passes 0..npass-1 of two checkpoints held to each other by
+    same_search's rule: a byte-identical pair of artifacts holds it
+    outright; the passes whose bytes differ are decoded and compared
+    together.  Returns the number of byte-identical passes."""
+    ents = [ckpt.read_manifest(ck)["entries"] for ck in (ck_a, ck_b)]
+    differ = [f"pass_{k:04d}" for k in range(npass)
+              if ents[0][f"pass_{k:04d}"]["sha256"]
+              != ents[1][f"pass_{k:04d}"]["sha256"]]
+
+    def decoded(ck, entries) -> tuple:
+        parts = []
+        for key in differ:
+            with open(os.path.join(ck, entries[key]["file"]), "rb") as fh:
+                parts.append(executor._decode_pass(fh.read()))
+        return ([c for cs, _e, _n in parts for c in cs],
+                [e for _c, ev, _n in parts for e in ev],
+                sum(n for _c, _e, n in parts))
+
+    if differ:
+        same_search(decoded(ck_a, ents[0]), decoded(ck_b, ents[1]),
+                    f"{what}: the {len(differ)} passes whose artifacts "
+                    f"differ in bytes")
+    return npass - len(differ)
+
+
+def mesh_chunks(plan, nsamp: int, n_dm: int) -> list[tuple]:
+    """(step, pass, chunk, first trial of each chunk) for every pass of
+    the mesh search of a beam of nsamp samples: the executor's own
+    chunk rule (executor._sharded_chunks, the hi stage sharded) over
+    each pass's trials padded to the dm axis."""
+    nz = len(executor._get_bank(PARAMS.hi_accel_zmax).zs)
+    out = []
+    for step in plan:
+        nbins = ddplan.choose_n(nsamp // step.downsamp) // 2 + 1
+        for ppass in step.passes():
+            ndms_pad = -(-len(ppass.dms) // n_dm) * n_dm
+            chunk, starts = executor._sharded_chunks(
+                PARAMS, n_dm, ndms_pad, nbins, nz, True, DEV)
+            out.append((step, ppass, chunk, starts))
+    return out
+
+
+def mesh_launches(plan, nsamp: int, n_dm: int, out) -> dict:
+    """The launches the mesh search of a beam of nsamp samples makes:
+    stage 2 once a shard a DM chunk of each pass (mesh_chunks) plus
+    one row a DM group refined; stage 1 once a pass, once a group
+    refined and once an originating pass of the folds."""
+    passes = mesh_chunks(plan, nsamp, n_dm)
+    s2 = sum(n_dm * len(starts) for _s, _p, _c, starts in passes)
+    nref = len(out.refined_dms)
+    folds = len({fold_batch.pass_of(plan, c.dm)
+                 for c in out.candidates[:len(out.folded)]})
+    return {"form_subbands": len(passes) + nref + folds,
+            "dedisperse_subbands": s2 + nref}
+
+
+@contextlib.contextmanager
+def _counting(mod, name: str, calls: dict):
+    """Count the calls of mod.name in calls[name] while the block runs
+    (callers that look the function up on its module at call time)."""
+    fn = getattr(mod, name)
+    calls[name] = 0
+
+    def counted(*a, **kw):
+        calls[name] += 1
+        return fn(*a, **kw)
+
+    setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, fn)
+
+
+def dd_local_entries(data, freqs, dt: float, nsub: int, plan,
+                     nsamp: int) -> list[dict]:
+    """Phase 13 (c): _dd_local at the shapes the mesh path launches it.
+    For the first pass of each plan step: its stage-2 table padded to
+    the dm axis (shard_dm_table), cut by the executor's chunk rule
+    (mesh_chunks), each chunk's table split over the shards.  Every
+    launch is torch.equal to the plain version and to the solo launch
+    of the padded table at the same rows; the pass's launches are
+    timed as one sequence against their plain versions, one solo
+    launch of the pass's table and the bound (the subbands read once,
+    every launched row written once).  Each entry carries the launches
+    of its step on the beam (its passes' chunks times the shards)."""
+    from tpulsar_torch.parallel import mesh as pmesh
+
+    entries = []
+    for step in plan:
+        per_pass = mesh_chunks([step], nsamp, MESH_SHARDS)
+        _s, p, chunk, starts = per_pass[0]
+        dms = np.asarray(p.dms)
+        chan_shifts, sub_shifts = dd.plan_pass_shifts(
+            freqs, nsub, p.subdm, dms, dt, step.downsamp)
+        subb = dd.form_subbands(data, chan_shifts, nsub, step.downsamp)
+        nsub_, T = subb.shape
+        if T != nsamp // step.downsamp:
+            raise AssertionError(f"phase 13 (c): ds {step.downsamp} "
+                                 f"subbands of {T} samples")
+        padded = pmesh.shard_dm_table(np.asarray(sub_shifts), MESH_SHARDS)
+        rows = chunk // MESH_SHARDS
+        tables = [t for s0 in starts
+                  for t in np.split(padded[s0:s0 + chunk], MESH_SHARDS)]
+        firsts = [s0 + i * rows for s0 in starts
+                  for i in range(MESH_SHARDS)]
+        solo = cuda_dd.dedisperse_subbands(subb, padded)
+        n0 = cuda_dd.LAUNCHES["dedisperse_subbands"]
+        got = [pmesh._dd_local(subb, t) for t in tables]
+        n_c = cuda_dd.LAUNCHES["dedisperse_subbands"] - n0
+        if n_c != len(tables):
+            raise AssertionError(f"phase 13 (c): ds {step.downsamp}: "
+                                 f"{n_c} launches for {len(tables)} "
+                                 f"shard tables")
+        for k, (out, t, f) in enumerate(zip(got, tables, firsts)):
+            if not torch.equal(out, solo[f:f + rows]) or not torch.equal(
+                    out, cuda_dd.dedisperse_subbands_plain(subb, t)):
+                raise AssertionError(
+                    f"phase 13 (c): ds {step.downsamp} launch {k} (rows "
+                    f"{f}..{f + rows - 1}) differs from the solo launch "
+                    f"or the plain version")
+        del got, solo
+        ms = time_ms(lambda: [pmesh._dd_local(subb, t) for t in tables])
+        plain_ms = time_ms(lambda: [cuda_dd.dedisperse_subbands_plain(
+            subb, t) for t in tables], runs=2)
+        solo_ms = time_ms(lambda: cuda_dd.dedisperse_subbands(subb,
+                                                              sub_shifts))
+        nrows = len(tables) * rows
+        b_ms, b_by = bound_ms(4.0 * (nsub_ * T + nrows * T),
+                              float(nrows) * nsub_ * T)
+        launches = sum(MESH_SHARDS * len(st) for _s, _p, _c, st in per_pass)
+        entries.append(dict(
+            ds=step.downsamp, trials=len(dms), rows=rows,
+            chunk_starts=list(starts), launches_a_pass=len(tables),
+            launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            solo_ms=solo_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"phase 13 (c) ds {step.downsamp}: {len(dms)} trials as "
+            f"{len(starts)} chunks (first trials {list(starts)}) x "
+            f"{MESH_SHARDS} shards = {len(tables)} launches of {rows} rows, "
+            f"each torch.equal to the plain version and to the solo "
+            f"launch's rows; {ms:.3f} ms the pass's launches (one solo "
+            f"launch of its {len(dms)} rows {solo_ms:.3f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), share "
+            f"{b_ms / ms:.3f}; {launches} launches a beam")
+        del subb
+    return entries
+
+
+def mesh_phase(tmp: str, plan, p7: dict) -> dict:
+    """Phase 13: the parallel layer on phase 7's beam, on a mesh of
+    MESH_SHARDS logical shards of the card, held against phase 7's
+    solo search.  (a) search_beam(mesh=) at the default configuration:
+    the solo search's results by the reference's rule, the pulsar
+    folded, the hi stage sharded, the launches the plan gives, peak
+    memory beside the solo's; (b) search_block over the plan's first
+    step (ds 1) with seq_shard "on", every chunk through the seq
+    route, each pass's checkpoint artifact equal by that rule to (a)'s
+    (DM-sharded: "auto" shards no pass of this beam by time), and
+    seq_dedisperse of pass 0 torch.equal to one solo stage-2 launch;
+    (c) _dd_local at the shapes the mesh path launches it
+    (dd_local_entries), summed over the beam and held to (a)'s
+    launches; (d) dist_fft_natural of 2^21 points against
+    torch.fft.fft, and seq_dist_search (a spectral budget below one
+    trial's tail) on the ds-1 pass of the pulsar's DM, whose
+    candidates must hold the fundamental within one Fourier bin."""
+    from tpulsar_torch.parallel import dist_fft
+    from tpulsar_torch.parallel import mesh as pmesh
+    from tpulsar_torch.parallel import seq_dedisperse as pseq
+    from tpulsar_torch.search.report import StageTimers
+
+    solo, fns, nsamp = p7["solo"], p7["fns"], p7["nsamp"]
+    ref = solo["outcome"]
+    mesh = pmesh.make_mesh(1, MESH_SHARDS, devices=[DEV] * MESH_SHARDS)
+    log(f"phase 13: {mesh} on phase 7's beam ({nsamp} samples)")
+    # an earlier phase may leave the batched hi path pinned or a fault
+    # armed: either would send the mesh's hi stage to the fallback
+    accel._reset_batch_state()
+    faults.reset()
+    os.environ.pop("TPULSAR_FAULTS", None)
+    res: dict = {}
+
+    # (a) the main path on the mesh, with a checkpoint directory as
+    # phase 7's solo search: its pass artifacts are (b)'s DM-sharded
+    # side.  seq_shard "auto" shards no pass of this beam by time (the
+    # largest subband block is below seq_shard_min_bytes)
+    sub_bytes = 4 * PARAMS.nsub * nsamp
+    if sub_bytes > PARAMS.seq_shard_min_bytes:
+        raise AssertionError(f"phase 13: {sub_bytes} B of ds-1 subbands "
+                             f"would take the seq route under 'auto'")
+    ck_mesh = os.path.join(tmp, "mesh_ck")
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_dd.reset_counts()
+    out = executor.search_beam(
+        fns, os.path.join(tmp, "mesh_work"),
+        os.path.join(tmp, "mesh_results"), PARAMS, zaplist=ZAPLIST,
+        checkpoint_dir=ck_mesh, mesh=mesh, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: cuda_dd.LAUNCHES[k] for k in SOLO_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    snap, prov = degraded.snapshot(), degraded.provenance_snapshot()
+    if snap or prov:
+        raise AssertionError(f"phase 13 (a): degraded flags {snap} {prov} "
+                             f"(the hi stage must run sharded)")
+    same_search((out.candidates, out.sp_events, out.num_dm_trials),
+                (ref.candidates, ref.sp_events, ref.num_dm_trials),
+                "phase 13 (a) mesh vs phase 7 solo")
+    check_pulsar(out.resultsdir, out.basenm, "phase 13 (a)")
+    want = mesh_launches(plan, nsamp, MESH_SHARDS, out)
+    if launches != want or min(launches.values()) < 1:
+        raise AssertionError(f"phase 13 (a): launches {launches} != "
+                             f"expected {want}")
+    log(f"phase 13 (a): launches {launches} (the plan's: stage 2 "
+        f"{MESH_SHARDS} a DM chunk + {len(out.refined_dms)} refinement "
+        f"rows; stage 1 passes + refinement + folds); peak device memory "
+        f"{peak / 2**30:.3f} GiB against the solo's "
+        f"{solo['peak_bytes'] / 2**30:.3f} GiB "
+        f"({peak / solo['peak_bytes']:.3f}x)")
+    if peak > 1.1 * solo["peak_bytes"]:
+        raise AssertionError("phase 13 (a): the mesh's peak memory is "
+                             "more than 10% above the solo search's")
+    stages = dict(out.timers.times)
+    log(f"phase 13 (a) wall {wall:.3f} s (search_beam; phase 7's solo "
+        f"{solo['wall_s']:.3f} s); stage seconds "
+        + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    res.update(launches=launches, want=want, wall_a=wall, peak_bytes=peak,
+               stages=stages)
+
+    # the quarter beam's masked block, as search_beam reads it
+    _obj, si, basenm, _plan, nsub, baryv, _id = executor._beam_geometry(
+        fns, PARAMS, None, None)
+    os.makedirs(os.path.join(tmp, "mesh_block"))
+    data, _mask = executor._read_and_mask(
+        si, PARAMS, basenm, os.path.join(tmp, "mesh_block"), None,
+        StageTimers(), DEV)
+
+    # (b) the sequence-parallel route against the DM-sharded one: the
+    # plan's first step searched with seq_shard "on", each pass's
+    # artifact against (a)'s pass (the same passes, DM-sharded).  Every
+    # chunk must take the seq route: a fallback to replication (only a
+    # warning in the executor) is an error here, and seq_dedisperse is
+    # called once a chunk while no shard calls _dd_local
+    t0 = time.time()
+    ck_seq = os.path.join(tmp, "mesh_seq_ck")
+    calls: dict = {}
+    with warnings.catch_warnings(), \
+            _counting(pseq, "seq_dedisperse", calls), \
+            _counting(pmesh, "_dd_local", calls):
+        warnings.filterwarnings("error", message=".*cannot be honoured")
+        _c, _f, _ev, n = executor.search_block(
+            data, si.freqs, si.dt, plan[:1], dataclasses.replace(
+                PARAMS, refine_cands=False, max_cands_to_fold=0,
+                seq_shard="on"), zaplist=ZAPLIST, baryv=baryv, nsub=nsub,
+            checkpoint_dir=ck_seq, mesh=mesh, device="cuda")
+    want_seq = sum(len(st) for _s, _p, _c, st
+                   in mesh_chunks(plan[:1], nsamp, MESH_SHARDS))
+    if calls != {"seq_dedisperse": want_seq, "_dd_local": 0}:
+        raise AssertionError(f"phase 13 (b): calls {calls}: every one of "
+                             f"the {want_seq} chunks must take the seq "
+                             f"route")
+    npass0 = plan[0].numpasses
+    same_bytes = same_passes(
+        ck_seq, ck_mesh, npass0, f"phase 13 (b) seq_shard on vs "
+        f"DM-sharded (a), passes 0-{npass0 - 1} (ds 1)")
+    if n != plan[0].numdms:
+        raise AssertionError(f"phase 13 (b): {n} trials")
+    log(f"phase 13 (b): passes 0-{npass0 - 1} ({n} trials) with "
+        f"seq_shard on: every one of the {want_seq} chunks through "
+        f"seq_dedisperse (no _dd_local, no fallback); {same_bytes} of "
+        f"{npass0} pass artifacts byte-identical to (a)'s, the rest equal "
+        f"by the rule")
+    p0 = plan[0].passes()[0]
+    chan_shifts, sub_shifts = dd.plan_pass_shifts(
+        si.freqs, nsub, p0.subdm, np.asarray(p0.dms), si.dt, 1)
+    subb = dd.form_subbands(data, chan_shifts, nsub, 1)
+    solo_rows = cuda_dd.dedisperse_subbands(subb, sub_shifts)
+    n0 = cuda_dd.LAUNCHES["dedisperse_subbands"]
+    seq_rows = torch.cat(pseq.seq_dedisperse(subb, sub_shifts, mesh),
+                         dim=1)
+    n_seq = cuda_dd.LAUNCHES["dedisperse_subbands"] - n0
+    if not torch.equal(seq_rows, solo_rows) or n_seq != MESH_SHARDS:
+        raise AssertionError(f"phase 13 (b): seq_dedisperse of pass 0 "
+                             f"equal {torch.equal(seq_rows, solo_rows)}, "
+                             f"{n_seq} launches")
+    res["wall_b"] = time.time() - t0
+    log(f"phase 13 (b): seq_dedisperse of pass 0 ({tuple(subb.shape)} "
+        f"subbands, {len(p0.dms)} rows) torch.equal to one solo launch, "
+        f"{n_seq} launches (a window a shard); wall {res['wall_b']:.3f} s")
+    del seq_rows, solo_rows, subb
+
+    # (c) the stage-2 kernel in its new caller, at the mesh path's shapes
+    t0 = time.time()
+    entries = dd_local_entries(data, si.freqs, si.dt, nsub, plan, nsamp)
+    per_beam = {k: sum(e["launches"] * e[k] / e["launches_a_pass"]
+                       for e in entries)
+                for k in ("ms", "plain_ms", "bound_ms")}
+    n_beam = sum(e["launches"] for e in entries)
+    if n_beam + len(out.refined_dms) != launches["dedisperse_subbands"]:
+        raise AssertionError(f"phase 13 (c): the shapes carry {n_beam} "
+                             f"launches + {len(out.refined_dms)} refinement "
+                             f"rows, (a) made "
+                             f"{launches['dedisperse_subbands']}")
+    by = {e["bound_by"] for e in entries}
+    res["c"] = dict(per="beam", route="_dd_local", shards=MESH_SHARDS,
+                    launches=n_beam, max_abs_err=0.0,
+                    bound_by=by.pop() if len(by) == 1 else "bytes",
+                    shapes=entries, **per_beam)
+    res["wall_c"] = time.time() - t0
+    log(f"phase 13 (c): per beam on the mesh, {n_beam} launches of "
+        f"_dd_local: {per_beam['ms']:.3f} ms, plain "
+        f"{per_beam['plain_ms']:.3f} ms, bound {per_beam['bound_ms']:.3f} "
+        f"ms, share {per_beam['bound_ms'] / per_beam['ms']:.3f}; wall "
+        f"{res['wall_c']:.3f} s")
+
+    # (d) the distributed FFT and the distributed spectral pass
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(21)
+    N = 1 << 21
+    x = torch.complex(torch.randn(N, generator=gen),
+                      torch.randn(N, generator=gen)).numpy()
+    td = time.perf_counter()
+    got = dist_fft.dist_fft_natural(x, mesh)
+    dist_s = time.perf_counter() - td
+    xd = torch.from_numpy(x).to(DEV)
+    full = torch.fft.fft(xd).cpu().numpy()
+    fft_ms = time_ms(lambda: torch.fft.fft(xd))
+    err = float(np.max(np.abs(got - full)) / np.max(np.abs(full)))
+    if not err < 1e-4:
+        raise AssertionError(f"phase 13 (d): dist_fft_natural's relative "
+                             f"max-norm error {err:.3e} >= 1e-4")
+    log(f"phase 13 (d): dist_fft_natural of 2^21 points on "
+        f"{MESH_SHARDS} shards: relative max-norm error {err:.3e} "
+        f"against torch.fft.fft (< 1e-4); {dist_s * 1e3:.3f} ms host in/out "
+        f"against {fft_ms:.3f} ms for one torch.fft.fft on the card")
+    # the ds-1 pass holding the pulsar's DM, through the executor's
+    # sharded pass with a budget one byte below a trial's spectral tail
+    p_psr = next(pp for pp in plan[0].passes() if pp.dms[-1] >= PSR_DM)
+    dms = np.asarray(p_psr.dms)
+    chan_shifts, sub_shifts = dd.plan_pass_shifts(
+        si.freqs, nsub, p_psr.subdm, dms, si.dt, 1)
+    subb = dd.form_subbands(data, chan_shifts, nsub, 1)
+    nfft = ddplan.choose_n(subb.shape[1])
+    budget = dist_fft.spectral_bytes_per_trial(nfft) - 1
+    params = executor.SearchParams(
+        make_plots=False, run_hi_accel=False, seq_shard="on",
+        spectral_hbm_budget=budget)
+    degraded.reset()
+    td = time.time()
+    cands, ev = executor._search_pass_sharded(
+        mesh, subb, sub_shifts, dms, si.dt, params, None, 0.0)
+    dist_pass_s = time.time() - td
+    if "seq_dist_spectral" not in degraded.snapshot():
+        raise AssertionError(f"phase 13 (d): the pass did not take the "
+                             f"distributed spectral route: "
+                             f"{degraded.snapshot()}")
+    # its candidates before sifting (which drops the fundamental as a
+    # subharmonic of the stronger second harmonic, unscalloped at an
+    # integer bin)
+    f_bin = 1.0 / (nfft * si.dt)
+    hits = [c for c in cands if c.numharm == 1
+            and abs(c.freq_hz - 1.0 / PSR_PERIOD) <= f_bin]
+    if not hits:
+        raise AssertionError(
+            f"phase 13 (d): seq_dist_search: no candidate within one bin "
+            f"({f_bin:.5f} Hz) of {1 / PSR_PERIOD} Hz: "
+            f"{[(c.freq_hz, c.dm, c.sigma) for c in cands[:5]]}")
+    best = max(hits, key=lambda c: c.sigma)
+    res["wall_d"] = time.time() - t0
+    log(f"phase 13 (d): seq_dist_search of DMs {dms[0]}-{dms[-1]} (budget "
+        f"{budget} B, one below a trial's tail): the fundamental at "
+        f"{best.freq_hz:.6f} Hz (DM {best.dm}, sigma {best.sigma:.2f}; "
+        f"{abs(best.freq_hz - 1 / PSR_PERIOD) / f_bin:.3f} bins off), "
+        f"{len(cands)} candidates, {len(ev)} SP events, "
+        f"{dist_pass_s:.3f} s; wall {res['wall_d']:.3f} s")
+    res.update(dist_fft_err=err, dist_fft_s=dist_s, fft_ms=fft_ms,
+               dist_pass_s=dist_pass_s)
+    return res
+
+
 def report_stages(path: str) -> dict:
     """Stage seconds of a beam's .report (its 'Total time' as
     'total')."""
@@ -3927,32 +4393,34 @@ def _passes(plan) -> list:
 
 
 def slice_phase(nsamp: int) -> dict:
-    """The read phase and phases 4 to 7, 10, 11, 9 and 12 on one
-    synthesized beam (phases 7, 10, 11, 9 and 12 on a shorter one of
-    their own)."""
+    """Phase 4 on one synthesized beam, then phase 7 on a shorter one
+    of its own, and the read phase and phases 5, 6, 10, 11, 9, 12 and
+    13 on that shorter beam."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
         fns = write_beam(os.path.join(tmp, "beam"), nsamp)
         plan = ddplan.survey_plan("pdev")
-        mark("read")
-        read = read_phase(fns)
         mark("phase 4: the full beam")
         p4 = main_path_phase(fns, tmp, nsamp, plan)
-        p4["read"] = read
-        mark("phase 5: resume")
-        p4["resume"] = resume_phase(fns, tmp, nsamp, plan, p4)
-        mark("phase 6: serve through the front door")
-        p4["serve"] = serve_phase(fns, tmp, p4)
         mark("phase 7: batch")
-        p4["batch"] = batch_phase(tmp, plan)
+        p4["batch"] = p7 = batch_phase(tmp, plan)
+        mark("read (phase 7's beam)")
+        p4["read"] = read_phase(p7["fns"])
+        mark("phase 5: resume (phase 7's beam)")
+        p4["resume"] = resume_phase(p7["fns"], tmp, p7["nsamp"], plan,
+                                    p7["solo"])
+        mark("phase 6: serve through the front door")
+        p4["serve"] = serve_phase(p7["fns"], tmp, p7["solo"])
         mark("phase 10: fleet")
-        p4["fleet"] = fleet_phase(tmp, plan, p4["batch"])
+        p4["fleet"] = fleet_phase(tmp, plan, p7)
         mark("phase 11: chaos")
-        p4["chaos"] = chaos_phase(tmp, plan, p4["batch"])
+        p4["chaos"] = chaos_phase(tmp, plan, p7)
         mark("phase 9: pipeline")
-        p4["pipeline"] = pipeline_phase(tmp, plan, p4["batch"])
+        p4["pipeline"] = pipeline_phase(tmp, plan, p7)
         mark("phase 12: operator surface")
-        p4["ops"] = ops_phase(tmp, p4["batch"], p4["fleet"], p4["chaos"])
+        p4["ops"] = ops_phase(tmp, p7, p4["fleet"], p4["chaos"])
+        mark("phase 13: mesh")
+        p4["mesh"] = mesh_phase(tmp, plan, p7)
         return p4
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4060,8 +4528,8 @@ def main() -> None:
     for r in rows:
         # each path counted from 0: the full beam (phase 4), the
         # resumed search (phase 5), the served beam and the served
-        # batch (phases 6 and 7, after each server's boot; phase 7's
-        # beams are BATCH_NSAMP long)
+        # batch (phases 6 and 7, after each server's boot; on phase
+        # 7's beam, BATCH_NSAMP long)
         name = r["name"]
         r["launches_resumed"] = res["resume"]["launches"][name]
         r["launches_served"] = res["serve"]["launches"][name]
@@ -4073,21 +4541,28 @@ def main() -> None:
             "launches_first"].get(name, 0)
         # and the served stream session of phase 8 (after boot)
         r["launches_stream"] = stream["launches_served"][name]
+        # the mesh search of phase 13 (a): phase 7's beam on
+        # MESH_SHARDS logical shards of the card
+        r["launches_mesh"] = res["mesh"]["launches"].get(name, 0)
         # the fleet's surviving worker w1 (phase 10, after its boot):
         # its own quarter beam and the stolen one's missing passes
         r["launches_fleet"] = res["fleet"]["launches"].get(name, 0)
         # the chaos storm's surviving serve workers (phase 11, after
-        # each boot): three quarter beams less the resumed passes
+        # each boot): two quarter beams less the resumed passes
         r["launches_chaos"] = res["chaos"]["launches"].get(name, 0)
         # `python -m tpulsar_torch search` (phase 12), from its process
         # start: phase 7's beam searched through the command
         r["launches_cli"] = res["ops"]["launches"].get(name, 0)
         solo_paths = ("launches", "launches_resumed", "launches_served",
                       "launches_batch", "launches_pipeline",
-                      "launches_fleet", "launches_chaos", "launches_cli")
+                      "launches_fleet", "launches_chaos", "launches_cli",
+                      "launches_mesh")
         if name == "dedisperse_subbands":
             r["launches"] = res["launches"][name]
             paths = solo_paths + ("launches_stream",)
+            # phase 13 (c): the kernel in its mesh caller, _dd_local,
+            # at the mesh path's shapes, summed over the beam
+            r["mesh"] = res["mesh"]["c"]
             r["stream"] = {k: v for k, v in stream.items()
                            if k not in ("launches", "launches_served")}
         elif name in SOLO_KERNELS:

@@ -4,6 +4,7 @@ default to CUDA and refuse to move to the CPU by themselves, it
 refuses, by name, what the later slices of the port will add, and it
 runs what the earlier slices added."""
 
+import inspect
 import os
 import pathlib
 import re
@@ -230,17 +231,30 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path,
                          np.linspace(1200, 1500, 4), 1e-3, plan, params)
 
 
-@pytest.mark.parametrize("change, word", [
-    ("mesh", "mesh"),
-])
-def test_later_slices_are_refused_by_name(change, word, monkeypatch):
-    params = tex.SearchParams.slice_defaults()
-    kw = {"mesh": object()}
-    with pytest.raises(NotImplementedError, match=word):
-        tex.search_block(np.zeros((4, 256), np.float32),
-                         np.linspace(1200, 1500, 4), 1e-3,
-                         [ddplan.DedispStep(0.0, 1.0, 2, 1, 2, 1)],
-                         params, device="cpu", **kw)
+def test_search_block_runs_on_a_cpu_mesh():
+    """The mesh is no longer refused: a 2-shard mesh of the CPU
+    searches every trial of the plan."""
+    from tpulsar_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 2, devices=[torch.device("cpu")] * 2)
+    rng = np.random.default_rng(3)
+    out = tex.search_block(rng.standard_normal((4, 1024)).astype(
+                               np.float32),
+                           np.linspace(1200, 1500, 4), 1e-3,
+                           [ddplan.DedispStep(0.0, 1.0, 3, 1, 2, 1)],
+                           tex.SearchParams.slice_defaults(nsub=2),
+                           mesh=mesh, device="cpu")
+    assert out[3] == 3
+
+
+def test_make_mesh_without_a_gpu_raises(monkeypatch):
+    """make_mesh() means every CUDA device; without one it raises, as
+    every other entry point does, and never falls back to the CPU."""
+    from tpulsar_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
 
 
 def test_blob_tickets_are_refused_by_name(tmp_path, monkeypatch):
@@ -307,7 +321,6 @@ def test_earlier_refused_options_now_run(change, stage, tmp_path,
     base = telemetry.metrics.REGISTRY.snapshot()
     params = tex.SearchParams.slice_defaults(nsub=8, lo_accel_numharm=4,
                                              topk_per_stage=8, **change)
-    tex.check_supported(params)
     data, freqs, dt = _tiny_pulsar_block()
     plan = [ddplan.DedispStep(16.0, 2.0, 4, 1, 8, 1)]
     if stage == "plotting":
@@ -367,15 +380,27 @@ def _tiny_beam_search(tmp_path, params, plan):
 
 def test_default_configuration_is_accepted():
     """SearchParams() — the JAX package's default search, plots
-    included — is what the port runs now."""
-    tex.check_supported(tex.SearchParams())
+    included — is what the port runs now: it validates, and the
+    entries' one check looks at the mesh, not at the configuration."""
+    params = tex.SearchParams()
+    assert params.make_plots and params.run_hi_accel
+    assert list(inspect.signature(tex.check_supported).parameters) == [
+        "mesh", "dev"]
+    tex.check_supported(None, "cpu")
 
 
 def test_hi_accel_without_templates_is_not_refused():
     """run_hi_accel with zmax 0 runs no hi stage (as in the reference),
-    so it is accepted."""
-    tex.check_supported(tex.SearchParams.slice_defaults(
-        run_hi_accel=True, hi_accel_zmax=0))
+    so it is accepted: a tiny search runs, and times no hi stage."""
+    params = tex.SearchParams.slice_defaults(
+        run_hi_accel=True, hi_accel_zmax=0, nsub=8, lo_accel_numharm=4,
+        topk_per_stage=8)
+    data, freqs, dt = _tiny_pulsar_block()
+    timers = tex.StageTimers()
+    final, _f, _sp, ntr = tex.search_block(
+        data, freqs, dt, [ddplan.DedispStep(16.0, 2.0, 4, 1, 8, 1)],
+        params, timers=timers, device="cpu")
+    assert ntr == 4 and final and not timers.times.get("hi-accelsearch")
 
 
 def test_search_params_mirror_the_reference():

@@ -37,6 +37,29 @@ def test_detrend_normalize_matches(estimator):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("what", ["median", "median_sub4", "clipped_mean",
+                                  "pad_series", "whiten_clipped_mean"])
+def test_row_statistics_do_not_depend_on_the_call_row_count(what):
+    """A row's detrend, pad mean and whitening level are the same bits
+    in a call of 76 rows (a single-device chunk) as in calls of 8 rows
+    starting at 0, 32 and 44 (a mesh shard's, the last chunk clamped)
+    or of 19 rows: the per-row reductions run in fixed ROW_BLOCK-row
+    calls (rows_blocked)."""
+    from tpulsar_torch.kernels import fourier as tfr
+
+    x = torch.from_numpy(_series(seed=3, ndms=76, T=9000))
+    fns = {"pad_series": lambda s: tfr.pad_series(s, 16384),
+           "whiten_clipped_mean": lambda s: tfr.whiten_powers(
+               s.abs() ** 2, (1, 7, 16, 30), estimator="clipped_mean")}
+    fn = fns.get(what, lambda s: tsp.detrend_normalize(s, 1000, what))
+    whole = fn(x)
+    for starts, rows in (([0, 8, 16, 24, 32, 40, 48, 56, 44, 52, 60, 68],
+                          8), ([0, 19, 38, 57], 19)):
+        for s0 in starts:
+            assert torch.equal(fn(x[s0:s0 + rows].clone()),
+                               whole[s0:s0 + rows])
+
+
 def test_tail_block_gets_its_own_baseline():
     """The tail (T mod 1000 samples) is baselined by its own median:
     a tail offset by +50 comes out near zero mean, as in the

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from scipy import special as sps
 
-from tpulsar_torch.kernels.singlepulse import median_lastdim
+from tpulsar_torch.kernels.singlepulse import median_lastdim, rows_blocked
 
 
 # ----------------------------------------------------------------- rfft
@@ -38,8 +38,10 @@ def pad_series(series: torch.Tensor, nfft: int) -> torch.Tensor:
         return series
     if T > nfft:
         return series[..., :nfft]
-    mean = series.mean(dim=-1, keepdim=True)
-    pad = mean.expand(*series.shape[:-1], nfft - T)
+    lead = series.shape[:-1]
+    mean = rows_blocked(lambda b: b.mean(dim=-1, keepdim=True),
+                        series.reshape(-1, T)).reshape(*lead, 1)
+    pad = mean.expand(*lead, nfft - T)
     return torch.cat([series, pad], dim=-1)
 
 
@@ -86,6 +88,12 @@ def _block_level(x: torch.Tensor, estimator: str) -> torch.Tensor:
     noise), already in MEAN units."""
     if estimator == "median":
         return median_lastdim(x) / float(np.log(2.0))
+    lead = x.shape[:-1]
+    return rows_blocked(_clipped_level,
+                        x.reshape(-1, x.shape[-1])).reshape(lead)
+
+
+def _clipped_level(x: torch.Tensor) -> torch.Tensor:
     m1 = x.mean(dim=-1, keepdim=True)
     clipped = torch.minimum(x, 4.0 * m1)
     # E[min(X, 4 mu)] = mu (1 - e^-4) for X ~ Exp(mu)

@@ -40,6 +40,35 @@ def median_lastdim(x: torch.Tensor) -> torch.Tensor:
     return (lo + hi) * 0.5
 
 
+#: rows of every call of a per-row reduction (rows_blocked)
+ROW_BLOCK = 32
+
+
+def rows_blocked(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for a reduction fn that is independent row by row along
+    x's first axis, computed as calls of exactly ROW_BLOCK rows (the
+    last zero-padded, its padding dropped).  On the card torch sizes a
+    reduction's launch by its number of outputs, so a batched call
+    gives a row other bits in a block of 8 rows (a mesh shard's) than
+    in one of 76 (a single-device chunk's); calls of one size give a
+    row the same bits whatever the caller's row count."""
+    n = x.shape[0]
+    x = x.contiguous()
+    full = n - n % ROW_BLOCK
+    parts = [fn(b) for b in x[:full].split(ROW_BLOCK)] if full else []
+    if full < n:
+        pad = x.new_zeros((ROW_BLOCK - n + full,) + tuple(x.shape[1:]))
+        parts.append(fn(torch.cat([x[full:], pad]))[:n - full])
+    return torch.cat(parts)
+
+
+def _clipped_mean(x: torch.Tensor) -> torch.Tensor:
+    mu = x.mean(dim=-1, keepdim=True)
+    sd = torch.clamp(x.std(dim=-1, keepdim=True, correction=0), min=1e-9)
+    w = (torch.abs(x - mu) <= 3.0 * sd).to(x.dtype)
+    return (x * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
+
+
 def _baseline_stat(x: torch.Tensor, estimator: str) -> torch.Tensor:
     """Per-block baseline statistic over the last axis — every block
     (including a short tail) is normalized by ITS OWN sample count."""
@@ -48,11 +77,7 @@ def _baseline_stat(x: torch.Tensor, estimator: str) -> torch.Tensor:
     if estimator == "median_sub4":
         return median_lastdim(x[..., ::4])
     if estimator == "clipped_mean":
-        mu = x.mean(dim=-1, keepdim=True)
-        sd = torch.clamp(x.std(dim=-1, keepdim=True, correction=0),
-                         min=1e-9)
-        w = (torch.abs(x - mu) <= 3.0 * sd).to(x.dtype)
-        return (x * w).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
+        return rows_blocked(_clipped_mean, x)
     raise ValueError(f"unknown SP detrend estimator {estimator!r}")
 
 
@@ -76,9 +101,9 @@ def detrend_normalize(series: torch.Tensor, detrend_block: int = 1000,
             [baseline, tail_med[:, None].expand(ndms, T - usable)],
             dim=-1)
     detrended = series - baseline
-    std = torch.clamp(detrended.std(dim=-1, keepdim=True, correction=0),
-                      min=1e-9)
-    return detrended / std
+    std = rows_blocked(lambda b: b.std(dim=-1, keepdim=True, correction=0),
+                       detrended)
+    return detrended / torch.clamp(std, min=1e-9)
 
 
 def normalize_series(series: torch.Tensor, detrend_block: int = 1000,

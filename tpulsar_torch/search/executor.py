@@ -28,9 +28,9 @@ mask, every DDplan pass's partials, the sifted list and each folded
 candidate are checksummed artifacts, and a re-entered search
 recomputes only what is missing or corrupt.  search_beam_batch
 searches compatible beams as coalesced groups (kernels/beam_batch.py)
-with per-beam results identical to the solo path's.  The multi-chip
-mesh is not ported yet: search_beam and search_block raise
-NotImplementedError when asked for it.
+with per-beam results identical to the solo path's.  A mesh of
+devices (parallel/) shards each pass: search_block's `mesh`,
+_search_pass_sharded.
 
 Artifacts written to the results directory have the JAX package's
 names and formats:
@@ -89,8 +89,7 @@ from tpulsar_torch.search.report import StageTimers
 class SearchParams:
     """Search configuration — the JAX package's SearchParams, field for
     field with the same defaults (so provenance() dicts round-trip
-    between the packages).  Fields this package does not run yet are
-    refused by search_beam/search_block (see check_supported)."""
+    between the packages)."""
     nsub: int = 96
     rfifind_blocklen: int = 2048
     rfi_threshold: float = 4.0
@@ -195,13 +194,15 @@ class SearchOutcome:
     compile_misses: int = 0
 
 
-def check_supported(params: SearchParams, mesh=None) -> None:
-    """Refuse, by name, every option that belongs to a later slice of
-    the port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "tpulsar_torch does not run these yet (a later slice of "
-            "the port): the multi-device mesh (mesh)")
+def check_supported(mesh, dev) -> None:
+    """Refuse a mesh whose devices are not of the entry's device type
+    (the block is formed on `dev` and sharded from there; the package
+    never moves work to another kind of device on its own).  Every
+    SearchParams field runs; SearchParams validates its own values."""
+    if mesh is not None and mesh.device_type != torch.device(dev).type:
+        raise ValueError(f"mesh on {mesh.device_type} devices for a "
+                         f"search on {torch.device(dev)}: pass a mesh "
+                         f"of the entry's device type")
 
 
 def search_beam(fns: list[str], workdir: str, resultsdir: str,
@@ -228,10 +229,10 @@ def search_beam(fns: list[str], workdir: str, resultsdir: str,
     recomputes only what is missing or corrupt.  checkpoint_journal:
     optional ``callable(event, **extra)`` that receives the
     ``resume`` / ``pass_complete`` / ``checkpoint_invalid`` /
-    ``checkpoint_disabled`` events."""
+    ``checkpoint_disabled`` events.  mesh: as search_block's."""
     params = params or SearchParams()
-    check_supported(params, mesh)
     dev = resolve_device(device)
+    check_supported(mesh, dev)
     compiles0 = dict(cuda_dd.COMPILES)
     if trace_mod.enabled():
         # one trace file per beam: its rollup matches THIS beam's
@@ -257,7 +258,7 @@ def search_beam(fns: list[str], workdir: str, resultsdir: str,
     data, mask = _read_and_mask(si, params, basenm, resultsdir, store,
                                 timers, dev)
     res = _search_block(data, si.freqs, si.dt, plan, params, zaplist,
-                        baryv, nsub, timers, store, None, dev)
+                        baryv, nsub, timers, store, None, dev, mesh)
     out = _finalize_results(
         resultsdir, basenm, obj, si, plan, params, zaplist, baryv,
         data, mask, res, timers, metrics_base)
@@ -350,7 +351,6 @@ def search_beam_batch(specs: list[BeamSpec],
     quantized to the BATCH_QUANTA ladder either way.  device: as
     search_beam's."""
     params = params or SearchParams()
-    check_supported(params)
     dev = resolve_device(device)
     results = [BeamBatchResult(spec=s) for s in specs]
 
@@ -837,11 +837,18 @@ def search_block(data, freqs: np.ndarray, dt: float,
     dedispersion pass with {pass_idx, npasses, step_idx, ntrials_done,
     ncands, stage_s}.
 
+    mesh: a parallel.mesh.Mesh of `device`'s type (make_mesh) — each
+    pass's DM trials are sharded over its dm axis (dedispersion,
+    single-pulse, lo and hi stages run per shard; the per-trial top-k
+    blocks are gathered), or its time axis (params.seq_shard).  None
+    = one device.  Candidates are those of the single-device path up
+    to float reduction order.
+
     Returns (candidates, folded, sp_events, num_dm_trials): folded[k]
     is the fold of candidates[k]."""
     params = params or SearchParams()
-    check_supported(params, mesh)
     dev = resolve_device(device)
+    check_supported(mesh, dev)
     nchan = data.shape[0]
     nsub = nsub or (params.nsub if nchan % params.nsub == 0
                     else ddplan.largest_divisor_leq(nchan, params.nsub))
@@ -855,7 +862,7 @@ def search_block(data, freqs: np.ndarray, dt: float,
                               data_id=data_id + "|" + shape_id),
             checkpoint_journal)
     res = _search_block(data, freqs, dt, plan, params, zaplist, baryv,
-                        nsub, timers, store, progress_cb, dev)
+                        nsub, timers, store, progress_cb, dev, mesh)
     return res.final, res.folded, res.sp_events, res.num_trials
 
 
@@ -868,7 +875,7 @@ class _BlockResult(NamedTuple):
 
 
 def _search_block(data, freqs, dt, plan, params, zaplist, baryv, nsub,
-                  timers, store, progress_cb, dev) -> _BlockResult:
+                  timers, store, progress_cb, dev, mesh) -> _BlockResult:
     """search_block's body, on a checked configuration and device,
     under the trace's search_block root span."""
     timers = timers or StageTimers()
@@ -877,12 +884,12 @@ def _search_block(data, freqs, dt, plan, params, zaplist, baryv, nsub,
                         npasses=sum(s.numpasses for s in plan)):
         return _search_block_inner(data, freqs, dt, plan, params,
                                    zaplist, baryv, nsub, timers, store,
-                                   progress_cb, dev)
+                                   progress_cb, dev, mesh)
 
 
 def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
-                        nsub, timers, store, progress_cb,
-                        dev) -> _BlockResult:
+                        nsub, timers, store, progress_cb, dev,
+                        mesh) -> _BlockResult:
     if not isinstance(data, torch.Tensor):
         data = torch.from_numpy(np.ascontiguousarray(data))
     data = data.to(dev).contiguous()
@@ -890,7 +897,6 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
     all_cands: list[sifting.Candidate] = []
     sp_chunks: list[np.ndarray] = []
     num_trials = 0
-    sp_est = sp_k.detrend_estimator(params.sp_detrend)
     npasses = sum(s.numpasses for s in plan)
     pass_idx = -1
     # a verified 'sifted' artifact short-circuits the whole plan loop
@@ -925,60 +931,22 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
                 _fence(dev, subb)
             dt_ds = dt * step.downsamp
             dms = np.asarray(ppass.dms)
-            T_ds = int(subb.shape[1])
-            chunk_sz = pass_chunk_size(len(dms), ddplan.choose_n(T_ds),
-                                       params)
-            t_dd0 = timers.times.get("dedispersing", 0.0)
-            # the stage-2 family of THIS pass (kernels/tree_dd.py): tree
-            # passes run the shared merge levels once here, and each
-            # chunk below pays only its residual layer, with the SP
-            # detrend fused into it
-            tree_plan, tree_parts = _tree_levels(subb, sub_shifts, T_ds,
-                                                 timers, dev)
-            fam = "direct" if tree_parts is None else "tree"
-            # FFT-friendly padded length (reference: PRESTO choose_N via
-            # prepsubband -numout)
-            nfft = ddplan.choose_n(T_ds)
-            nbins = nfft // 2 + 1
-            T_s = nfft * dt_ds
-            keep = fr.zap_mask(nbins, T_s, zaplist, baryv) \
-                if zaplist is not None else None
-            # top-k-sized device outputs are held to one host transfer
-            # per pass; event and candidate order is chunk order
-            pending: list[tuple] = []
-            for lo in range(0, len(dms), chunk_sz):
-                dm_chunk = dms[lo: lo + chunk_sz]
-                # per-chunk child span: the stage scopes below nest
-                # under it, so the trace shows the pass/chunk structure
-                with trace_mod.span("dm_chunk", pass_idx=pass_idx,
-                                    lo=int(lo), n=int(len(dm_chunk)),
-                                    family=fam):
-                    with timers.timing("dedispersing"):
-                        if tree_parts is not None:
-                            series, norm = tree_dd.residual_series(
-                                tree_parts, tree_plan, lo, len(dm_chunk),
-                                T=T_ds, fuse=True, estimator=sp_est)
-                        else:
-                            series = dd.dedisperse_subbands(
-                                subb, sub_shifts[lo: lo + len(dm_chunk)])
-                            norm = None
-                        _fence(dev, series, norm)
-                    num_trials += len(dm_chunk)
-                    pending.append(_chunk_stages(
-                        series, norm, dm_chunk, nfft, T_s, keep, params,
-                        timers, dev))
-                    del series, norm
-
-            cands, events = _drain(pending, dt_ds, T_s, nbins, params,
-                                   timers)
+            if mesh is not None:
+                # the mesh shards the direct kernel; the tree family
+                # is the single-device path's, as in the reference
+                with timers.timing("sharded-search"):
+                    cands, events = _search_pass_sharded(
+                        mesh, subb, sub_shifts, dms, dt_ds, params,
+                        zaplist, baryv)
+                events = [events] if len(events) else []
+            else:
+                cands, events = _search_pass(
+                    subb, sub_shifts, dms, dt_ds, pass_idx, params,
+                    zaplist, baryv, timers, dev)
+            del subb
             all_cands.extend(cands)
             sp_chunks.extend(events)
-            del pending, subb, tree_parts
-            # per-family throughput instruments
-            telemetry.dedisp_trials_total().inc(len(dms), family=fam)
-            telemetry.dedisp_stage_seconds().observe(
-                timers.times.get("dedispersing", 0.0) - t_dd0,
-                family=fam)
+            num_trials += len(dms)
             if store is not None:
                 ntr_pass = num_trials - pass_trials_start
                 durable = store.save(
@@ -1010,6 +978,220 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
     return _sift_fold_finish(data, freqs, dt, params, zaplist, baryv,
                              nsub, timers, store, all_cands, sp_chunks,
                              num_trials, sifted_state, plan)
+
+
+def _search_pass(subb, sub_shifts, dms, dt_ds, pass_idx, params,
+                 zaplist, baryv, timers, dev) -> tuple:
+    """One dedispersion pass on one device, in DM chunks: stage 2 (the
+    direct kernel, or the shift tree where kernels/tree_dd.py picks
+    it), then _chunk_stages, drained once at the pass's end.  Returns
+    (candidates, SP event arrays)."""
+    sp_est = sp_k.detrend_estimator(params.sp_detrend)
+    T_ds = int(subb.shape[1])
+    chunk_sz = pass_chunk_size(len(dms), ddplan.choose_n(T_ds),
+                               params)
+    t_dd0 = timers.times.get("dedispersing", 0.0)
+    # the stage-2 family of THIS pass (kernels/tree_dd.py): tree
+    # passes run the shared merge levels once here, and each
+    # chunk below pays only its residual layer, with the SP
+    # detrend fused into it
+    tree_plan, tree_parts = _tree_levels(subb, sub_shifts, T_ds,
+                                         timers, dev)
+    fam = "direct" if tree_parts is None else "tree"
+    # FFT-friendly padded length (reference: PRESTO choose_N via
+    # prepsubband -numout)
+    nfft = ddplan.choose_n(T_ds)
+    nbins = nfft // 2 + 1
+    T_s = nfft * dt_ds
+    keep = fr.zap_mask(nbins, T_s, zaplist, baryv) \
+        if zaplist is not None else None
+    # top-k-sized device outputs are held to one host transfer
+    # per pass; event and candidate order is chunk order
+    pending: list[tuple] = []
+    for lo in range(0, len(dms), chunk_sz):
+        dm_chunk = dms[lo: lo + chunk_sz]
+        # per-chunk child span: the stage scopes below nest
+        # under it, so the trace shows the pass/chunk structure
+        with trace_mod.span("dm_chunk", pass_idx=pass_idx,
+                            lo=int(lo), n=int(len(dm_chunk)),
+                            family=fam):
+            with timers.timing("dedispersing"):
+                if tree_parts is not None:
+                    series, norm = tree_dd.residual_series(
+                        tree_parts, tree_plan, lo, len(dm_chunk),
+                        T=T_ds, fuse=True, estimator=sp_est)
+                else:
+                    series = dd.dedisperse_subbands(
+                        subb, sub_shifts[lo: lo + len(dm_chunk)])
+                    norm = None
+                _fence(dev, series, norm)
+            pending.append(_chunk_stages(
+                series, norm, dm_chunk, nfft, T_s, keep, params,
+                timers, dev))
+            del series, norm
+
+    cands, events = _drain(pending, dt_ds, T_s, nbins, params,
+                           timers)
+    del pending, tree_parts
+    # per-family throughput instruments
+    telemetry.dedisp_trials_total().inc(len(dms), family=fam)
+    telemetry.dedisp_stage_seconds().observe(
+        timers.times.get("dedispersing", 0.0) - t_dd0,
+        family=fam)
+    return cands, events
+
+
+def _sharded_chunks(params: SearchParams, n_dm: int, ndms_pad: int,
+                   nbins: int, nz: int, hi_sharded: bool, device
+                   ) -> tuple[int, list[int]]:
+    """The sharded pass's DM chunk and each chunk's first trial, over
+    a table padded to ndms_pad trials (a multiple of n_dm).  The chunk
+    is a multiple of the dm axis, bounded by max_dms_per_chunk and,
+    with the hi stage, by plane_dm_chunk rows a shard (the single-
+    device hi batch, so a shard's hi call has its shapes).  The last
+    chunk is clamped to end at the table's end (the reference's rule,
+    which keeps one compiled shape; here it re-covers rows of the
+    chunk before it).  Each chunk is n_dm launches of chunk / n_dm
+    rows of the stage-2 kernel."""
+    chunk = params.max_dms_per_chunk
+    if hi_sharded:
+        chunk = min(chunk, accel_k.plane_dm_chunk(
+            nbins, nz, device=device) * n_dm)
+    chunk = min(max(n_dm, (chunk // n_dm) * n_dm), ndms_pad)
+    return chunk, [min(c0, ndms_pad - chunk)
+                   for c0 in range(0, ndms_pad, chunk)]
+
+
+def _search_pass_sharded(mesh, subb, sub_shifts, dms, dt_ds,
+                         params: SearchParams, zaplist, baryv) -> tuple:
+    """One dedispersion pass with the DM axis sharded over the mesh
+    (the reference's _search_pass_sharded).
+
+    Runs the single-device chunk loop's pipeline — dedisperse, SP
+    boxcars, whiten, lo harmonic stages, hi z-template correlation —
+    in each shard per DM chunk (parallel/mesh.sharded_pass_fn), then
+    converts the gathered top-k blocks with the same host code.
+    Returns (candidates, sp_events).
+
+    Gates, as in the reference: the hi stage runs sharded only when
+    the batched hi path is usable and no fault names an accel point
+    (else it runs through _hi_accel_pass, the single-device route with
+    its ladder); the sequence-parallel front end follows
+    params.seq_shard; a per-trial spectrum above
+    params.spectral_hbm_budget goes to the distributed-FFT pass."""
+    from tpulsar_torch.parallel import dist_fft
+    from tpulsar_torch.parallel import mesh as pmesh
+    from tpulsar_torch.resilience import faults
+
+    n_dm = int(mesh.shape["dm"])
+    T_ds = int(subb.shape[-1])
+    nfft = ddplan.choose_n(T_ds)
+    nbins = nfft // 2 + 1
+    T_s = nfft * dt_ds
+    hi = params.run_hi_accel and params.hi_accel_zmax > 0
+    # a fault spec naming an accel dispatch point pins the single-
+    # device hi route: the sharded pass never dispatches per-row or
+    # per-chunk accel work, so the fault would never fire under it
+    hi_sharded = (hi and accel_k._batch_path_usable()
+                  and not faults.targets_prefix("accel."))
+    bank = _get_bank(params.hi_accel_zmax) if hi else None
+    nz = len(bank.zs) if hi else 0
+    dd_pad = dd._pad_bucket(int(np.asarray(sub_shifts).max(initial=0)))
+    # sequence-parallel front end: shard the subband block's TIME axis
+    # instead of replicating it, when the halo fits a shard's chunk
+    seq = (params.seq_shard == "on"
+           or (params.seq_shard == "auto"
+               and subb.nelement() * subb.element_size()
+               > params.seq_shard_min_bytes))
+    seq_ok = (n_dm > 1 and T_ds % n_dm == 0
+              and dd_pad <= T_ds // n_dm)
+    # a per-trial spectral tail beyond the budget cannot be resharded
+    # to whole per-device series: the spectrum itself is distributed
+    if (seq_ok and params.seq_shard != "off"
+            and dist_fft.spectral_bytes_per_trial(nfft)
+            > params.spectral_hbm_budget):
+        return pmesh.seq_dist_search(mesh, subb, sub_shifts, dms, dt_ds,
+                                     nfft, params)
+    if seq and not seq_ok and params.seq_shard == "on":
+        warnings.warn(
+            f"seq_shard='on' cannot be honoured for this pass "
+            f"(n_dm={n_dm}, T'={T_ds}, halo={dd_pad} vs chunk="
+            f"{T_ds // max(n_dm, 1)}); falling back to per-device "
+            f"subband replication", stacklevel=2)
+    spec = pmesh.PassSpec(
+        nfft=nfft, max_numharm=params.lo_accel_numharm,
+        topk=params.topk_per_stage, sp_widths=tuple(params.sp_widths),
+        sp_topk=sp_k.DEFAULT_TOPK,
+        sp_detrend=sp_k.detrend_estimator(params.sp_detrend),
+        whiten_est=fr.whiten_estimator(),
+        hi=hi_sharded, hi_numharm=params.hi_accel_numharm,
+        hi_seg=bank.seg if hi_sharded else 0,
+        hi_step=bank.step if hi_sharded else 0,
+        hi_width=bank.width if hi_sharded else 0,
+        hi_nz=nz if hi_sharded else 0,
+        dd_pad=dd_pad, seq_sharded=seq and seq_ok)
+    fn = pmesh.sharded_pass_fn(mesh, spec)
+    keep = fr.zap_mask(nbins, T_s, zaplist, baryv) \
+        if zaplist is not None else None
+    bank_t = (torch.from_numpy(bank.bank_fft).to(subb.device)
+              if hi_sharded else None)
+
+    padded = pmesh.shard_dm_table(np.asarray(sub_shifts), n_dm)
+    ndms = len(dms)
+    chunk, starts = _sharded_chunks(params, n_dm, len(padded), nbins,
+                                    nz, hi_sharded, subb.device)
+
+    stages_lo = fr.harmonic_stages(params.lo_accel_numharm)
+    stages_hi = fr.harmonic_stages(params.hi_accel_numharm) if hi else []
+    # the gathered blocks' DM-row axis
+    row_dim = {"lo_vals": 1, "lo_bins": 1, "sp_snr": 1, "sp_idx": 1,
+               "hi_vals": 0, "hi_rbins": 0, "hi_zidx": 0}
+    host: dict[str, np.ndarray] = {}
+    for s0 in starts:
+        out = fn(subb, padded[s0:s0 + chunk], keep, bank_t)
+        for k, t in out.items():
+            v = t.cpu().numpy()
+            d = row_dim[k]
+            if k not in host:
+                host[k] = np.empty(v.shape[:d] + (len(padded),)
+                                   + v.shape[d + 1:], v.dtype)
+            host[k][(slice(None),) * d + (slice(s0, s0 + chunk),)] = v
+
+    # both stages search the numbetween=2 half-bin grid (bin_scale)
+    lo_res = {h: (host["lo_vals"][si, :ndms], host["lo_bins"][si, :ndms])
+              for si, h in enumerate(stages_lo)}
+    cands = sifting.make_candidates(
+        lo_res, dms, T_s, _lo_sigma_fn(nbins),
+        sigma_min=params.sifting.sigma_threshold, bin_scale=0.5)
+    if hi_sharded:
+        zs = np.asarray(bank.zs)
+        hi_res = {h: (host["hi_vals"][:ndms, si],
+                      host["hi_rbins"][:ndms, si],
+                      zs[host["hi_zidx"][:ndms, si]])
+                  for si, h in enumerate(stages_hi)}
+        cands.extend(sifting.make_candidates(
+            hi_res, dms, T_s, _hi_sigma_fn(nbins, nz),
+            sigma_min=params.sifting.sigma_threshold,
+            z_min_abs=accel_k.DZ / 2, bin_scale=0.5))
+    elif hi:
+        # the hi stage through the single-device route (its own
+        # ladder), re-dedispersing in chunks
+        degraded.note("sharded_hi_fallback",
+                      "batched hi path unusable on the mesh path; hi "
+                      "stage re-dedisperses per chunk (2x stage-2 "
+                      "cost)")
+        for lo in range(0, ndms, params.max_dms_per_chunk):
+            dm_chunk = dms[lo: lo + params.max_dms_per_chunk]
+            series = dd.dedisperse_subbands(
+                subb, np.asarray(sub_shifts)[lo: lo + len(dm_chunk)])
+            wspec = (fr.whitened_spectrum_masked(series, keep, nfft=nfft)
+                     if keep is not None else
+                     fr.whitened_spectrum(series, nfft=nfft))
+            cands.extend(_hi_accel_pass(wspec, dm_chunk, T_s, params))
+    events = sp_k.events_from_topk(
+        host["sp_snr"][:, :ndms], host["sp_idx"][:, :ndms], dms, dt_ds,
+        threshold=params.sp_threshold, widths=tuple(params.sp_widths))
+    return cands, events
 
 
 def _tree_levels(subb, sub_shifts, T_ds, timers, dev):
