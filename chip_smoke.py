@@ -3,9 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from tpulsar_torch/csrc and the native unpack
-from tpulsar_torch/native (both builds started together) and runs
-these phases:
+Builds the CUDA kernels from tpulsar_torch/csrc and the native library
+from tpulsar_torch/native through the AOT gate (aot_phase:
+tpulsar_torch.aot.warmstart.run_gate in process writes the build
+directory's manifest, `python -m tpulsar_torch aot verify` in a fresh
+process finds both libraries with 0 misses, `aot ls` marks both; the
+registers come from the manifest's ptxas report) and runs these
+phases:
 
   1. kernels: each kernel against its plain PyTorch version on the
      card, exact, at every shape of the main path (stage 1 at each
@@ -16,7 +20,13 @@ these phases:
      DM chunk of the plan at that length, also against two B = 1
      launches, timed, and refinement's one row; and which stages after dedispersion give a row the same
      bits inside a two-beam batch of rows as alone (the reason the
-     batch path runs them per beam);
+     batch path runs them per beam); the library it launched is the
+     manifest's;
+  row statistics (row_stats_phase): the plan's first pass of a
+     BATCH_NSAMP slice of phase 1's block, dedispersed by the kernels;
+     the SP detrend's and the whitening's clipped estimators and
+     fourier.pad_series's mean in one 76-row call and in calls of 8,
+     16 and 19 rows: no row may differ;
   2. hi stage: the FDAS stage on one full-width ds-1 DM chunk of
      whitened spectra (dedispersed noise with a drifting pulse train):
      the bf16 plane against the f32 plane on the card, the card against
@@ -153,31 +163,12 @@ these phases:
      nothing, `status` and `show uploading` print the tracker's state,
      and `remove-files` drops the downloaded copy.
 
-  10. fleet (run after phase 7, on phase 7's beam, held against its
-     solo search): a FleetController in this process (its worker
-     command is the smoke's wrapper, so it cannot be the `fleet` CLI)
-     runs two `serve --once` workers on the card over a sqlite queue
-     in its spool (no crash restarts, attempts cap 3, the health
-     doctor hosted).  Both boot and hold; ticket "stolen" is submitted
-     and w0 released, then ticket "own" and w1 released.  Once
-     stolen's checkpoint names pass K_RESUME - 1, w0 is SIGKILLed; the
-     janitor requeues its claim as a takeover and w1 finishes the beam
-     from the checkpoint after its own.  It checks that the controller
-     exits 0, that each ticket is done once by w1 (the stolen one with
-     attempts 1), the journal chains (claimed by w0, takeover from
-     w0, claimed by w1, one terminal event, one trace id), that both
-     results directories equal phase 7's solo search's and fold the
-     pulsar, that w1 launched the kernels exactly as often as one
-     whole beam and the passes the stolen checkpoint lacked require,
-     fleet.json (w0 given up, rc -9), fleet.prom (the beam_e2e SLO
-     from 2 workers, the active alert), the doctor's alert_fired
-     for takeover_rate and alerts.json, GET /v1/alerts through a
-     token'd gateway, `doctor --queue` (exit 1, naming the rule),
-     `fleet --status` and the node probe `doctor`'s device probe; it
-     prints the boots, each beam's beam_seconds, the takeover latency,
-     the resumed passes and the card's peak memory in use.
+  10. fleet: folded into phase 11, whose storm runs the same
+     FleetController of two `serve` workers on phase 7's beam, SIGKILLs
+     w0 mid-beam and lets the janitor requeue its claim; phase 11 holds
+     every check this phase made.
 
-  11. chaos (run after phase 10, on phase 7's beam, held against its
+  11. chaos (run after phase 6, on phase 7's beam, held against its
      solo search): the port's chaos harness conducts a storm with
      worker_kind "serve" (CHAOS_SCENARIO, through scenario.from_dict):
      ChaosRunner in this process runs a FleetController with two
@@ -196,8 +187,16 @@ these phases:
      launches (each beam whole less its resumed passes); it prints the
      boots, each ticket's beam_seconds and attempts, kill -> takeover
      and -> re-claim, the storm's wall and the card's peak memory in
-     use.  Then the packaged ci_smoke scenario (stub workers) through
-     `chaos run` and `chaos verify` as subprocesses.
+     use.  The fleet's own records and its hosted doctor are held
+     after the storm (fleet_checks): fleet.json (stopped, every beam
+     done, w0 restarted after its SIGKILL, rc -9 in its worker_exit),
+     fleet.prom (the beam_e2e SLO from 2 workers, the active alert),
+     the doctor's alert_fired for takeover_rate and alerts.json, GET
+     /v1/alerts through a token'd gateway, `doctor --queue` (exit 1,
+     naming the rule), `fleet --status` and the node probe `doctor`'s
+     device probe; every results directory's checkpoint cleaned.  Then
+     the packaged ci_smoke scenario (stub workers) through `chaos run`
+     and `chaos verify` as subprocesses.
 
   12. operator surface (run after phase 9, on phase 7's beam, held
      against its solo search): `python -m tpulsar_torch search <beam>
@@ -211,12 +210,12 @@ these phases:
      50 ms), `plan <beam>` (the 57-pass Mock survey plan of the
      header), `checkpoint` of the kept checkpoint (every artifact
      listed, `--verify` exit 0; a copy with one byte of a pass flipped:
-     exit 1 naming it), and `obs timeline stolen`, `obs top --once`
-     and `obs tail --lines 5` over phase 10's sqlite queue (claimed by
-     w0, the takeover from w0, claimed by w1, one result; w0 and w1
-     named) and `obs timeline` of the ticket phase 11 took over from
-     w0.  It prints the search's wall, its .report stages, the trace's
-     top spans and the phase's seconds.
+     exit 1 naming it), and `obs timeline` of the ticket phase 11 took
+     over from w0 (claimed by w0, the takeover from w0, a claim, one
+     result), `obs top --once` (w0 and w1 named) and `obs tail --lines
+     5` over phase 11's sqlite queue.  It prints the search's wall,
+     its .report stages, the trace's top spans and the phase's
+     seconds.
 
   13. mesh (run after phase 12, on phase 7's beam, held against its
      solo search): the parallel layer (tpulsar_torch/parallel/) on a
@@ -248,12 +247,15 @@ these phases:
      within one Fourier bin among its candidates.  Each part's wall is
      printed.
 
-Phases 4-7, 9-11, 12 and 13 search with the zaplist the job picks
+Phases 4-7, 9 and 11-13 search with the zaplist the job picks
 under the default configuration (the packaged default.zaplist), as
 the server does.
 
 Output: progress lines, then the card's name and power limit, one JSON
-line with every kernel's numbers, and as the last line
+line {"aot": ...} (the gate's and the verify's seconds, the verify's
+hits and misses, each library's path, build seconds and fingerprint,
+the row statistics), one JSON line with every kernel's numbers, and as
+the last line
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
 result line).  It needs a CUDA device and the rest of the repository;
 it imports nothing of the JAX package.
@@ -293,6 +295,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpulsar_torch import checkpoint as ckpt  # noqa: E402
 from tpulsar_torch import native  # noqa: E402
+from tpulsar_torch.aot import warmstart  # noqa: E402
 from tpulsar_torch.cli import search_job  # noqa: E402
 from tpulsar_torch.io import accelcands, psrfits, synth  # noqa: E402
 from tpulsar_torch.kernels import accel  # noqa: E402
@@ -406,6 +409,120 @@ def ptxas_report(build_log: str) -> dict:
             log(f"  ptxas: {name}: {n} registers; {spill}")
             name = None
     return out
+
+
+def aot_cli(*args) -> tuple[subprocess.CompletedProcess, float]:
+    """`python -m tpulsar_torch aot ARGS` in a fresh process: the result
+    and its wall seconds."""
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "tpulsar_torch", "aot", *args],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ,
+                 PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
+    return res, time.time() - t0
+
+
+def aot_phase() -> dict:
+    """The build step is the AOT gate (tpulsar_torch/aot/):
+    warmstart.run_gate in this process builds and loads g++'s native
+    library and nvcc's CUDA kernels into the build directory and
+    writes the manifest, and the kernels' registers come from the
+    manifest's ptxas report.  Then `python -m tpulsar_torch aot verify`
+    in a fresh process must find both libraries (0 misses) and `aot
+    ls` must mark both."""
+    t0 = time.time()
+    rc = warmstart.run_gate(echo=lambda s: log(f"  aot: {s}"))
+    build_s = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"the AOT gate exited {rc}")
+    progs = warmstart.load_manifest()["programs"]
+    if sorted(progs) != ["cuda_dd", "native"] or \
+            progs["cuda_dd"]["ptxas"] is None:
+        raise AssertionError(f"the AOT manifest: {progs}")
+    with open(progs["cuda_dd"]["ptxas"]) as fh:
+        regs = ptxas_report(fh.read())
+    ver, verify_s = aot_cli("verify")
+    m = re.search(r"manifest verify: (\d+)/(\d+) hits, (\d+) misses",
+                  ver.stdout)
+    if ver.returncode != 0 or not m or m.groups() != ("2", "2", "0"):
+        raise AssertionError(f"aot verify exited {ver.returncode}:\n"
+                             f"{ver.stdout[-2000:]}{ver.stderr[-2000:]}")
+    ls, ls_s = aot_cli("ls")
+    marked = sorted(re.findall(r"^  \* (\S+)", ls.stdout, re.M))
+    if ls.returncode != 0 or marked != ["cuda_dd", "native"]:
+        raise AssertionError(f"aot ls exited {ls.returncode}, marked "
+                             f"{marked}:\n{ls.stdout[-2000:]}")
+    log(f"aot: gate {build_s:.2f} s ("
+        + ", ".join(f"{n} {os.path.relpath(r['library'])} built in "
+                    f"{r['build_s']} s" for n, r in progs.items())
+        + f"); `aot verify` in a fresh process {verify_s:.2f} s: "
+        f"{m.group(0)}; `aot ls` {ls_s:.2f} s marks {marked}")
+    return dict(build_s=build_s, verify_s=verify_s,
+                verify_hits=int(m.group(1)),
+                verify_misses=int(m.group(3)), ls_s=ls_s,
+                programs={n: {k: r[k] for k in ("library", "build_s",
+                                                "fingerprint")}
+                          for n, r in progs.items()},
+                regs=regs)
+
+
+#: the row-count-independence check: calls of these row counts against
+#: one call of a pass's 76 rows, at the first row of each call (8-row
+#: mesh shards, the last clamped to the end, as the mesh path cuts them)
+ROW_CALLS = {8: (0, 8, 16, 24, 32, 40, 48, 56, 64, 68),
+             16: (0, 16, 32, 48, 60), 19: (0, 19, 38, 57)}
+
+
+def row_stats_phase(data, freqs: np.ndarray) -> dict:
+    """One pass on the card: the plan's first pass (ds 1, 76 DMs) over
+    the first BATCH_NSAMP samples of phase 1's block, dedispersed by
+    the kernels.  Its SP detrend with the clipped estimator
+    (clipped_mean), fourier.pad_series's mean (to the next power of
+    two) and the whitening of its spectrum's powers with the clipped
+    estimator run in one 76-row call and in calls of 8, 16 and 19 rows
+    (ROW_CALLS); no row may differ from the 76-row call."""
+    ppass = ddplan.survey_plan("pdev")[0].passes()[0]
+    dms = np.asarray(ppass.dms)
+    ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, ppass.subdm, dms,
+                                        TSAMP, 1)
+    block = data[:, :BATCH_NSAMP].contiguous()
+    series = cuda_dd.dedisperse_subbands(
+        cuda_dd.form_subbands(block, ch_sh, 96, 1), sub_sh)
+    del block
+    nrows, T = series.shape
+    nfft = 1 << (T - 1).bit_length()
+    powers = fr.complex_spectrum(series).abs() ** 2
+    # (function, its input): the whitening is held on one set of
+    # powers, so that only its own statistics can move a row
+    fns = {
+        "sp_detrend_clipped_mean": (lambda x: sp_k.detrend_normalize(
+            x, 1000, "clipped_mean"), series),
+        "pad_series_mean": (lambda x: fr.pad_series(x, nfft), series),
+        "whiten_clipped_mean": (lambda x: fr.whiten(
+            x, estimator="clipped_mean"), powers)}
+    t0 = time.time()
+    differ = {}
+    for name, (fn, x) in fns.items():
+        whole = fn(x)
+        for rows, starts in ROW_CALLS.items():
+            bad = set()
+            for s0 in starts:
+                got = fn(x[s0:s0 + rows].contiguous())
+                diff = (got != whole[s0:s0 + rows]).any(dim=-1)
+                bad.update(s0 + int(i) for i in torch.nonzero(diff))
+            differ[f"{name}/{rows}"] = len(bad)
+        del whole
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    log(f"row statistics: pass 0 ({nrows} rows x {T} samples, ds 1; "
+        f"pad to {nfft}) in calls of 8, 16, 19 rows against one "
+        f"{nrows}-row call: rows differing {json.dumps(differ)} "
+        f"({wall:.2f} s)")
+    if any(differ.values()):
+        raise AssertionError(f"row statistics depend on the call's row "
+                             f"count: {differ}")
+    return dict(rows=nrows, nsamp=T, nfft=nfft, differ=differ, s=wall)
 
 
 def plan_shapes(plan, nsamp: int, params,
@@ -1589,7 +1706,7 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
 #: boot, phase 12's `search`, counts from the process start), with its
 #: start and end times; keeps a copy of each checkpoint the job cleans,
 #: beside its output directory, as <outdir>.checkpoint.  With
-#: $SMOKE_HOLD set (phase 10's fleet workers) it also writes the boot's
+#: $SMOKE_HOLD set (phase 11's w1) it also writes the boot's
 #: counts to $SMOKE_COUNTS.booted and claims nothing until the file
 #: $SMOKE_HOLD exists
 SERVE_WRAPPER = r"""
@@ -1708,8 +1825,9 @@ def server_counts(srv: dict, rc: int) -> dict:
     with open(srv["log"]) as fh:
         text = fh.read()
     for line in text.splitlines():
-        if re.search(r"serve: |boot took|ticket .* -> |stage-in failed|"
-                     r"server stopped|\[batch\]|Error|Traceback", line):
+        if re.search(r"serve: |boot took|gate: |ticket .* -> |"
+                     r"stage-in failed|server stopped|\[batch\]|Error|"
+                     r"Traceback", line):
             log(f"  {srv['name']}: {line[:300]}")
     if rc != 0:
         raise AssertionError(f"{srv['name']}: the server exited {rc}:\n"
@@ -1891,6 +2009,12 @@ def serve_phase(fns: list[str], tmp: str, ref: dict) -> dict:
         rc = proc.wait(timeout=300)
         wall = time.time() - t_start
         counts = server_counts(srv, rc)
+        with open(srv["log"]) as fh:
+            boot_log = fh.read()
+        if "gate: manifest verify: 2/2 hits, 0 misses" not in boot_log:
+            raise AssertionError("phase 6: the server's boot did not "
+                                 "verify both libraries against the "
+                                 "manifest with 0 misses")
         r = recs["t0"]
         if r["status"] != "done":
             raise AssertionError(f"phase 6: t0 not done: {r}")
@@ -2124,14 +2248,6 @@ def batch_phase(tmp: str, plan) -> dict:
                 solo=solo)
 
 
-def _claims(spool: str, tid: str) -> list[tuple[str, float]]:
-    """(worker, t) of each `claimed` event of a ticket, in order."""
-    from tpulsar_torch.obs import journal
-
-    return [(e.get("worker", ""), e["t"]) for e in journal.read_events(
-        spool, ticket=tid) if e["event"] == "claimed"]
-
-
 def _search_launches(plan, nsamp: int, first: int) -> dict:
     """The stage-1 and stage-2 launches of the search passes before
     `first` (what a resume from a checkpoint holding passes
@@ -2161,288 +2277,6 @@ class DeviceMemoryPeak:
     def __exit__(self, *exc):
         self._stop.set()
         self._th.join()
-
-
-def fleet_phase(tmp: str, plan, p7: dict) -> dict:
-    """Phase 10: the serving fleet on phase 7's beam.  A FleetController
-    (in this process, in a thread: its worker command is SERVE_WRAPPER,
-    which `python -m tpulsar_torch fleet` cannot take) runs two `serve
-    --once` workers on the card over a sqlite queue inside the spool,
-    once=True, no crash restarts, ticket attempts cap 3, its health
-    doctor hosted.  Both workers boot and hold; ticket "stolen" is
-    submitted and w0 released (it claims it), then ticket "own" and w1
-    released.  Once stolen's checkpoint names pass K_RESUME - 1, w0 is
-    SIGKILLed; the janitor requeues the claim as a takeover and w1
-    finishes the beam from the checkpoint after its own.  The doctor's
-    verdict is then read through alerts.json, a gateway's
-    GET /v1/alerts, `doctor --queue`, `fleet --status` and the node
-    probe `doctor`."""
-    from tpulsar_torch.fleet import controller as fleet_ctl
-    from tpulsar_torch.frontdoor import queue as fq
-    from tpulsar_torch.obs import health, journal
-
-    nsamp, fns, solo = p7["nsamp"], p7["fns"], p7["solo"]
-    srv = server_setup(tmp, "fleet")
-    spool = srv["spool"]
-    os.makedirs(spool)
-    queue_url = f"sqlite:{os.path.join(spool, 'queue.db')}"
-    q = fq.get_ticket_queue(queue_url)
-    outs = {t: os.path.join(tmp, f"fleet_{t}") for t in ("stolen", "own")}
-    wids = ("w0", "w1")
-    hold = {w: os.path.join(tmp, f"fleet_go_{w}") for w in wids}
-    counts = {w: os.path.join(tmp, f"fleet_{w}_counts.json") for w in wids}
-
-    def worker_cmd(wid):
-        return srv["cmd"] + ["--worker-id", wid, "--queue", queue_url]
-
-    def worker_env(wid):
-        return dict(srv["env"], SMOKE_COUNTS=counts[wid],
-                    SMOKE_HOLD=hold[wid],
-                    TPULSAR_STAGE_HEARTBEAT=f"{srv['hb']}.{wid}")
-
-    torch.cuda.empty_cache()
-    ctrl = fleet_ctl.FleetController(
-        spool, workers=2, worker_cmd=worker_cmd, worker_env=worker_env,
-        once=True, max_worker_restarts=0, ticket_max_attempts=3,
-        queue=q, poll_s=0.2, drain_timeout_s=120.0)
-    result: dict = {}
-
-    def run():
-        try:
-            result["rc"] = ctrl.run()
-        except BaseException as e:          # re-raised below
-            result["error"] = e
-
-    def wait(pred, what, timeout_s=300.0):
-        t0 = time.time()
-        while not pred():
-            if "error" in result or "rc" in result:
-                raise AssertionError(f"phase 10: the controller stopped "
-                                     f"({result}) while waiting for "
-                                     f"{what}")
-            if time.time() - t0 > timeout_s:
-                raise AssertionError(f"phase 10: {what} (after "
-                                     f"{timeout_s} s)")
-            time.sleep(0.01)
-        return time.time()
-
-    t_phase = time.time()
-    th = threading.Thread(target=run, name="fleet-controller")
-    with DeviceMemoryPeak() as mem:
-        th.start()
-        try:
-            wait(lambda: all(os.path.exists(counts[w] + ".booted")
-                             for w in wids), "both workers booted")
-            t_booted = time.time()
-            boots = {}
-            for w in wids:
-                with open(counts[w] + ".booted") as fh:
-                    boots[w] = json.load(fh)["boot_seconds"]
-            q.submit("stolen", fns, outs["stolen"])
-            open(hold["w0"], "w").close()
-            wait(lambda: _claims(spool, "stolen"), "w0's claim of "
-                 "stolen", 60)
-            q.submit("own", fns, outs["own"])
-            open(hold["w1"], "w").close()
-            wait(lambda: _claims(spool, "own"), "a claim of own", 60)
-            ckdir = ckpt.default_root(outs["stolen"])
-            mark_pass = f"pass_{K_RESUME - 1:04d}"
-            wait(lambda: mark_pass in ((ckpt.read_manifest(ckdir) or {})
-                                       .get("entries") or {}),
-                 f"stolen's checkpoint never named {mark_pass}", 600)
-            w0 = ctrl.workers[0]
-            held = {t for t in outs
-                    if [w for w, _ in _claims(spool, t)] == ["w0"]}
-            pid0 = w0.pid
-            t_kill = time.time()
-            os.kill(pid0, signal.SIGKILL)
-            wait(lambda: w0.last_rc is not None, "w0's exit reaped", 60)
-            kept = {t: (_present_passes(ckpt.default_root(outs[t]))
-                        if t in held else []) for t in outs}
-            for t in held:
-                if kept[t] != list(range(len(kept[t]))):
-                    raise AssertionError(f"phase 10: {t}'s checkpoint "
-                                         f"after the kill {kept[t]}")
-            wait(lambda: all(len(_claims(spool, t)) == 2 for t in held),
-                 "w1's claim of w0's beams", 120)
-            th.join(timeout=900)
-            if th.is_alive():
-                raise AssertionError("phase 10: the fleet did not stop")
-        finally:
-            if th.is_alive():
-                ctrl.request_drain()
-                th.join(timeout=180)
-            for w in ctrl.workers:
-                if w.alive:
-                    w.proc.kill()
-                    w.proc.wait()
-    if "error" in result:
-        raise result["error"]
-    phase_wall = time.time() - t_phase
-    if result["rc"] != 0:
-        raise AssertionError(f"phase 10: the controller exited "
-                             f"{result['rc']}")
-    if held != {"stolen"}:
-        log(f"phase 10: NOTE w0 held {sorted(held)} at the kill (w1's "
-            f"prefetch lost the race for own)")
-
-    # the tickets: done once each, by w1; the stolen chain
-    recs = {t: q.read_result(t) for t in outs}
-    chains = {}
-    for t, r in recs.items():
-        if r is None or r["status"] != "done" or r["worker"] != "w1" \
-                or r["attempts"] != (1 if t in held else 0):
-            raise AssertionError(f"phase 10: {t}'s result {r}")
-        evs = journal.read_events(spool, ticket=t)
-        problems = journal.validate_chain(evs)
-        names = [(e["event"], e.get("worker"), e.get("from_worker"))
-                 for e in evs]
-        want_claims = ["w0", "w1"] if t in held else ["w1"]
-        terminal = [n for n in names if n[0] == journal.TERMINAL_EVENT]
-        steals = [n for n in names if n[0] == "takeover"]
-        if problems or [w for w, _ in _claims(spool, t)] != want_claims \
-                or len(terminal) != 1 or len(
-                    {e["trace_id"] for e in evs if e.get("trace_id")}) != 1 \
-                or [s[2] for s in steals] != (["w0"] if t in held else []):
-            raise AssertionError(f"phase 10: {t}'s journal chain "
-                                 f"{names}: {problems}")
-        seq = [n[0] for n in names]
-        chains[t] = [f"{n} x{seq.count(n)}" if seq.count(n) > 1 else n
-                     for i, n in enumerate(seq) if n not in seq[:i]]
-    t_reclaim = _claims(spool, "stolen")[-1][1]
-    t_steal = next(e["t"] for e in journal.read_events(
-        spool, ticket="stolen") if e["event"] == "takeover")
-
-    # the science: both results equal phase 7's solo search
-    diff = results_diff().diff_results
-    for t, out in outs.items():
-        problems = diff(out, solo["resultsdir"])
-        if problems:
-            raise AssertionError(f"phase 10: {t}'s results differ from "
-                                 f"phase 7's solo search's: "
-                                 + "; ".join(problems[:10]))
-        check_pulsar(out, solo["basenm"], f"phase 10 {t}")
-        if os.path.exists(ckpt.default_root(out)):
-            raise AssertionError(f"phase 10: {t}'s checkpoint was not "
-                                 f"cleaned")
-
-    # w1's launches: a whole beam each, less the passes w0's
-    # checkpoints held
-    with open(counts["w1"]) as fh:
-        c1 = json.load(fh)
-    if os.path.exists(counts["w0"]):
-        raise AssertionError("phase 10: the killed w0 wrote its counts")
-    whole = {"form_subbands": sum(solo["n1"].values()),
-             "dedisperse_subbands": sum(solo["n2"].values())}
-    want = {k: 0 for k in whole}
-    for t in outs:
-        skip = _search_launches(plan, nsamp, len(kept[t]))
-        for k in want:
-            want[k] += whole[k] - skip[k]
-    got = {k: c1["served"].get(k, 0) for k in want}
-    if got != want or c1["served"].get("dedisperse_subbands_beams"):
-        raise AssertionError(f"phase 10: w1's launches {c1['served']} "
-                             f"!= expected {want}")
-    resumed = {t: len(kept[t]) for t in held}
-    log(f"phase 10 launches of w1 after boot: {got} (expected {want}: "
-        f"one whole beam of {whole} for own, and for stolen the passes "
-        f"{resumed['stolen'] if 'stolen' in resumed else 0}..56 its "
-        f"checkpoint lacked plus refinement and folds)")
-
-    # the fleet's own records
-    with open(os.path.join(spool, fleet_ctl.FLEET_JSON)) as fh:
-        fleet = json.load(fh)
-    fw = {w["id"]: w for w in fleet["workers"]}
-    if fleet["status"] != "stopped" or not fw["w0"]["gave_up"] or \
-            fw["w0"]["last_rc"] != -signal.SIGKILL or \
-            fw["w1"]["last_rc"] != 0 or fleet["done"] != 2:
-        raise AssertionError(f"phase 10: fleet.json {fleet}")
-    with open(os.path.join(spool, fleet_ctl.FLEET_PROM)) as fh:
-        prom = fh.read()
-    for line in ('tpulsar_fleet_slo_seconds{series="beam_e2e",'
-                 'quantile="p95"}',
-                 'tpulsar_fleet_slo_source_workers{series="beam_e2e"} 2',
-                 'tpulsar_alerts_active{rule="takeover_rate",'
-                 'severity="warn"} 1'):
-        if line not in prom:
-            raise AssertionError(f"phase 10: fleet.prom lacks {line!r}")
-    e2e = {m.group(1): float(m.group(2)) for m in re.finditer(
-        r'tpulsar_fleet_slo_seconds\{series="beam_e2e",quantile="(p\d+)"\}'
-        r' (\S+)', prom)}
-
-    # the hosted doctor
-    fired = [e for e in journal.read_events(spool)
-             if e["event"] == "alert_fired"]
-    doc = health.read_active_alerts(spool) or {}
-    active = {a["rule"] for a in doc.get("alerts", [])}
-    if "takeover_rate" not in {e["rule"] for e in fired} or \
-            "takeover_rate" not in active:
-        raise AssertionError(f"phase 10: the doctor fired "
-                             f"{[e['rule'] for e in fired]}, "
-                             f"alerts.json {sorted(active)}")
-    t_alert = next(e["t"] for e in fired if e["rule"] == "takeover_rate")
-    gw, url, gw_log = start_gateway(srv, queue_url)
-    try:
-        code, body = http("GET", url + "/v1/alerts")
-    finally:
-        stop_gateway(gw, gw_log, "phase 10")
-    if code != 200 or body.get("doctor") != "ok" or "takeover_rate" not in \
-            {a["rule"] for a in body.get("alerts", [])}:
-        raise AssertionError(f"phase 10: GET /v1/alerts {code} {body}")
-
-    def cli(*args):
-        t0 = time.time()
-        res = subprocess.run(
-            [sys.executable, "-m", "tpulsar_torch", "--config", srv["cfg"],
-             *args], env=srv["env"], capture_output=True, text=True,
-            timeout=300)
-        return res, time.time() - t0
-
-    res, doctor_s = cli("doctor", "--queue", queue_url)
-    if res.returncode != 1 or "takeover_rate" not in res.stdout:
-        raise AssertionError(f"phase 10: doctor --queue exited "
-                             f"{res.returncode}: {res.stdout[-2000:]}"
-                             f"{res.stderr[-2000:]}")
-    res, status_s = cli("fleet", "--status", "--spool", spool, "--queue",
-                        queue_url)
-    if res.returncode != 0 or " stopped (fleet.json" not in res.stdout:
-        raise AssertionError(f"phase 10: fleet --status exited "
-                             f"{res.returncode}: {res.stdout[-2000:]}")
-    for line in res.stdout.strip().splitlines():
-        log(f"  fleet --status: {line}")
-    res, probe_s = cli("doctor")
-    probe = next((ln for ln in res.stdout.splitlines()
-                  if "device probe" in ln), "")
-    if "[ok] device probe" not in probe:
-        raise AssertionError(f"phase 10: the node probe's device probe: "
-                             f"{res.stdout[-3000:]}{res.stderr[-2000:]}")
-    log(f"phase 10: doctor (node probe) {probe_s:.3f} s: "
-        f"{probe.strip()}; its verdict: "
-        f"{res.stdout.strip().splitlines()[-1]}")
-
-    beam_s = {t: recs[t]["beam_seconds"] for t in outs}
-    log(f"phase 10: boots w0 {boots['w0']:.3f} s, w1 {boots['w1']:.3f} s "
-        f"(both booted {t_booted - t_phase:.1f} s after the controller "
-        f"started); beam_seconds own {beam_s['own']:.3f} s, stolen "
-        f"{beam_s['stolen']:.3f} s (w1's resume; phase 7's solo "
-        f"{solo['wall_s']:.3f} s); w0 killed at pass "
-        f"{len(kept['stolen']) - 1} ({len(kept['stolen'])} passes "
-        f"durable), {t_kill - t_booted:.1f} s after release; takeover "
-        f"{t_steal - t_kill:.3f} s and w1's re-claim "
-        f"{t_reclaim - t_kill:.3f} s after the kill; takeover_rate fired "
-        f"{t_alert - t_kill:.3f} s after it; peak device memory in use "
-        f"(every process) {mem.peak / 2**30:.3f} GiB, w1's own peak "
-        f"{c1['peak_bytes'] / 2**30:.3f} GiB; beam_e2e {e2e}; the phase "
-        f"{phase_wall:.1f} s (fleet), doctor --queue {doctor_s:.3f} s, "
-        f"fleet --status {status_s:.3f} s")
-    log(f"phase 10 journal chains: {json.dumps(chains)}")
-    return dict(launches=c1["served"], want=want, beam_s=beam_s,
-                boot_s=boots, resumed=resumed, spool=spool,
-                queue_url=queue_url,
-                takeover_s=t_steal - t_kill, reclaim_s=t_reclaim - t_kill,
-                alert_s=t_alert - t_kill, peak_bytes=mem.peak,
-                w1_peak_bytes=c1["peak_bytes"], phase_s=phase_wall,
-                e2e=e2e)
 
 
 #: phase 11's storm: the JAX package's serve worker kind, two workers
@@ -2477,6 +2311,98 @@ def _pass_launches(plan, nsamp: int, passes) -> dict:
         for k in out:
             out[k] += a[k] - b[k]
     return out
+
+
+def fleet_checks(srv: dict, spool: str, queue_url: str, t_kill: float,
+                 beams: int) -> dict:
+    """The fleet's own records and its hosted health doctor after phase
+    11's storm (these were phase 10's checks, folded into the storm):
+    fleet.json (stopped, every beam done, w0 restarted after its
+    SIGKILL, whose worker_exit says rc -9), fleet.prom (the beam_e2e
+    SLO from 2 workers, the active takeover_rate alert), the doctor's
+    alert_fired event and alerts.json, GET /v1/alerts through a
+    token'd gateway, `doctor --queue` (exit 1, naming the rule),
+    `fleet --status` and the node probe `doctor` (its device probe
+    ok).  Returns the alert's latency after the kill and the CLI
+    calls' seconds."""
+    from tpulsar_torch.fleet import controller as fleet_ctl
+    from tpulsar_torch.obs import health, journal
+
+    with open(os.path.join(spool, fleet_ctl.FLEET_JSON)) as fh:
+        fleet = json.load(fh)
+    fw = {w["id"]: w for w in fleet["workers"]}
+    exits = [e for e in journal.read_events(spool)
+             if e["event"] == "worker_exit" and e.get("worker") == "w0"]
+    if fleet["status"] != "stopped" or fleet["done"] != beams or \
+            fw["w0"]["crash_restarts"] < 1 or fw["w0"]["gave_up"] or \
+            -signal.SIGKILL not in [e.get("rc") for e in exits]:
+        raise AssertionError(f"phase 11: fleet.json {fleet}; w0's exits "
+                             f"{exits}")
+    with open(os.path.join(spool, fleet_ctl.FLEET_PROM)) as fh:
+        prom = fh.read()
+    for line in ('tpulsar_fleet_slo_seconds{series="beam_e2e",'
+                 'quantile="p95"}',
+                 'tpulsar_fleet_slo_source_workers{series="beam_e2e"} 2',
+                 'tpulsar_alerts_active{rule="takeover_rate",'
+                 'severity="warn"} 1'):
+        if line not in prom:
+            raise AssertionError(f"phase 11: fleet.prom lacks {line!r}")
+    e2e = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'tpulsar_fleet_slo_seconds\{series="beam_e2e",quantile="(p\d+)"\}'
+        r' (\S+)', prom)}
+
+    fired = [e for e in journal.read_events(spool)
+             if e["event"] == "alert_fired"]
+    doc = health.read_active_alerts(spool) or {}
+    active = {a["rule"] for a in doc.get("alerts", [])}
+    if "takeover_rate" not in {e["rule"] for e in fired} or \
+            "takeover_rate" not in active:
+        raise AssertionError(f"phase 11: the doctor fired "
+                             f"{[e['rule'] for e in fired]}, "
+                             f"alerts.json {sorted(active)}")
+    t_alert = next(e["t"] for e in fired if e["rule"] == "takeover_rate")
+    gw, url, gw_log = start_gateway(srv, queue_url)
+    try:
+        code, body = http("GET", url + "/v1/alerts")
+    finally:
+        stop_gateway(gw, gw_log, "phase 11")
+    if code != 200 or body.get("doctor") != "ok" or "takeover_rate" not in \
+            {a["rule"] for a in body.get("alerts", [])}:
+        raise AssertionError(f"phase 11: GET /v1/alerts {code} {body}")
+
+    def cli(*args):
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "tpulsar_torch", "--config", srv["cfg"],
+             *args], env=srv["env"], capture_output=True, text=True,
+            timeout=300)
+        return res, time.time() - t0
+
+    res, doctor_s = cli("doctor", "--queue", queue_url)
+    if res.returncode != 1 or "takeover_rate" not in res.stdout:
+        raise AssertionError(f"phase 11: doctor --queue exited "
+                             f"{res.returncode}: {res.stdout[-2000:]}"
+                             f"{res.stderr[-2000:]}")
+    res, status_s = cli("fleet", "--status", "--spool", spool, "--queue",
+                        queue_url)
+    if res.returncode != 0 or " stopped (fleet.json" not in res.stdout:
+        raise AssertionError(f"phase 11: fleet --status exited "
+                             f"{res.returncode}: {res.stdout[-2000:]}")
+    for line in res.stdout.strip().splitlines():
+        log(f"  fleet --status: {line}")
+    res, probe_s = cli("doctor")
+    probe = next((ln for ln in res.stdout.splitlines()
+                  if "device probe" in ln), "")
+    if "[ok] device probe" not in probe:
+        raise AssertionError(f"phase 11: the node probe's device probe: "
+                             f"{res.stdout[-3000:]}{res.stderr[-2000:]}")
+    log(f"phase 11: takeover_rate fired {t_alert - t_kill:.3f} s after the "
+        f"kill; beam_e2e {e2e}; doctor --queue {doctor_s:.3f} s, fleet "
+        f"--status {status_s:.3f} s, doctor (node probe) {probe_s:.3f} s: "
+        f"{probe.strip()}; its verdict: "
+        f"{res.stdout.strip().splitlines()[-1]}")
+    return dict(alert_s=t_alert - t_kill, e2e=e2e, doctor_s=doctor_s,
+                status_s=status_s, probe_s=probe_s)
 
 
 def chaos_phase(tmp: str, plan, p7: dict) -> dict:
@@ -2633,6 +2559,7 @@ def chaos_phase(tmp: str, plan, p7: dict) -> dict:
               and e.get("from_worker") == "w0"]
     if not steals:
         raise AssertionError("phase 11: no takeover of a claim of w0's")
+    fleet = fleet_checks(srv, spool, queue_url, t_kill, len(tickets))
     for t in tickets:
         rec = q.read_result(t)
         chain = [e for e in evs if e.get("ticket") == t]
@@ -2684,6 +2611,9 @@ def chaos_phase(tmp: str, plan, p7: dict) -> dict:
                                  f"phase 7's solo search's: "
                                  + "; ".join(problems[:10]))
         check_pulsar(rec["outdir"], solo["basenm"], f"phase 11 {t}")
+        if os.path.exists(ckpt.default_root(rec["outdir"])):
+            raise AssertionError(f"phase 11: {t}'s checkpoint was not "
+                                 f"cleaned")
 
     # the conductor's counters and the schedule file
     got_actions = {a: actions.value(action=a) - before[a] for a in before}
@@ -2755,7 +2685,7 @@ def chaos_phase(tmp: str, plan, p7: dict) -> dict:
                 phase_s=phase_wall, peak_bytes=mem.peak,
                 resumed={t: len(v) for t, v in resumed.items()},
                 ci_run_s=ci_run_s, spool=spool, queue_url=queue_url,
-                victim=steals[0]["ticket"])
+                victim=steals[0]["ticket"], **fleet)
 
 
 #: the per-beam job of phase 9 (its jobpooler.submit_script runs this
@@ -3764,7 +3694,7 @@ def _check_takeover_chain(text: str, tid: str, what: str,
     return steps
 
 
-def ops_phase(tmp: str, p7: dict, fleet: dict, chaos: dict) -> dict:
+def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
     """Phase 12: the operator surface.  `python -m tpulsar_torch search`
     in a subprocess on the card over phase 7's beam, with TPULSAR_TRACE=1
     (and no TPULSAR_TRACE_SYNC), through SERVE_WRAPPER: exit 0, results
@@ -3775,7 +3705,8 @@ def ops_phase(tmp: str, p7: dict, fleet: dict, chaos: dict) -> dict:
     `plan` of the beam (the 57-pass Mock survey plan), `checkpoint
     [--verify]` of the checkpoint the job cleaned (and of a copy with
     one byte flipped: exit 1, the artifact named), and `obs timeline |
-    top | tail` over phase 10's sqlite queue and a phase 11 ticket."""
+    top | tail` over phase 11's sqlite queue (the timeline of the
+    ticket the storm took over from w0)."""
     from tpulsar_torch.io import datafile
     from tpulsar_torch.obs import trace as trace_lib
 
@@ -3891,12 +3822,13 @@ def ops_phase(tmp: str, p7: dict, fleet: dict, chaos: dict) -> dict:
         raise AssertionError(f"phase 12: `checkpoint --verify` flagged "
                              f"{flagged}, not {victim}:\n{text[-2000:]}")
 
-    # (e) the ops console over phase 10's sqlite queue and a phase 11
-    # ticket
-    fq_args = ("--queue", fleet["queue_url"], "--spool", fleet["spool"])
-    text = _check_cli("obs timeline stolen",
-                      *ops_cli("obs", "timeline", "stolen", *fq_args))
-    fleet_chain = _check_takeover_chain(text, "stolen", "phase 10", "w1")
+    # (e) the ops console over phase 11's sqlite queue: the timeline of
+    # the ticket the storm took over from w0, top and tail
+    fq_args = ("--queue", chaos["queue_url"], "--spool", chaos["spool"])
+    ct = chaos["victim"]
+    text = _check_cli(f"obs timeline {ct}",
+                      *ops_cli("obs", "timeline", ct, *fq_args))
+    chaos_chain = _check_takeover_chain(text, ct, "phase 11", None)
     text = _check_cli("obs top --once",
                       *ops_cli("obs", "top", "--once", *fq_args))
     if not re.search(r"^w0 ", text, re.M) or \
@@ -3907,18 +3839,13 @@ def ops_phase(tmp: str, p7: dict, fleet: dict, chaos: dict) -> dict:
                       *ops_cli("obs", "tail", "--lines", 5, *fq_args))
     if len([ln for ln in text.splitlines() if ln.startswith("{")]) != 5:
         raise AssertionError(f"phase 12: `obs tail --lines 5`:\n{text}")
-    ct = chaos["victim"]
-    text = _check_cli(f"obs timeline {ct}", *ops_cli(
-        "obs", "timeline", ct, "--queue", chaos["queue_url"], "--spool",
-        chaos["spool"]))
-    chaos_chain = _check_takeover_chain(text, ct, "phase 11", None)
     cmds_s = time.time() - t_cmds
     phase_s = time.time() - t_phase
     log(f"phase 12: `trace`, the summarize tool, `plan` ({npass} passes), "
         f"`checkpoint` of {len(entries)} artifacts, `--verify` (clean, "
         f"then {victim} flagged), `obs timeline|top|tail` in "
-        f"{cmds_s:.3f} s; timelines: stolen {fleet_chain}, {ct} "
-        f"{chaos_chain}; the phase {phase_s:.1f} s")
+        f"{cmds_s:.3f} s; the timeline of {ct}: {chaos_chain}; the "
+        f"phase {phase_s:.1f} s")
     return dict(launches=got, wall_s=wall, stages=stages, cmds_s=cmds_s,
                 phase_s=phase_s, top_spans={n: roll[n]["seconds"]
                                             for n in top})
@@ -4394,8 +4321,8 @@ def _passes(plan) -> list:
 
 def slice_phase(nsamp: int) -> dict:
     """Phase 4 on one synthesized beam, then phase 7 on a shorter one
-    of its own, and the read phase and phases 5, 6, 10, 11, 9, 12 and
-    13 on that shorter beam."""
+    of its own, and the read phase and phases 5, 6, 11 (which holds
+    the fleet's checks), 9, 12 and 13 on that shorter beam."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     try:
         fns = write_beam(os.path.join(tmp, "beam"), nsamp)
@@ -4411,14 +4338,12 @@ def slice_phase(nsamp: int) -> dict:
                                     p7["solo"])
         mark("phase 6: serve through the front door")
         p4["serve"] = serve_phase(p7["fns"], tmp, p7["solo"])
-        mark("phase 10: fleet")
-        p4["fleet"] = fleet_phase(tmp, plan, p7)
-        mark("phase 11: chaos")
+        mark("phase 11: chaos (and the fleet's checks)")
         p4["chaos"] = chaos_phase(tmp, plan, p7)
         mark("phase 9: pipeline")
         p4["pipeline"] = pipeline_phase(tmp, plan, p7)
         mark("phase 12: operator surface")
-        p4["ops"] = ops_phase(tmp, p7, p4["fleet"], p4["chaos"])
+        p4["ops"] = ops_phase(tmp, p7, p4["chaos"])
         mark("phase 13: mesh")
         p4["mesh"] = mesh_phase(tmp, plan, p7)
         return p4
@@ -4473,29 +4398,8 @@ def main() -> None:
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # both builds at once: g++ for the native unpack in a thread, nvcc
-    # for the CUDA kernels here
-    t0 = time.time()
-    built: dict = {}
-
-    def build_native():
-        try:
-            native.load()
-            built["native"] = time.time() - t0
-        except BaseException as e:      # re-raised below
-            built["error"] = e
-
-    th = threading.Thread(target=build_native)
-    th.start()
-    path = cuda_dd.build(verbose_ptxas=True)
-    t_cuda = time.time() - t0
-    th.join()
-    if "error" in built:
-        raise built["error"]
-    log(f"built {os.path.relpath(path)} in {t_cuda:.2f} s and "
-        f"{os.path.relpath(native.library_path())} in "
-        f"{built['native']:.2f} s (together {time.time() - t0:.2f} s)")
-    regs = ptxas_report(cuda_dd.BUILD_LOG)
+    aot = aot_phase()
+    regs = aot.pop("regs")
 
     freqs = synth.channel_freqs(mock_spec(NSAMP))
     gen = torch.Generator(device=DEV)
@@ -4504,6 +4408,13 @@ def main() -> None:
                          device=DEV, dtype=torch.uint8)
     mark("phase 1: kernels")
     s1, s2, s2b, _rows_report = kernel_phase(data, freqs, regs)
+    # the library phase 1 launched is the one the gate recorded
+    if cuda_dd._lib._name != aot["programs"]["cuda_dd"]["library"]:
+        raise AssertionError(f"phase 1 launched {cuda_dd._lib._name}, not "
+                             f"the manifest's cuda_dd library "
+                             f"{aot['programs']['cuda_dd']['library']}")
+    mark("row statistics")
+    aot["row_stats"] = row_stats_phase(data, freqs)
     mark("phase 2: hi stage")
     hi = hi_phase(data, freqs)
     mark("ladder")
@@ -4544,19 +4455,16 @@ def main() -> None:
         # the mesh search of phase 13 (a): phase 7's beam on
         # MESH_SHARDS logical shards of the card
         r["launches_mesh"] = res["mesh"]["launches"].get(name, 0)
-        # the fleet's surviving worker w1 (phase 10, after its boot):
-        # its own quarter beam and the stolen one's missing passes
-        r["launches_fleet"] = res["fleet"]["launches"].get(name, 0)
-        # the chaos storm's surviving serve workers (phase 11, after
-        # each boot): two quarter beams less the resumed passes
+        # the fleet of the chaos storm: its surviving serve workers
+        # (phase 11, after each boot), two quarter beams less the
+        # resumed passes
         r["launches_chaos"] = res["chaos"]["launches"].get(name, 0)
         # `python -m tpulsar_torch search` (phase 12), from its process
         # start: phase 7's beam searched through the command
         r["launches_cli"] = res["ops"]["launches"].get(name, 0)
         solo_paths = ("launches", "launches_resumed", "launches_served",
                       "launches_batch", "launches_pipeline",
-                      "launches_fleet", "launches_chaos", "launches_cli",
-                      "launches_mesh")
+                      "launches_chaos", "launches_cli", "launches_mesh")
         if name == "dedisperse_subbands":
             r["launches"] = res["launches"][name]
             paths = solo_paths + ("launches_stream",)
@@ -4582,6 +4490,7 @@ def main() -> None:
                                  f"paths: {[(k, r[k]) for k in paths]}")
     log(f"smoke wall {time.time() - t_smoke:.1f} s")
     log(f"card: {card}")
+    print(json.dumps({"aot": aot}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -772,7 +772,7 @@ def test_native_accel_build_failure_raises(tmp_path, monkeypatch):
     chosen explicitly through the TPULSAR_ACCEL_BATCH=1 pin, still
     runs."""
     monkeypatch.setattr(tnative, "CXX", "false")
-    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setenv("TPULSAR_CACHE_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(tnative, "_lib", None)
     specs = torch.from_numpy(_specs(2, seed=6))
     with pytest.raises(RuntimeError, match="did not build"):

@@ -58,9 +58,10 @@ def _no_plots(params):
 # ------------------------------------------------------------ the CLI
 
 def test_cli_has_the_jax_commands_but_aot_with_their_arguments():
-    """27 of the JAX CLI's 28 subcommands (all but `aot`); the operator
-    commands of this slice take the JAX CLI's arguments, and `search`
-    `--device` besides."""
+    """All 28 of the JAX CLI's subcommands, `aot` included (the name is
+    kept from when it was the one left out); the operator commands
+    take the JAX CLI's arguments, `aot compile` and `aot verify`
+    included, and `search` `--device` besides."""
     def commands(p):
         sub = next(a for a in p._actions
                    if a.__class__.__name__ == "_SubParsersAction")
@@ -70,9 +71,13 @@ def test_cli_has_the_jax_commands_but_aot_with_their_arguments():
         return sorted(a.dest for a in p._actions)
 
     jc, tc = commands(jmain.build_parser()), commands(tmain.build_parser())
-    assert sorted(tc) == sorted(set(jc) - {"aot"})
-    for name in ("plan", "checkpoint", "trace", "lint"):
+    assert sorted(tc) == sorted(jc) and len(tc) == 28
+    for name in ("plan", "checkpoint", "trace", "lint", "aot"):
         assert dests(tc[name]) == dests(jc[name]), name
+    jaot, taot = commands(jc["aot"]), commands(tc["aot"])
+    assert sorted(taot) == sorted(jaot) == ["compile", "ls", "verify"]
+    for name in jaot:
+        assert dests(taot[name]) == dests(jaot[name]), name
     assert dests(tc["search"]) == sorted(dests(jc["search"]) + ["device"])
     jobs, tobs = commands(jc["obs"]), commands(tc["obs"])
     assert sorted(tobs) == sorted(jobs)

@@ -29,6 +29,8 @@ PORT_DEFAULTS = {
     # kernels/beam_batch.py sizes the budget from the card's memory
     "TPULSAR_BEAM_BATCH_BYTES": ("half the card's memory on CUDA, "
                                  "8589934592 (8 GiB) on the CPU"),
+    # the build directory of the port's libraries (aot/cachedir.py)
+    "TPULSAR_CACHE_DIR": "tpulsar_torch/_build",
 }
 
 
@@ -61,7 +63,7 @@ def _port_reads() -> dict[str, str]:
 def test_registry_is_exactly_what_the_port_reads():
     reads = _port_reads()
     assert sorted(reads) == sorted(tknobs.KNOBS)
-    assert len(tknobs.KNOBS) == 40
+    assert len(tknobs.KNOBS) == 41
     for name in ("TPULSAR_ACCEL_SYNC_WINDOW",
                  "TPULSAR_ACCEL_BREAKER_THRESHOLD",
                  "TPULSAR_ACCEL_BATCH_BREAKER"):

@@ -96,7 +96,7 @@ def test_a_failed_build_raises_and_never_falls_back(beam, tmp_path,
     compiler's command and exit code; the NumPy read, asked for
     explicitly, still works."""
     monkeypatch.setattr(tnative, "CXX", "false")
-    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setenv("TPULSAR_CACHE_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(tnative, "_lib", None)
     with pytest.raises(RuntimeError, match="did not build") as err:
         tpf.SpectraInfo(beam).read_all_uint8()

@@ -796,9 +796,9 @@ def test_cli_has_the_jax_daemon_commands_and_flags():
     for name in names:
         assert tc[name] == jc[name], name
     assert flags(tparser()) == flags(jparser())
-    # all of the JAX CLI's 28 but `aot` (test_torch_cli_ops.py holds
-    # the operator commands' arguments to the JAX CLI's)
-    assert len(tc) == 27
+    # all 28 of the JAX CLI's, `aot` included (test_torch_cli_ops.py
+    # holds the operator commands' arguments to the JAX CLI's)
+    assert len(tc) == 28
 
 
 def _daemon_config(root, **extra) -> str:

@@ -72,6 +72,8 @@ import tpulsar_torch.fleet.autoscale
 import tpulsar_torch.chaos, tpulsar_torch.chaos.scenario
 import tpulsar_torch.chaos.worker, tpulsar_torch.chaos.runner
 import tpulsar_torch.chaos.invariants
+import tpulsar_torch.aot, tpulsar_torch.aot.cachedir
+import tpulsar_torch.aot.registry, tpulsar_torch.aot.warmstart
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "tpulsar" or m.startswith("tpulsar."))

@@ -46,7 +46,9 @@ from tpulsar_torch.search import executor  # noqa: E402
 
 def load_baseline(tree: str, tmp: str):
     """The other tree's cuda_dd module, built from its own sources in
-    `tmp` (its build directory is relative to its own file)."""
+    `tmp` (a tree before the AOT layer builds beside its own file, a
+    later one in this process's build directory; the library's name
+    is keyed by its sources either way)."""
     pkg = os.path.join(tmp, "pkg")
     os.makedirs(os.path.join(pkg, "kernels"))
     shutil.copy(os.path.join(tree, "tpulsar_torch", "kernels", "cuda_dd.py"),

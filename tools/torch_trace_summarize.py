@@ -18,8 +18,10 @@ the report's stage totals (the StageTimers view over the same spans)
 and exits nonzero if any stage disagrees by more than 5% (with 50 ms
 of absolute slack).  Given a serve spool (or ``--queue``), it
 renders each ticket's journal transitions beside its beam's trace
-rollup.  The JAX tool's compile rollup has no counterpart: the port
-records no compile spans yet (ROADMAP item 16).
+rollup.  A trace holding library builds (a search that built nvcc's or
+g++'s library at first use, or the AOT gate's
+``<build dir>/aot_gate_trace.json``) also gets the compile rollup per
+program, as the JAX tool's.
 
 No torch and no numpy: runs on a host holding only the artifacts.
 """
@@ -99,6 +101,61 @@ def compare(summary: dict, report_path: str,
                 f"{stage}: trace {got_s:.2f} s vs report "
                 f"{rep_s:.2f} s (> {100 * tolerance:.0f}%)")
     return problems
+
+
+#: the compile-attributed trace events the AOT layer emits:
+#: ``aot_compile`` spans from the gate (tpulsar_torch.aot.warmstart)
+#: and retroactive ``backend_compile`` events of each library build —
+#: an entry under any other program label than the registry's names
+#: means a library was built in-line DURING the run
+_COMPILE_EVENTS = ("aot_compile", "backend_compile")
+
+
+def compile_rollup(trace: "str | list") -> dict[str, dict]:
+    """Per-program compile-time rollup from the AOT compile spans:
+    {program: {seconds, count, events: {event-name: count}}}.  A
+    library built in-line shows up as an ``(inline)`` backend_compile
+    row.
+
+    Accepts a trace-file path or an already-loaded traceEvents list.
+    A gated build emits BOTH events (the gate's ``aot_compile`` wall
+    span encloses the build's retroactive ``backend_compile``), so
+    seconds/count come from ``aot_compile`` alone when present —
+    summing the pair would double every gated build; the per-event
+    counts stay in ``events``."""
+    if isinstance(trace, str):
+        with open(trace) as fh:
+            trace = json.load(fh).get("traceEvents", [])
+    per: dict[str, dict] = {}
+    for ev in trace:
+        if ev.get("name") not in _COMPILE_EVENTS or ev.get("ph") != "X":
+            continue
+        prog = ev.get("args", {}).get("program", "?")
+        rec = per.setdefault(prog, {n: {"seconds": 0.0, "count": 0}
+                                    for n in _COMPILE_EVENTS})
+        rec[ev["name"]]["seconds"] += ev.get("dur", 0.0) / 1e6
+        rec[ev["name"]]["count"] += 1
+    roll: dict[str, dict] = {}
+    for prog, rec in per.items():
+        primary = ("aot_compile" if rec["aot_compile"]["count"]
+                   else "backend_compile")
+        roll[prog] = {
+            "seconds": round(rec[primary]["seconds"], 3),
+            "count": rec[primary]["count"],
+            "events": {n: r["count"] for n, r in rec.items()
+                       if r["count"]},
+        }
+    return roll
+
+
+def render_compile_rollup(roll: dict[str, dict]) -> str:
+    lines = ["compile rollup (per program):",
+             f"  {'program':40s} {'seconds':>9s} {'count':>6s}"]
+    for prog, rec in sorted(roll.items(),
+                            key=lambda kv: -kv[1]["seconds"]):
+        lines.append(f"  {prog:40s} {rec['seconds']:9.2f} "
+                     f"{rec['count']:6d}")
+    return "\n".join(lines)
 
 
 def summarize_spool(spool: str, ticket: str | None = None,
@@ -201,11 +258,18 @@ def main(argv=None) -> int:
         else:
             print(render_spool_summary(data))
         return 0
-    summary = summarize(find_trace_file(args.path))
+    trace_file = find_trace_file(args.path)
+    with open(trace_file) as fh:
+        trace_events = json.load(fh).get("traceEvents", [])
+    summary = trace.summarize_events(trace_events, trace_file=trace_file)
+    compiles = compile_rollup(trace_events)
     if args.json:
+        summary = dict(summary, compile_rollup=compiles)
         print(json.dumps(summary, indent=1, sort_keys=True))
     else:
         print(render(summary))
+        if compiles:
+            print(render_compile_rollup(compiles))
     if args.compare_report:
         problems = compare(summary, args.compare_report)
         if problems:

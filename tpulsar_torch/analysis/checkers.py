@@ -526,30 +526,16 @@ PORT_DIFFERENCES = (
         "is the Pallas kernel's fallback to XLA",
         _NO_FALLBACK),
     PortDifference(
-        "metrics", "tpulsar_backend_compile_seconds",
-        "a compile-cache family of the JAX package's AOT layer",
-        "ROADMAP item 16"),
-    PortDifference(
-        "metrics", "tpulsar_compile_cache_hits_total",
-        "a compile-cache family of the JAX package's AOT layer",
-        "ROADMAP item 16"),
-    PortDifference(
-        "metrics", "tpulsar_compile_cache_misses_total",
-        "a compile-cache family of the JAX package's AOT layer",
-        "ROADMAP item 16"),
-    PortDifference(
         "env-knobs", "TPULSAR_ACCEL_NATIVE",
         "the JAX package's switch from its native CPU consumer to XLA; "
         "the port's CPU path has no XLA dispatch to switch to",
         "none: left out on purpose"),
     PortDifference(
         "env-knobs", "TPULSAR_BENCH_DTYPE",
-        "the dtype the JAX package's AOT program signatures assume",
-        "ROADMAP item 16"),
-    PortDifference(
-        "env-knobs", "TPULSAR_CACHE_DIR",
-        "the JAX package's persistent XLA compile cache",
-        "ROADMAP item 16"),
+        "the dtype of the JAX package's benchmark block, which its AOT "
+        "program signatures assume; the port's libraries have no "
+        "shapes",
+        "ROADMAP item 26"),
     PortDifference(
         "env-knobs", "TPULSAR_DD_TREE",
         "the JAX package's second pin of the tree family",

@@ -86,13 +86,24 @@ backend's default worker is ``python -m tpulsar_torch.cli.search_job``,
 which runs on the GPU and fails without one (``jobpooler.submit_script``
 names another command, e.g. one adding ``--device cpu``).
 
-Every command but serve and search is control plane: it touches no
-tensor, takes no ``--device`` and never initializes CUDA (the doctor's
-device probe runs in a subprocess); the gateway, the fleet controller,
-the daemons, the ops console and the linter start and run on a host
-with no GPU.  The per-beam job keeps its own entry point, ``python -m
-tpulsar_torch.cli.search_job``.  The JAX CLI's ``aot`` is not ported
-yet: 27 of its 28 subcommands are.
+and the AOT layer's (aot/):
+
+  aot     — ``compile`` builds and loads the port's two shared
+            libraries (nvcc's CUDA kernels, g++'s native library)
+            into the build directory (``TPULSAR_CACHE_DIR``) and
+            writes its manifest; ``verify`` replays the builds and
+            exits 1 if any library would be built in-line; ``ls``
+            prints the build directory, the manifest and the registry
+            (rc 0 / 1 / 3 as the JAX CLI's; its shape options select
+            nothing here).
+
+Every command but serve, search and aot compile|verify is control
+plane: it touches no tensor, takes no ``--device`` and never
+initializes CUDA (the doctor's device probe runs in a subprocess);
+the gateway, the fleet controller, the daemons, the ops console and
+the linter start and run on a host with no GPU.  The per-beam job
+keeps its own entry point, ``python -m tpulsar_torch.cli.search_job``.
+The CLI has all 28 of the JAX CLI's subcommands.
 """
 
 from __future__ import annotations
@@ -1317,6 +1328,56 @@ def cmd_checkpoint(args):
     return 0 if report["ok"] else 1
 
 
+def cmd_aot(args):
+    """The AOT layer's operator surface (aot/) — counterpart of the JAX
+    CLI's ``aot``:
+
+      compile — build and load every registered library and write the
+                manifest
+      verify  — replay the builds and loads against the manifest; exit
+                1 if any library had to be built (a miss)
+      ls      — print the build directory, the manifest state and the
+                registry
+
+    rc 0 ok / 1 failures or misses / 3 deadline deferral.  The JAX
+    CLI's ``--scale``, ``--accel``, ``--config``, ``--fast`` and
+    ``--beams`` choose the shapes its XLA programs compile at; a
+    library has no shapes, so here they select nothing (a line says
+    so when one is set)."""
+    from tpulsar_torch.aot import cachedir, registry, warmstart
+
+    if args.aot_cmd == "ls":
+        print(f"cache dir: {cachedir.resolve()}")
+        manifest = warmstart.load_manifest()
+        manifested = set(manifest["programs"]) if manifest else set()
+        print(f"manifest:  {cachedir.manifest_path()}"
+              + ("" if manifest else " (absent)"))
+        print(f"{len(registry.PROGRAMS)} registered programs:")
+        for prog in registry.PROGRAMS:
+            mark = "*" if prog.name in manifested else " "
+            print(f"  {mark} {prog.name:36s} "
+                  f"{prog.module}.{prog.load} target={prog.target}")
+        if manifest:
+            print("  (* = in the warm-start manifest)")
+        print(f"{len(registry.EXEMPT_SITES)} exempt compiler sites "
+              "(no library is built there):")
+        for site, why in sorted(registry.EXEMPT_SITES.items()):
+            print(f"    {site}: {why}")
+        return 0
+
+    shaped = [flag for flag, set_ in (
+        ("--scale", args.scale != 1.0), ("--accel", args.accel),
+        ("--config", args.aot_config != 0), ("--fast", args.fast),
+        ("--beams", args.beams != 0)) if set_]
+    if shaped:
+        print(f"{', '.join(shaped)}: XLA program shapes of the JAX "
+              "package; the port's libraries have no shapes, so this "
+              "selects nothing")
+    only = tuple(s.strip() for s in args.only.split(",") if s.strip())
+    return warmstart.run_gate(only=only, deadline=args.deadline,
+                              verify=args.aot_cmd == "verify")
+
+
 def cmd_lint(args):
     from tpulsar_torch.analysis import cli as lint_cli
     return lint_cli.run(args)
@@ -1379,16 +1440,13 @@ def _doctor_alerts(args):
 #: small matmul on the card, its device count and name, and whether
 #: the CUDA kernel library of this checkout is built
 _DEVICE_PROBE = """
-import json, os, torch
+import json, torch
 rec = {"torch": torch.__version__, "cuda": torch.version.cuda,
        "ndev": torch.cuda.device_count()}
 if torch.cuda.is_available():
     x = torch.ones((64, 64), device="cuda")
     rec["ok"] = float((x @ x).sum().item()) == 64.0 ** 3
     rec["name"] = torch.cuda.get_device_name(0)
-from tpulsar_torch.kernels import cuda_dd
-rec["cuda_lib"] = cuda_dd.library_path()
-rec["cuda_lib_built"] = os.path.exists(rec["cuda_lib"])
 print(json.dumps(rec))
 """
 
@@ -1539,19 +1597,29 @@ def cmd_doctor(args):
                f"hung > {args.device_timeout:.0f} s (wedged card?)")
 
     print("build state and pins:")
-    if rec is not None:
-        print(f"  [{'ok' if rec['cuda_lib_built'] else '--'}] CUDA "
-              f"kernels: {rec['cuda_lib']}"
-              + ("" if rec["cuda_lib_built"] else
-                 " not built — the first run on the card builds it "
-                 "with nvcc"))
-    from tpulsar_torch import native
+    from tpulsar_torch.aot import cachedir, registry, warmstart
 
-    lib = native.library_path()
-    built = os.path.exists(lib)
-    print(f"  [{'ok' if built else '--'}] native library: {lib}"
-          + ("" if built else " not built — the first read builds "
-             "it with g++"))
+    manifest = warmstart.load_manifest()
+    listed = (manifest or {}).get("programs", {})
+    print(f"  [{'ok' if manifest else '--'}] build dir "
+          f"{cachedir.resolve()}: manifest "
+          + ("with " + ", ".join(sorted(listed)) if manifest else
+             "absent — `python -m tpulsar_torch aot compile` writes it"))
+    current = set()
+    for prog in registry.PROGRAMS:
+        lib = registry.library_path(prog)
+        current.add(os.path.basename(lib))
+        built = os.path.exists(lib)
+        fresh = listed.get(prog.name, {}).get("library") == lib
+        print(f"  [{'ok' if built else '--'}] {prog.title}: {lib}"
+              + ((" (in the manifest)" if fresh else
+                  " (not in the manifest)") if built else
+                 " not built — `aot compile` or its first use "
+                 "builds it"))
+    stale = sorted(cachedir.library_entries() - current)
+    if stale:
+        print(f"  [--] {len(stale)} stale libraries in the build dir "
+              f"(other sources, flags or hosts): {', '.join(stale)}")
     for var in _DOCTOR_PINS:
         val = os.environ.get(var)
         if val is not None:
@@ -1735,6 +1803,36 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("path", help="results dir (newest *_trace.json "
                                  "wins) or a trace file")
     sp.set_defaults(fn=cmd_trace)
+
+    sp = sub.add_parser(
+        "aot",
+        help="AOT layer: build the registered libraries into the "
+             "build directory (compile), check a warm start against "
+             "the manifest (verify), or list the registry (ls)")
+    asub = sp.add_subparsers(dest="aot_cmd", required=True)
+    nothing = "the JAX CLI's; selects nothing here (a library has no shapes)"
+    for name, hlp in (
+            ("compile", "build and load every library + write the "
+                        "manifest"),
+            ("verify", "replay the builds and loads; exit 1 on any "
+                       "library built in-line")):
+        ap = asub.add_parser(name, help=hlp)
+        ap.add_argument("--scale", type=float, default=1.0, help=nothing)
+        ap.add_argument("--accel", action="store_true", help=nothing)
+        ap.add_argument("--config", type=int, default=0,
+                        dest="aot_config", help=nothing)
+        ap.add_argument("--fast", action="store_true", help=nothing)
+        ap.add_argument("--deadline", type=float, default=0.0,
+                        help="soft budget, checked between builds; "
+                             "rc 3 defers the rest (re-run resumes)")
+        ap.add_argument("--only", default="",
+                        help="comma-separated library-name substrings "
+                             "to gate (native, cuda_dd)")
+        ap.add_argument("--beams", type=int, default=0, help=nothing)
+        ap.set_defaults(fn=cmd_aot)
+    ap = asub.add_parser("ls", help="list the library registry, "
+                                    "exemptions, and manifest state")
+    ap.set_defaults(fn=cmd_aot)
 
     sp = sub.add_parser(
         "lint",

@@ -11,11 +11,14 @@ of docs/configuration.md.
 Each knob the two packages share keeps the JAX registry's type,
 default and text, except where the port's default differs
 (``TPULSAR_ACCEL_PLANE_ELEMS``: the port has no automatic plane cap;
-``TPULSAR_BEAM_BATCH_BYTES``: half the card's memory on CUDA).  The
-JAX package's knobs of its TPU kernels, its compile cache and its
+``TPULSAR_BEAM_BATCH_BYTES``: half the card's memory on CUDA;
+``TPULSAR_CACHE_DIR``: the port's build directory, which holds its two
+shared libraries, their ptxas reports and the AOT manifest, where the
+JAX package keeps its XLA cache — aot/cachedir.py).
+The JAX package's knobs of its TPU kernels, its benchmark and its
 profiler (``TPULSAR_PALLAS``, ``_PALLAS_SB``, ``_PALLAS_VARIANT``,
-``_DD_TREE``, ``_CACHE_DIR``, ``_PROFILE``, ``_BENCH_DTYPE``,
-``_ACCEL_NATIVE``) have no counterpart here; the linter's
+``_DD_TREE``, ``_PROFILE``, ``_BENCH_DTYPE``, ``_ACCEL_NATIVE``) have
+no counterpart here; the linter's
 ``PORT_DIFFERENCES`` names them.
 
 The registry is data, not mechanism: read sites keep their own
@@ -124,6 +127,9 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
     _k("TPULSAR_CHAOS_WORKER", "str", "unset",
        "this process's worker id for chaos schedule matching "
        "('*' entries match everyone)"),
+    _k("TPULSAR_CACHE_DIR", "path", "tpulsar_torch/_build",
+       "persistent XLA compile-cache directory (one cache for the "
+       "AOT gate, the measured child, and diagnostics)"),
     _k("TPULSAR_CONFIG", "path", "unset (built-in defaults)",
        "config file path; the CLI exports it so queue-launched "
        "workers inherit the operator's settings"),

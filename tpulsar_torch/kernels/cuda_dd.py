@@ -10,8 +10,14 @@ tpulsar_torch/csrc/dedisperse.cu (the design notes are there):
                        (the reference's beam_batch._dd_beams_scan)
 
 The library is compiled for sm_90a with nvcc at first use, from the
-sources in this checkout only, into tpulsar_torch/_build/, and bound
-with ctypes.  Each wrapper checks its inputs, allocates its output
+sources in this checkout only, into the build directory
+(aot/cachedir.py: TPULSAR_CACHE_DIR, else tpulsar_torch/_build/) under
+a file lock, and bound with ctypes.  nvcc's -Xptxas -v report (the
+registers, shared memory and spills of every kernel) is kept beside
+the library as <lib>.ptxas.txt.  Each lookup is accounted as a
+compile-cache hit or miss (aot/warmstart.py::locked_build); `python -m
+tpulsar_torch aot compile` builds it ahead of use (aot/registry.py's
+``cuda_dd``).  Each wrapper checks its inputs, allocates its output
 with torch.empty, launches on torch.cuda.current_stream(), raises if
 the launch is refused, and adds one to LAUNCHES[<name>].  A tensor on
 the CPU goes to the plain PyTorch version of the same function (the
@@ -32,9 +38,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpulsar_torch.aot import cachedir, warmstart
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = [os.path.join(_PKG, "csrc", "dedisperse.cu")]
-BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -51,14 +58,14 @@ MAX_SMEM = 232_448
 #: launches per kernel since the last reset_counts()
 LAUNCHES = {"form_subbands": 0, "dedisperse_subbands": 0,
             "dedisperse_subbands_beams": 0}
-#: kernel-library compiles in this process: "hits" counts loads of a
-#: library already built in _build/, "misses" counts nvcc builds (the
-#: counterpart of the JAX package's compile-cache hits and misses)
-COMPILES = {"hits": 0, "misses": 0}
+#: library lookups in this process, of this library and the native
+#: one: "hits" found a library built, "misses" compiled one (the
+#: counterpart of the JAX package's compile-cache hits and misses;
+#: aot/warmstart.py keeps the tally)
+COMPILES = warmstart.COMPILES
 
 _lib = None
 _prepared: set[int] = set()
-BUILD_LOG = ""
 
 
 def reset_counts() -> None:
@@ -76,6 +83,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _device_tag() -> str:
+    """The CUDA runtime torch was built with and the compute capability
+    of the current device (the fingerprint's context)."""
+    cap = (".".join(map(str, torch.cuda.get_device_capability()))
+           if torch.cuda.is_available() else "no device")
+    return f"cuda {torch.version.cuda}, sm {cap}"
+
+
 def library_path() -> str:
     """Build output path, keyed by the sources and flags so that an
     edited source never loads a stale library."""
@@ -83,37 +98,37 @@ def library_path() -> str:
     for src in SOURCES:
         with open(src, "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"libtpulsar_dd_{h.hexdigest()[:12]}.so")
+    return os.path.join(cachedir.resolve(),
+                        f"libtpulsar_dd_{h.hexdigest()[:12]}.so")
 
 
-def build(verbose_ptxas: bool = False) -> str:
-    """Compile the kernels (if not built already) and return the
-    library path.  verbose_ptxas adds -Xptxas -v, whose register and
-    shared-memory report lands in BUILD_LOG."""
-    global BUILD_LOG
-    path = library_path()
-    if os.path.exists(path) and not verbose_ptxas:
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def build() -> str:
+    """The library's path, compiled first when it is not on disk: the
+    locked, accounted lookup of aot/warmstart.py::locked_build.
+    Raises RuntimeError when the library cannot be built."""
+    return warmstart.locked_build(library_path(), _compile)
+
+
+def _compile(path: str) -> None:
+    """nvcc into ``path`` (through a temporary file and a rename); its
+    output, with the ptxas report, is kept as <path>.ptxas.txt."""
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose_ptxas
-                                   else []), "-o", tmp, *SOURCES]
+    # -Xptxas -v (ptxas's register and shared-memory report) changes
+    # no code, so it is not part of the library's key
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *SOURCES]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
+    log = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    with open(path + ".ptxas.txt", "w") as fh:
+        fh.write(log)
     os.replace(tmp, path)
-    COMPILES["misses"] += 1
-    return path
 
 
 def _load():
     global _lib
     if _lib is None:
-        built = os.path.exists(library_path())
         lib = ctypes.CDLL(build())
-        if built:
-            COMPILES["hits"] += 1
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         for name in ("dd_form_subbands_u8", "dd_form_subbands_f32"):
             fn = getattr(lib, name)

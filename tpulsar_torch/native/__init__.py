@@ -14,13 +14,17 @@ Two sources, copies of the JAX package's:
     same float32 addition order and tie rules).  kernels/accel.py
     feeds it every batched hi stage on the CPU.
 
-The library is compiled with g++ at first use into
-``tpulsar_torch/_build/`` (a name keyed by the host's CPU flags, the
+The library is compiled with g++ at first use into the build
+directory (aot/cachedir.py: ``TPULSAR_CACHE_DIR``, else
+``tpulsar_torch/_build/``; a name keyed by the host's CPU flags, the
 sources and the flags: ``-march=native`` makes a CPU-specific binary)
 under a thread lock and a file lock, so the server's prefetch thread,
 the search and a second process never build or load a half-written
-file.  ``-ffp-contract=off`` keeps g++ from contracting ``a*b+c`` into
-an FMA, which would change the float rounding against the NumPy and
+file.  Each lookup is accounted as a compile-cache hit or miss
+(aot/warmstart.py::locked_build); ``python -m tpulsar_torch aot
+compile`` builds it ahead of use (aot/registry.py's ``native``).
+``-ffp-contract=off`` keeps g++ from contracting ``a*b+c`` into an
+FMA, which would change the float rounding against the NumPy and
 torch paths.
 
 There is no fallback here: when the library cannot be built or
@@ -40,10 +44,11 @@ import threading
 
 import numpy as np
 
+from tpulsar_torch.aot import cachedir, warmstart
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "unpack.cpp"),
            os.path.join(_HERE, "accel_host.cpp")]
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 CXX = "g++"
 #: the JAX package's flags; the second set is its retry for a
 #: toolchain without -march=native (still without FMA contraction)
@@ -79,7 +84,7 @@ def library_path() -> str:
         with open(src, "rb") as fh:
             h.update(fh.read())
     return os.path.join(
-        BUILD_DIR,
+        cachedir.resolve(),
         f"libtpulsar_native_{_host_tag()}_{h.hexdigest()[:12]}.so")
 
 
@@ -107,6 +112,13 @@ def _build(path: str) -> None:
                        + "\n".join(logs))
 
 
+def build() -> str:
+    """The library's path, compiled first when it is not on disk: the
+    locked, accounted lookup of aot/warmstart.py::locked_build.
+    Raises RuntimeError when the library cannot be built."""
+    return warmstart.locked_build(library_path(), _build)
+
+
 def load() -> ctypes.CDLL:
     """The native library, built on first call; raises RuntimeError
     when it cannot be built or loaded."""
@@ -114,17 +126,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        import fcntl
-
-        path = library_path()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(os.path.join(BUILD_DIR, ".native.lock"), "w") as lk:
-            fcntl.flock(lk, fcntl.LOCK_EX)
-            try:
-                if not os.path.exists(path):
-                    _build(path)
-            finally:
-                fcntl.flock(lk, fcntl.LOCK_UN)
+        path = build()
         lib = ctypes.CDLL(path)
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")

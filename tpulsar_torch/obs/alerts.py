@@ -19,14 +19,11 @@ faster than ``threshold`` — the long window proves the budget is
 really burning, the short window proves it is burning *now* (so a
 recovered incident stops paging).
 
-One rule reads a family this package does not have:
 ``compile_miss_on_warm`` watches ``tpulsar_compile_cache_misses_total``
-(the JAX package's persistent compile cache; the port builds its
-kernels once per process and has no such cache).  The rule keeps its
-id and names the metric by that literal; no family is registered,
-because nothing here would increment it.  ``metric_value`` returns
-None for an absent instrument, so the rule is skipped, as in the JAX
-package on a host without its compile cache.
+with ``program="(inline)"``: a shared library built at first use
+(aot/warmstart.py::record_build) instead of by the boot gate, whose
+misses carry the library's name.  A serve process that builds after
+boot fires it.
 
 Fan-out is a pluggable spec — ``log`` (the default),
 ``webhook:<url>`` (HTTP POST of the alert JSON), or
@@ -55,10 +52,6 @@ SEVERITIES = ("page", "warn")
 #: resident detector feeding samples), the multi-window SLO burn
 #: rate, and the queue backend's fsck findings
 KINDS = ("event_count", "metric", "metric_delta", "burn_rate", "fsck")
-
-#: the JAX package's compile-cache miss family, which no code of this
-#: package increments (compile_miss_on_warm is skipped here)
-COMPILE_CACHE_MISSES = "tpulsar_compile_cache_misses_total"
 
 _COMPARES = {
     "gt": lambda a, b: a > b,
@@ -203,8 +196,7 @@ def load_rules(path: str) -> tuple[Rule, ...]:
 
 def builtin_rules() -> tuple[Rule, ...]:
     """The built-in pack: one rule per known failure smell.  Metric
-    names come from the telemetry catalog getters, but for
-    COMPILE_CACHE_MISSES (see the module docstring); journal event
+    names come from the telemetry catalog getters; journal event
     names are validated against journal.EVENTS."""
     from tpulsar_torch.obs import telemetry
     return tuple(validate_rule(r) for r in (
@@ -239,7 +231,7 @@ def builtin_rules() -> tuple[Rule, ...]:
                  "restart-backoff budget is being spent"),
         Rule(id="compile_miss_on_warm", severity="warn",
              kind="metric_delta",
-             metric=COMPILE_CACHE_MISSES,
+             metric=telemetry.compile_cache_misses_total().name,
              labels=(("program", "(inline)"),),
              window_s=300.0, threshold=1,
              doc="inline compile-cache misses during serving: a "

@@ -27,9 +27,11 @@ whichever package searched it.
     verifier's violations);
   * ``event_record``, the one heartbeat/journal event shape.
 
-The compile-cache family is the JAX package's alone: nothing in this
-package compiles through a persistent cache (obs/alerts.py names it
-by its literal for the one rule that reads it).
+  * the compile-cache family (aot/warmstart.py::record_build): a hit
+    or a miss for every lookup of a shared library in the build
+    directory, by the registered library being gated or ``(inline)``
+    for a build at first use, and the build's seconds.
+
 stdlib only.
 """
 
@@ -258,6 +260,41 @@ def heartbeats_total() -> metrics.Counter:
         "tpulsar_heartbeats_total",
         "telemetry heartbeat events emitted",
         labelnames=("event",))
+
+
+#: histogram buckets for backend-compile time.  The three families keep
+#: the JAX package's names, help texts, labels and buckets, as every
+#: family here does; in the port a "module" is a shared library, and
+#: its builds take seconds
+COMPILE_BUCKETS = (0.05, 0.25, 1.0, 5.0, 15.0, 60.0, 180.0, 600.0,
+                   1800.0)
+
+
+def compile_cache_hits_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_compile_cache_hits_total",
+        "persistent compilation-cache hits (one per XLA module served "
+        "from the cache dir); program = the registered AOT program "
+        "being gated, or (inline) for runtime dispatch compiles",
+        labelnames=("program",))
+
+
+def compile_cache_misses_total() -> metrics.Counter:
+    return metrics.counter(
+        "tpulsar_compile_cache_misses_total",
+        "persistent compilation-cache misses — an (inline) miss "
+        "during a measured run is a silent recompile the AOT gate "
+        "should have absorbed (tpulsar aot verify localizes it)",
+        labelnames=("program",))
+
+
+def backend_compile_seconds() -> metrics.Histogram:
+    return metrics.histogram(
+        "tpulsar_backend_compile_seconds",
+        "XLA backend compile time per module (cache hits skip the "
+        "backend compile entirely, so every observation here is a "
+        "real compile)",
+        labelnames=("program",), buckets=COMPILE_BUCKETS)
 
 
 #: histogram buckets for serve-loop waits: admission latencies from

@@ -186,10 +186,11 @@ class SearchOutcome:
     num_dm_trials: int
     timers: StageTimers
     refined_dms: list[float] = dataclasses.field(default_factory=list)
-    #: kernel-library compiles attributable to THIS beam
-    #: (kernels/cuda_dd.COMPILES: loads of a library already built,
-    #: nvcc builds).  A resident server's steady state is
-    #: compile_misses == 0: the beam paid no compile.
+    #: library lookups attributable to THIS beam
+    #: (kernels/cuda_dd.COMPILES, the tally of aot/warmstart.py: a
+    #: library found built, a library compiled by nvcc or g++).  A
+    #: resident server's steady state is compile_misses == 0: the
+    #: beam paid no compile.
     compile_hits: int = 0
     compile_misses: int = 0
 

@@ -1,8 +1,10 @@
 """The resident search server — counterpart of tpulsar/serve/server.py.
 
 One long-lived, device-owning process replaces the fork-per-beam
-model: it builds and loads the CUDA kernel library, prepares the
-device and (optionally) searches one synthesized block at boot, then
+model: it builds or loads its libraries through the AOT gate
+(aot/warmstart.py::warm_boot: verify first, compile on a miss),
+prepares the device and (optionally) searches one synthesized block
+at boot, then
 loops over the spool admission queue (serve/protocol.py).  Every beam
 after boot reuses the process's kernel library, template banks, FFT
 plans and device allocator: process start, kernel build and device
@@ -67,7 +69,8 @@ import torch
 # Module import (not name import): frontdoor.queue itself imports
 # serve.protocol, so pulling a name out of it here would trip the
 # circular-import guard when queue.py is the first module loaded.
-from tpulsar_torch import native, resolve_device
+from tpulsar_torch import resolve_device
+from tpulsar_torch.aot import warmstart
 from tpulsar_torch.cli import search_job
 from tpulsar_torch.dataplane import blobstore, transfer
 from tpulsar_torch.dataplane import index as dp_index
@@ -252,13 +255,26 @@ class SearchServer:
             self.log.warning(
                 "requeued %d ticket(s) a dead worker left claimed: %s",
                 len(requeued), ", ".join(requeued))
-        # the whole point of residency: one kernel build and load and
-        # one device set-up for EVERY beam this process will search
-        # (the native unpack the reads use, too; a stream reads none)
-        if not self.stream:
-            native.load()
-        if self.device.type == "cuda":
-            cuda_dd._load()
+        # the whole point of residency: one library build or load and
+        # one device set-up for EVERY beam this process will search.
+        # Verify-first: a restart over a warm build directory loads
+        # the manifest's libraries (all hits); a miss rebuilds them.
+        # The native library serves the reads (a stream reads none),
+        # the CUDA kernels the card.
+        only = tuple(name for name, used in (
+            ("native", not self.stream),
+            ("cuda_dd", self.device.type == "cuda")) if used)
+        rc = warmstart.warm_boot(
+            only=only, echo=lambda s: self.log.info("gate: %s", s)) \
+            if only else 0
+        if rc != 0:
+            # a failed gate is a degraded boot, not a fatal one: beams
+            # still run, building what they need at first use (visible
+            # as compile_misses in every result record) or failing
+            # loudly through crash isolation
+            self.log.warning("warm-start gate rc %d — serving without "
+                             "it", rc)
+        elif self.device.type == "cuda":
             cuda_dd._prepare(self.device)
         if self.warm_boot:
             self.log.info("warm boot (%s) ...", "stream profile"
@@ -735,11 +751,11 @@ class SearchServer:
 
     @staticmethod
     def _compile_misses_total() -> int:
-        """Process-cumulative kernel-library builds
-        (kernels/cuda_dd.COMPILES): failure paths label their result
-        records from the delta over the beam, since no SearchOutcome
-        exists to carry it."""
-        return cuda_dd.COMPILES["misses"]
+        """Process-cumulative library builds (the compile-cache miss
+        tally, aot/warmstart.COMPILES): failure paths label their
+        result records from the delta over the beam, since no
+        SearchOutcome exists to carry it."""
+        return warmstart.COMPILES["misses"]
 
     def _publish_result(self, tid: str, outdir: str) -> dict:
         """Data-plane publication for a finished beam: push the sifted
