@@ -20,8 +20,11 @@ phases:
      DM chunk of the plan at that length, also against two B = 1
      launches, timed, and refinement's one row; and which stages after dedispersion give a row the same
      bits inside a two-beam batch of rows as alone (the reason the
-     batch path runs them per beam); the library it launched is the
-     manifest's;
+     batch path runs them per beam); dedisperse.dedisperse_pass, the
+     kernel module's whole pass, on the first ds-1 pass of the block,
+     bit-identical to its own form_subbands -> dedisperse_subbands
+     composition and one launch of each; the library it launched is
+     the manifest's;
   row statistics (row_stats_phase): the plan's first pass of a
      BATCH_NSAMP slice of phase 1's block, dedispersed by the kernels;
      the SP detrend's and the whitening's clipped estimators and
@@ -200,11 +203,15 @@ phases:
 
   12. operator surface (run after phase 9, on phase 7's beam, held
      against its solo search): `python -m tpulsar_torch search <beam>
-     --outdir D` in a subprocess on the card with TPULSAR_TRACE=1
-     (through the same wrapper: plots off, the cleaned checkpoint kept,
-     launches counted from the process start): exit 0, the results
-     equal to phase 7's solo search's with the trace file set aside,
-     the pulsar folded, both kernels launched as often as there.  Then
+     --outdir D` in a subprocess on the card with TPULSAR_TRACE=1 and
+     TPULSAR_PROFILE=<tmp>/ops_profile (through the same wrapper: plots
+     off, the cleaned checkpoint kept, launches counted from the
+     process start): exit 0, the results equal to phase 7's solo
+     search's with the trace file set aside, the pulsar folded, both
+     kernels launched as often as there; one torch profiler trace in
+     the profile directory, holding the search_block range and as many
+     dedisperse_kernel and form_subbands_kernel events as the wrappers
+     counted (check_profile).  Then
      in this process, through the CLI's main: `trace D` (the span
      table) and tools/torch_trace_summarize.py --compare-report (5%,
      50 ms), `plan <beam>` (the 57-pass Mock survey plan of the
@@ -214,8 +221,8 @@ phases:
      over from w0 (claimed by w0, the takeover from w0, a claim, one
      result), `obs top --once` (w0 and w1 named) and `obs tail --lines
      5` over phase 11's sqlite queue.  It prints the search's wall,
-     its .report stages, the trace's top spans and the phase's
-     seconds.
+     its .report stages, the trace's top spans, the profile's size,
+     event count and parse time, and the phase's seconds.
 
   13. mesh (run after phase 12, on phase 7's beam, held against its
      solo search): the parallel layer (tpulsar_torch/parallel/) on a
@@ -265,6 +272,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gzip
+import inspect
 import io
 import json
 import math
@@ -781,7 +790,39 @@ def kernel_phase(data, freqs: np.ndarray, regs: dict):
                             "refinement, one row"))
     del subb
     s2b = _batch_shapes_entries(data, freqs, plan, regs)
+    dedisperse_pass_check(data, freqs, plan)
     return s1, s2, s2b, rows_report
+
+
+def dedisperse_pass_check(data, freqs: np.ndarray, plan) -> None:
+    """dedisperse.dedisperse_pass, the kernel module's whole two-stage
+    pass, on the block at full width for the plan's first ds-1 pass:
+    one launch of each kernel, and the series bit-identical to its own
+    form_subbands -> dedisperse_subbands composition."""
+    ppass = next(s for s in plan if s.downsamp == 1).passes()[0]
+    dms = np.asarray(ppass.dms)
+    before = dict(cuda_dd.LAUNCHES)
+    got = dd.dedisperse_pass(data, freqs, 96, ppass.subdm, dms, TSAMP, 1,
+                             device=DEV)
+    launched = {k: cuda_dd.LAUNCHES[k] - before[k] for k in SOLO_KERNELS}
+    ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, ppass.subdm, dms,
+                                        TSAMP, 1)
+    want = cuda_dd.dedisperse_subbands(
+        cuda_dd.form_subbands(data, ch_sh, 96, 1), sub_sh)
+    torch.cuda.synchronize()
+    if launched != {k: 1 for k in SOLO_KERNELS}:
+        raise AssertionError(f"dedisperse_pass launched {launched}, not "
+                             f"one of each kernel")
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(
+            f"dedisperse_pass differs from form_subbands -> "
+            f"dedisperse_subbands: {tuple(got.shape)} vs "
+            f"{tuple(want.shape)}, max |err| "
+            f"{float((got - want).abs().max())}")
+    log(f"phase 1: dedisperse_pass of the first ds-1 pass (subdm "
+        f"{ppass.subdm}, {len(dms)} DMs, {NCHAN} x {data.shape[1]} uint8) "
+        f"bit-identical to its form_subbands -> dedisperse_subbands "
+        f"composition; launches {launched}")
 
 
 def _inject_drifting_train(series: torch.Tensor, nfft: int, r0: int,
@@ -3694,13 +3735,81 @@ def _check_takeover_chain(text: str, tid: str, what: str,
     return steps
 
 
+#: the profiler's names of the two kernels (a substring of each event's
+#: demangled name), by their wrapper's launch counter
+PROFILE_KERNELS = {"form_subbands": "form_subbands_kernel",
+                   "dedisperse_subbands": "dedisperse_kernel"}
+
+
+def check_profile(prof_dir: str, launches: dict, what: str) -> dict:
+    """The TPULSAR_PROFILE directory of one search: exactly one gzipped
+    Chrome trace, which parses (gzip + json), holds the search_block
+    range and as many events of each kernel as its wrapper counted.
+    Returns the trace's size, event count, kernel counts and parse
+    seconds."""
+    names = os.listdir(prof_dir)
+    if len(names) != 1 or not names[0].endswith(".pt.trace.json.gz"):
+        raise AssertionError(f"{what}: the profile directory holds "
+                             f"{names}, not one .pt.trace.json.gz")
+    path = os.path.join(prof_dir, names[0])
+    t0 = time.time()
+    with gzip.open(path, "rt") as fh:
+        events = json.load(fh)["traceEvents"]
+    parse_s = time.time() - t0
+    roots = [e for e in events if e.get("name") == "search_block"
+             and e.get("cat") == "user_annotation"]
+    if len(roots) != 1:
+        raise AssertionError(f"{what}: {len(roots)} search_block ranges "
+                             f"in the profile")
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                      and sub in e.get("name", ""))
+               for k, sub in PROFILE_KERNELS.items()}
+    want = {k: launches.get(k, 0) for k in PROFILE_KERNELS}
+    if kernels != want:
+        raise AssertionError(f"{what}: the profile holds kernel events "
+                             f"{kernels}, the wrappers counted {want}")
+    return dict(file=names[0], bytes=os.path.getsize(path),
+                events=len(events), kernels=kernels,
+                search_block_ms=roots[0]["dur"] / 1e3, parse_s=parse_s)
+
+
+def start_profile_check(prof_dir: str, launches: dict, what: str):
+    """check_profile in a subprocess (the parse of a quarter beam's
+    trace takes ~10 s on one core), so that it runs beside the next
+    phase; finish_profile_check collects it."""
+    code = (f"import gzip, json, os, sys, time\n"
+            f"PROFILE_KERNELS = {PROFILE_KERNELS!r}\n"
+            + inspect.getsource(check_profile)
+            + "print(json.dumps(check_profile(sys.argv[1], "
+              "json.loads(sys.argv[2]), sys.argv[3])))\n")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, prof_dir, json.dumps(launches), what],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_profile_check(proc, what: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: the profile check did not end "
+                             f"within 300 s") from None
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: the profile check exited "
+                             f"{proc.returncode}:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
 def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
     """Phase 12: the operator surface.  `python -m tpulsar_torch search`
     in a subprocess on the card over phase 7's beam, with TPULSAR_TRACE=1
     (and no TPULSAR_TRACE_SYNC), through SERVE_WRAPPER: exit 0, results
     equal to phase 7's solo search's (the trace file set aside), the
     pulsar folded, both kernels launched as often as phase 7's solo
-    search.  Then, in this process: `trace` and
+    search; with TPULSAR_PROFILE set to a directory outside the outdir,
+    whose trace the returned profile_check (start_profile_check)
+    checks beside phase 13.  Then, in this process: `trace` and
     tools/torch_trace_summarize.py --compare-report over its output,
     `plan` of the beam (the 57-pass Mock survey plan), `checkpoint
     [--verify]` of the checkpoint the job cleaned (and of a copy with
@@ -3714,7 +3823,9 @@ def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
     t_phase = time.time()
     srv = server_setup(tmp, "ops")
     out = os.path.join(tmp, "ops_search")
-    env = dict(srv["env"], TPULSAR_TRACE="1")
+    # the profile goes outside the results directory
+    prof_dir = os.path.join(tmp, "ops_profile")
+    env = dict(srv["env"], TPULSAR_TRACE="1", TPULSAR_PROFILE=prof_dir)
     env.pop("TPULSAR_TRACE_SYNC", None)
     cmd = [sys.executable, "-c", SERVE_WRAPPER, "--config", srv["cfg"],
            "search", *fns, "--outdir", out]
@@ -3848,7 +3959,10 @@ def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
         f"phase {phase_s:.1f} s")
     return dict(launches=got, wall_s=wall, stages=stages, cmds_s=cmds_s,
                 phase_s=phase_s, top_spans={n: roll[n]["seconds"]
-                                            for n in top})
+                                            for n in top},
+                # the profile's parse runs beside phase 13
+                profile_check=start_profile_check(prof_dir, launches,
+                                                  "phase 12"))
 
 
 #: phase 13's mesh: four logical shards of the one card
@@ -4324,11 +4438,12 @@ def slice_phase(nsamp: int) -> dict:
     of its own, and the read phase and phases 5, 6, 11 (which holds
     the fleet's checks), 9, 12 and 13 on that shorter beam."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
+    p4: dict = {}
     try:
         fns = write_beam(os.path.join(tmp, "beam"), nsamp)
         plan = ddplan.survey_plan("pdev")
         mark("phase 4: the full beam")
-        p4 = main_path_phase(fns, tmp, nsamp, plan)
+        p4.update(main_path_phase(fns, tmp, nsamp, plan))
         mark("phase 7: batch")
         p4["batch"] = p7 = batch_phase(tmp, plan)
         mark("read (phase 7's beam)")
@@ -4346,8 +4461,20 @@ def slice_phase(nsamp: int) -> dict:
         p4["ops"] = ops_phase(tmp, p7, p4["chaos"])
         mark("phase 13: mesh")
         p4["mesh"] = mesh_phase(tmp, plan, p7)
+        ops = p4["ops"]
+        ops["profile"] = prof = finish_profile_check(
+            ops.pop("profile_check"), "phase 12")
+        log(f"phase 12 (checked beside phase 13): the profile "
+            f"{prof['file']} ({prof['bytes']} bytes, {prof['events']} "
+            f"events, parsed in {prof['parse_s']:.3f} s) holds "
+            f"search_block ({prof['search_block_ms']:.3f} ms) and kernel "
+            f"events {prof['kernels']}, the wrappers' counts")
         return p4
     finally:
+        proc = p4.get("ops", {}).get("profile_check")
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 

@@ -27,6 +27,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from test_torch_slice import one_torch_thread  # noqa: E402, F401 (autouse)
+from torch_build_dir import own_build_dir  # noqa: E402, F401 (autouse)
 from tpulsar import native as jnative  # noqa: E402
 from tpulsar.kernels import accel as ja  # noqa: E402
 from tpulsar.kernels import fourier as jfr  # noqa: E402

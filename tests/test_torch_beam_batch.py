@@ -35,6 +35,7 @@ from test_torch_search_job import _config_file  # noqa: E402
 from test_torch_serve import _results_diff  # noqa: E402
 from test_torch_slice import (  # noqa: E402, F401 (a fixture)
     _assert_cands_match, _assert_events_match, one_torch_thread)
+from torch_build_dir import own_build_dir  # noqa: E402, F401 (autouse)
 from tpulsar.io import synth  # noqa: E402
 from tpulsar.kernels import beam_batch as jbb  # noqa: E402
 from tpulsar.plan import ddplan as jddplan  # noqa: E402

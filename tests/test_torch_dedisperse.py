@@ -148,6 +148,44 @@ def test_two_stage_pass_on_survey_geometry():
         _jax_stage2(subb_j, sub_j))
 
 
+@pytest.mark.parametrize("ds", [1, 2, 3])
+def test_dedisperse_pass_bit_identical_to_jax(ds):
+    """The whole two-stage pass on a uint8 block of the survey
+    geometry: tolerance 0 against the JAX package's dedisperse_pass,
+    and max_shift_samples exact (the series' contaminated tail)."""
+    rng = np.random.default_rng(21 + ds)
+    freqs = 1214.2 + np.arange(96) * (322.617 / 96)
+    nsub, dt = 16, 65.476e-6 * 8
+    dms = np.round(100.0 + 0.3 * np.arange(12), 6)
+    data = rng.integers(0, 256, size=(96, 6000), dtype=np.uint8)
+    want = np.asarray(jdd.dedisperse_pass(jnp.asarray(data), freqs, nsub,
+                                          101.8, dms, dt, ds))
+    got = tdd.dedisperse_pass(data, freqs, nsub, 101.8, dms, dt, ds,
+                              device="cpu")
+    assert got.dtype == torch.float32 and got.device.type == "cpu"
+    assert tuple(got.shape) == want.shape == (12, 6000 // ds)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for max_dm in (0.0, 103.3, 1000.0):
+        assert tdd.max_shift_samples(freqs, max_dm, dt) == \
+            jdd.max_shift_samples(freqs, max_dm, dt)
+
+
+def test_dedisperse_pass_takes_a_device():
+    """dedisperse_pass runs on the device it is given (default the
+    card: it raises without one), not where its input lies."""
+    data = np.zeros((8, 300), np.uint8)
+    freqs = np.linspace(1200.0, 1500.0, 8)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tdd.dedisperse_pass(torch.from_numpy(data), freqs, 2, 10.0,
+                                [10.0], 1e-3, 1)
+    cuda_dd.reset_counts()
+    out = tdd.dedisperse_pass(data, freqs, 2, 10.0, [10.0, 11.0], 1e-3,
+                              1, device="cpu")
+    assert tuple(out.shape) == (2, 300)
+    assert cuda_dd.LAUNCHES["form_subbands"] == 0
+
+
 def test_host_helpers_match():
     assert tdd._pad_bucket(0) == jdd._pad_bucket(0) == 0
     for m in (-3, 1, 255, 256, 257, 1000, 5000):
@@ -234,6 +272,29 @@ def test_cuda_kernels_match_plain_versions(cuda_device, ds):
     # 40 rows are one launch (two groups of 20)
     assert cuda_dd.LAUNCHES["dedisperse_subbands"] == \
         before["dedisperse_subbands"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ds", [1, 4])
+def test_cuda_dedisperse_pass_is_the_two_kernels(cuda_device, ds):
+    """On the card: dedisperse_pass launches each kernel once and
+    equals their composition exactly."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(40 + ds)
+    data = torch.randint(0, 256, (96, 50_003), generator=gen,
+                         device=cuda_device, dtype=torch.uint8)
+    freqs = 1214.2 + np.arange(96) * (322.617 / 96)
+    dms = np.round(100.0 + 0.3 * np.arange(40), 6)
+    before = dict(cuda_dd.LAUNCHES)
+    got = tdd.dedisperse_pass(data, freqs, 16, 105.0, dms, 65.476e-6, ds,
+                              device=cuda_device)
+    assert cuda_dd.LAUNCHES["form_subbands"] == before["form_subbands"] + 1
+    assert cuda_dd.LAUNCHES["dedisperse_subbands"] == \
+        before["dedisperse_subbands"] + 1
+    ch, sub = tdd.plan_pass_shifts(freqs, 16, 105.0, dms, 65.476e-6, ds)
+    want = cuda_dd.dedisperse_subbands(
+        cuda_dd.form_subbands(data, ch, 16, ds), sub)
+    assert torch.equal(got, want)
 
 
 def _mock_chunks():

@@ -38,6 +38,7 @@ from test_torch_search_job import (  # noqa: E402, F401 (a fixture)
     _subband_pair, configured)
 from test_torch_serve import _results_diff  # noqa: E402
 from test_torch_slice import one_torch_thread  # noqa: E402, F401
+from torch_build_dir import own_build_dir  # noqa: E402, F401 (autouse)
 from tpulsar.cli.main import main as jcli_main  # noqa: E402
 from tpulsar.fleet import controller as jctl  # noqa: E402
 from tpulsar.obs import journal as jjournal  # noqa: E402

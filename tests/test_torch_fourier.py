@@ -142,6 +142,50 @@ def test_lo_stage_candidates_match():
                                       np.asarray(want[h][1]))
 
 
+def test_power_spectrum_matches():
+    """Raw powers with DC zeroed, at the FFT tolerance (1e-4 of the
+    spectrum's scale, squared: 2e-4 of the largest power)."""
+    x = _series(11)
+    want = np.asarray(jfr.power_spectrum(jnp.asarray(x)))
+    got = tfr.power_spectrum(x, device="cpu").numpy()
+    assert got.shape == want.shape == (3, 15001)
+    assert got[:, 0].tolist() == [0, 0, 0]
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("keep", [False, True])
+def test_periodicity_search_matches(keep):
+    """The zero-acceleration search of (ndms, T) series, with and
+    without a zaplist keep-mask: the same true bin count and stages,
+    the powers at the lo stage's rtol 1e-5, and the same top-k bins
+    except where two powers tie within that tolerance."""
+    x = _series(12)
+    keep_mask = None
+    if keep:
+        keep_mask = np.ones(15001, bool)
+        keep_mask[3000:3100] = False
+    want, wn = jfr.periodicity_search(jnp.asarray(x), 15.0,
+                                      keep_mask=keep_mask,
+                                      max_numharm=16, topk=16)
+    got, gn = tfr.periodicity_search(x, 15.0, keep_mask=keep_mask,
+                                     max_numharm=16, topk=16,
+                                     device="cpu")
+    assert gn == wn == 15001
+    assert sorted(got) == sorted(want) == [1, 2, 4, 8, 16]
+    for h in want:
+        gv, gb = got[h]
+        wv, wb = want[h]
+        assert isinstance(gv, np.ndarray) and gv.shape == wv.shape
+        np.testing.assert_allclose(gv, wv, rtol=1e-5)
+        for row, col in zip(*np.nonzero(gb != wb)):
+            # a tie: the JAX package ranks another bin of (within the
+            # tolerance) the same power at this place
+            assert gb[row, col] in wb[row], (h, row, col)
+            assert np.isclose(wv[row, list(wb[row]).index(gb[row, col])],
+                              gv[row, col], rtol=1e-5)
+
+
 def test_host_functions_identical(tmp_path):
     p = np.array([5.0, 30.0, 80.0, 400.0])
     for h in (1, 4, 16):

@@ -56,6 +56,7 @@ from test_gateway import _Worker, _write_candlist  # noqa: E402
 from test_torch_checkpoint import ROOT, restore_job_globals  # noqa: E402
 from test_torch_search_job import _config_file, _subband_pair  # noqa: E402
 from test_torch_slice import one_torch_thread  # noqa: E402, F401
+from torch_build_dir import own_build_dir  # noqa: E402, F401 (autouse)
 from tpulsar import config as jcfg  # noqa: E402
 from tpulsar.cli.main import main as jmain  # noqa: E402
 from tpulsar.dataplane import index as jindex  # noqa: E402

@@ -1,8 +1,9 @@
 """The port's knob registry (tpulsar_torch/config/knobs.py) against the
 JAX package's: each knob the two share keeps the JAX entry's type,
 default and text (where the port's default differs, PORT_DEFAULTS
-names it); the registry lists exactly the TPULSAR_* knobs the port
-reads, by the env-knobs checker's own rule; the markdown table
+names it, and where its text does, PORT_DOCS); the registry lists
+exactly the TPULSAR_* knobs the port reads, by the env-knobs checker's
+own rule; the markdown table
 renders as `python -m tpulsar_torch.config.knobs`; and the hi stage's
 three integer knobs, now read by their literal names, behave as
 before."""
@@ -33,12 +34,19 @@ PORT_DEFAULTS = {
     "TPULSAR_CACHE_DIR": "tpulsar_torch/_build",
 }
 
+#: the knobs whose text is the port's own, and why
+PORT_DOCS = {
+    # the port's trace is the torch profiler's, not jax.profiler's
+    "TPULSAR_PROFILE": ("torch profiler trace of the search block "
+                        "(TensorBoard / Perfetto .pt.trace.json.gz)"),
+}
+
 
 @pytest.mark.parametrize("name", sorted(tknobs.KNOBS))
 def test_shared_knob_equals_the_jax_entry(name):
     port, ref = tknobs.KNOBS[name], jknobs.KNOBS[name]
-    assert (port.name, port.type, port.doc) == (ref.name, ref.type,
-                                                ref.doc)
+    assert (port.name, port.type) == (ref.name, ref.type)
+    assert port.doc == PORT_DOCS.get(name, ref.doc)
     assert port.default == PORT_DEFAULTS.get(name, ref.default)
 
 
@@ -63,12 +71,15 @@ def _port_reads() -> dict[str, str]:
 def test_registry_is_exactly_what_the_port_reads():
     reads = _port_reads()
     assert sorted(reads) == sorted(tknobs.KNOBS)
-    assert len(tknobs.KNOBS) == 41
+    assert len(tknobs.KNOBS) == 42
     for name in ("TPULSAR_ACCEL_SYNC_WINDOW",
                  "TPULSAR_ACCEL_BREAKER_THRESHOLD",
                  "TPULSAR_ACCEL_BATCH_BREAKER"):
         assert reads[name].startswith(
             os.path.join(ROOT, "tpulsar_torch", "kernels", "accel.py"))
+    # the profiler hook sits where the JAX package's does
+    assert reads["TPULSAR_PROFILE"].startswith(
+        os.path.join(ROOT, "tpulsar_torch", "search", "executor.py"))
 
 
 def test_table_renders_and_shared_rows_equal_the_jax_table():
@@ -85,7 +96,8 @@ def test_table_renders_and_shared_rows_equal_the_jax_table():
     jrows = set(jknobs.render_markdown().splitlines())
     for row in rows[2:]:
         name = row.split("`")[1]
-        assert (row in jrows) == (name not in PORT_DEFAULTS), row
+        assert (row in jrows) == (name not in PORT_DEFAULTS
+                                  and name not in PORT_DOCS), row
 
 
 @pytest.mark.parametrize("name, default, fn", [

@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_slice import one_torch_thread  # noqa: E402, F401 (autouse)
+from torch_build_dir import own_build_dir  # noqa: E402, F401 (autouse)
 from tpulsar import native as jnative  # noqa: E402
 from tpulsar.io import psrfits as jpf  # noqa: E402
 from tpulsar.io import synth  # noqa: E402

@@ -298,3 +298,31 @@ def test_fence_is_a_noop_on_the_cpu(monkeypatch):
         assert calls == ["cuda:0"]
     finally:
         ttrace.reset()
+
+
+def test_outstream_writes_what_the_jax_package_writes(tmp_path):
+    """obs/log.py's OutStream (the reference's .outs(msg) call shape):
+    both packages' streams write the same levels and messages to their
+    log files, under their own logger names."""
+    import logging
+
+    from tpulsar.obs import log as jlog
+    from tpulsar_torch.obs import log as tlog
+
+    lines = {}
+    for name, pkg in (("jax", jlog), ("torch", tlog)):
+        path = tmp_path / f"{name}.log"
+        out = pkg.OutStream("outstream_parity", str(path), screen=False)
+        out.outs("first")
+        out.outs("second", level=logging.WARNING)
+        out.outs("hidden", level=logging.DEBUG)
+        for h in list(out.logger.handlers):
+            out.logger.removeHandler(h)
+            h.close()
+        lines[name] = [ln.split(" ", 2)[2] for ln in
+                       path.read_text().splitlines()]
+    assert lines["torch"] == [
+        "tpulsar_torch.outstream_parity INFO: first",
+        "tpulsar_torch.outstream_parity WARNING: second"]
+    assert [ln.replace("tpulsar.", "tpulsar_torch.", 1)
+            for ln in lines["jax"]] == lines["torch"]

@@ -38,6 +38,7 @@ from test_torch_checkpoint import ROOT, _pass_keys  # noqa: E402
 from test_torch_search_job import _subband_pair  # noqa: E402
 from test_torch_serve import _results_diff  # noqa: E402
 from test_torch_slice import one_torch_thread  # noqa: E402, F401 (autouse)
+from torch_build_dir import own_build_dir  # noqa: E402, F401 (autouse)
 from tpulsar.io import synth  # noqa: E402
 from tpulsar_torch import checkpoint as tckpt  # noqa: E402
 

@@ -101,3 +101,77 @@ def test_mask_file_loads_in_both_packages(tmp_path):
     np.testing.assert_array_equal(q[0], qs)
     np.testing.assert_array_equal(q[1], qo)
     assert trfi.RFIMask.load_quantization(jpath) is not None
+
+
+# ------------------------------------------ the row-major entry points
+
+def test_row_major_cell_stats_match():
+    """cell_stats on (T, nchan) at the channel-major path's rtol 1e-5,
+    each statistic (nblocks, nchan)."""
+    data = np.ascontiguousarray(_dirty_block(4).T)
+    want = jrfi.cell_stats(jnp.asarray(data), 1024)
+    got = trfi.cell_stats(data, 1024, device="cpu")
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape) == (16, 24)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_row_major_find_rfi_and_apply_mask_match(dtype):
+    """find_rfi on (T, nchan): the same cells, channels and blocks, the
+    fill levels at rtol 1e-5; mask_fill_or_default the same; apply_mask
+    (which derives its fill from the data) equal for uint8 and at the
+    fill's tolerance for float32."""
+    data = np.ascontiguousarray(_dirty_block(5).T)
+    if dtype == np.uint8:
+        data = np.clip(np.rint(data * 12 + 128), 0, 255).astype(np.uint8)
+    jm = jrfi.find_rfi(data, 1e-3, block_len=2048)
+    tm = trfi.find_rfi(data, 1e-3, block_len=2048, device="cpu")
+    assert tm.cell_mask.any()
+    np.testing.assert_array_equal(tm.cell_mask, jm.cell_mask)
+    np.testing.assert_array_equal(tm.bad_channels, jm.bad_channels)
+    np.testing.assert_array_equal(tm.bad_blocks, jm.bad_blocks)
+    np.testing.assert_allclose(trfi.mask_fill_or_default(tm),
+                               jrfi.mask_fill_or_default(jm), rtol=1e-5,
+                               atol=1e-5)
+    want = np.asarray(jrfi.apply_mask(jnp.asarray(data),
+                                      jnp.asarray(jm.cell_mask), 2048))
+    got = trfi.apply_mask(data, jm.cell_mask, 2048, device="cpu").numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == np.uint8:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_apply_mask_keeps_the_ragged_tail_and_chunks():
+    """A length that is not a whole number of blocks keeps its tail
+    unmasked, and the block means taken in chunks smaller than the
+    block count equal the JAX package's."""
+    rng = np.random.default_rng(9)
+    data = rng.integers(0, 256, size=(5 * 512 + 77, 6), dtype=np.uint8)
+    cells = np.zeros((5, 6), bool)
+    cells[1, 2] = cells[4, 0] = True
+    want = np.asarray(jrfi.apply_mask(jnp.asarray(data),
+                                      jnp.asarray(cells), 512, chunk=2))
+    got = trfi.apply_mask(data, cells, 512, chunk=2, device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[5 * 512:], data[5 * 512:])
+
+
+def test_mask_fill_or_default_without_a_fill():
+    """A mask saved before chan_fill existed fills with zeros, as in
+    the JAX package."""
+    mask = trfi.RFIMask(block_len=8, dt=1e-3,
+                        cell_mask=np.zeros((3, 5), bool),
+                        bad_channels=np.zeros(5, bool),
+                        bad_blocks=np.zeros(3, bool))
+    jmask = jrfi.RFIMask(block_len=8, dt=1e-3,
+                         cell_mask=np.zeros((3, 5), bool),
+                         bad_channels=np.zeros(5, bool),
+                         bad_blocks=np.zeros(3, bool))
+    got = trfi.mask_fill_or_default(mask)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, jrfi.mask_fill_or_default(jmask))
+

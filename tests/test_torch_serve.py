@@ -39,6 +39,7 @@ from test_torch_checkpoint import ROOT  # noqa: E402
 from test_torch_search_job import (  # noqa: E402, F401 (a fixture)
     _subband_pair, _zaplist_store, configured)
 from test_torch_slice import one_torch_thread  # noqa: E402, F401
+from torch_build_dir import own_build_dir  # noqa: E402, F401 (autouse)
 from tpulsar import config as jcfg  # noqa: E402
 from tpulsar.obs import journal as jjournal  # noqa: E402
 from tpulsar.orchestrate import zaplists as jzaplists  # noqa: E402

@@ -35,6 +35,7 @@ torch = pytest.importorskip("torch")
 from test_torch_checkpoint import ROOT  # noqa: E402
 from test_torch_slice import (  # noqa: E402, F401 (an autouse fixture)
     _assert_events_match, one_torch_thread)
+from torch_build_dir import own_build_dir  # noqa: E402, F401 (autouse)
 from tpulsar.constants import dispersion_delay_s  # noqa: E402
 from tpulsar.frontdoor.queue import get_ticket_queue  # noqa: E402
 from tpulsar.kernels import dedisperse as jdd  # noqa: E402

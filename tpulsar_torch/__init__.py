@@ -56,3 +56,16 @@ def resolve_device(device=None) -> "torch.device":
             "tpulsar_torch: no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def as_device_tensor(x, device=None) -> "torch.Tensor":
+    """``x`` (a tensor or anything numpy reads) as a tensor on
+    :func:`resolve_device`'s device: the entry points that take the
+    JAX package's array arguments call this first."""
+    import numpy as np
+    import torch
+
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(resolve_device(device))
+

@@ -553,8 +553,4 @@ PORT_DIFFERENCES = (
         "the choice between two Pallas formulations of stage 2",
         "none: one CUDA kernel computes the function of both "
         "(ROADMAP Queue 2)"),
-    PortDifference(
-        "env-knobs", "TPULSAR_PROFILE",
-        "the JAX profiler's trace directory",
-        "ROADMAP item 26"),
 )

@@ -14,10 +14,12 @@ default and text, except where the port's default differs
 ``TPULSAR_BEAM_BATCH_BYTES``: half the card's memory on CUDA;
 ``TPULSAR_CACHE_DIR``: the port's build directory, which holds its two
 shared libraries, their ptxas reports and the AOT manifest, where the
-JAX package keeps its XLA cache — aot/cachedir.py).
-The JAX package's knobs of its TPU kernels, its benchmark and its
-profiler (``TPULSAR_PALLAS``, ``_PALLAS_SB``, ``_PALLAS_VARIANT``,
-``_DD_TREE``, ``_PROFILE``, ``_BENCH_DTYPE``, ``_ACCEL_NATIVE``) have
+JAX package keeps its XLA cache — aot/cachedir.py), and the text of
+``TPULSAR_PROFILE``, which names the torch profiler's trace where the
+JAX package's names its own.
+The JAX package's knobs of its TPU kernels and its benchmark
+(``TPULSAR_PALLAS``, ``_PALLAS_SB``, ``_PALLAS_VARIANT``,
+``_DD_TREE``, ``_BENCH_DTYPE``, ``_ACCEL_NATIVE``) have
 no counterpart here; the linter's
 ``PORT_DIFFERENCES`` names them.
 
@@ -156,6 +158,9 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
     _k("TPULSAR_HOST_RESCUE", "enum(0)", "on",
        "0 disables host-CPU recompute of refused accel rows, "
        "restoring the zero-fill degrade path"),
+    _k("TPULSAR_PROFILE", "path", "unset",
+       "torch profiler trace of the search block (TensorBoard / "
+       "Perfetto .pt.trace.json.gz)"),
     _k("TPULSAR_QUEUE_BUSY_TIMEOUT_S", "float", "5 (resilience "
        "policy timeout_s when configured)",
        "SQLite ticket-queue lock-wait budget: connect timeout and "

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpulsar_torch import as_device_tensor
 from tpulsar_torch.constants import KDM, dispersion_delay_s as delays_s
 from tpulsar_torch.kernels import cuda_dd
 
@@ -131,6 +132,20 @@ def plan_pass_shifts(freqs_mhz: np.ndarray, nsub: int, subdm: float,
     return chan_shifts.astype(np.int32), sub_shifts.astype(np.int32)
 
 
+def dedisperse_pass(data, freqs_mhz: np.ndarray, nsub: int,
+                    subdm: float, dms: np.ndarray, dt: float,
+                    downsamp: int, device=None) -> torch.Tensor:
+    """Full two-stage pass on `device`: (nchan, T) -> (ndms, T //
+    downsamp), through both hand kernels (form_subbands, then
+    dedisperse_subbands) on the card and their plain versions on the
+    CPU."""
+    chan_shifts, sub_shifts = plan_pass_shifts(
+        freqs_mhz, nsub, subdm, dms, dt, downsamp)
+    data = as_device_tensor(data, device).contiguous()
+    subbands = form_subbands(data, chan_shifts, nsub, downsamp)
+    return dedisperse_subbands(subbands, sub_shifts)
+
+
 def dedisperse_exact(data: np.ndarray, freqs_mhz: np.ndarray,
                      dms: np.ndarray, dt: float,
                      downsamp: int = 1) -> np.ndarray:
@@ -156,6 +171,13 @@ def dedisperse_exact(data: np.ndarray, freqs_mhz: np.ndarray,
         arr = arr[:, : (T // downsamp) * downsamp]
         arr = arr.reshape(arr.shape[0], -1, downsamp).sum(-1)
     return arr
+
+
+def max_shift_samples(freqs_mhz: np.ndarray, max_dm: float, dt: float) -> int:
+    """Worst-case shift — samples at the end of every DM series that
+    are contaminated by edge clamping and must be ignored."""
+    f = np.asarray(freqs_mhz, dtype=np.float64)
+    return int(np.ceil(KDM * max_dm * (f.min() ** -2 - f.max() ** -2) / dt))
 
 
 # ----------------------------------------------------------- streaming entry

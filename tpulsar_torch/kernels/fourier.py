@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from scipy import special as sps
 
+from tpulsar_torch import as_device_tensor
 from tpulsar_torch.kernels.singlepulse import median_lastdim, rows_blocked
 
 
@@ -51,6 +52,13 @@ def complex_spectrum(series: torch.Tensor) -> torch.Tensor:
     spec = torch.fft.rfft(series.to(torch.float32), dim=-1)
     spec[..., 0] = 0.0
     return spec
+
+
+def power_spectrum(series, device=None) -> torch.Tensor:
+    """(ndms, T) real time series -> (ndms, T//2+1) raw powers, on
+    `device`.  The DC bin is zeroed (PRESTO drops it too: bin 0 holds
+    the mean)."""
+    return complex_spectrum(as_device_tensor(series, device)).abs() ** 2
 
 
 # ------------------------------------------------------------- rednoise
@@ -356,3 +364,28 @@ def power_threshold(sigma: float, numharm: int) -> float:
     return float(optimize.brentq(
         lambda s: sigma_from_power(s, numharm) - sigma,
         1e-3, 1e4, xtol=1e-6))
+
+
+# ------------------------------------------------------------ full search
+
+def periodicity_search(series, T_s: float, keep_mask=None,
+                       max_numharm: int = 16, topk: int = 64,
+                       device=None):
+    """Zero-acceleration periodicity search of (ndms, T) DM series on
+    `device`.
+
+    Returns a dict: stage -> (powers[ndms, topk], bins[ndms, topk]) as
+    numpy, plus the TRUE (independent) spectrum bin count.  Bins are
+    in HALF-BIN units (interbinned detection grid, dr=0.5 — the same
+    semantics as the executor's lo stage); fundamental r = 0.5*bin.
+    Host code converts to sigmas and merges with sifting
+    (bin_scale=0.5).  T_s is the JAX signature's and selects nothing.
+    """
+    spec = complex_spectrum(as_device_tensor(series, device))
+    powers, wpow = whitened_powers(spec, keep_mask)
+    p2 = interbin_powers(scale_spectrum(spec, powers, wpow))
+    out = {}
+    for h in harmonic_stages(max_numharm):
+        vals, bins = stage_candidates(p2, h, topk)
+        out[h] = (vals.cpu().numpy(), bins.cpu().numpy())
+    return out, wpow.shape[-1]

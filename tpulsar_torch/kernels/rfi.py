@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpulsar_torch import as_device_tensor
+
 
 @dataclasses.dataclass
 class RFIMask:
@@ -107,6 +109,14 @@ def _cell_stats_chan(data: torch.Tensor, block_len: int, chunk: int = 16):
     return tuple(torch.cat(s, dim=0).T for s in (means, stds, maxpows))
 
 
+def cell_stats(data, block_len: int, device=None):
+    """(T, nchan) row-major entry point -> (mean, std, maxpow), each
+    (nblocks, nchan), on `device`.  Small-array convenience; whole-beam
+    callers use the channel-major path (`find_rfi_chan`) to avoid the
+    transpose."""
+    return _cell_stats_chan(as_device_tensor(data, device).T, block_len)
+
+
 def _robust_z(x: np.ndarray, axis: int = 0) -> np.ndarray:
     """z-scores from median/MAD along an axis (outlier-resistant)."""
     med = np.median(x, axis=axis, keepdims=True)
@@ -147,6 +157,25 @@ def find_rfi_chan(data: torch.Tensor, dt: float, block_len: int = 2048,
     return mask
 
 
+def find_rfi(data, dt: float, block_len: int = 2048,
+             threshold: float = 4.0, chan_frac: float = 0.3,
+             block_frac: float = 0.3, device=None) -> RFIMask:
+    """Row-major (T, nchan) entry point (see find_rfi_chan), on
+    `device`."""
+    return find_rfi_chan(as_device_tensor(data, device).T, dt,
+                         block_len=block_len, threshold=threshold,
+                         chan_frac=chan_frac, block_frac=block_frac)
+
+
+def mask_fill_or_default(mask: RFIMask) -> np.ndarray:
+    """The mask's per-channel fill level; masks saved before the
+    chan_fill field existed fall back to zeros (callers that still
+    have the data can recompute it via find_rfi_chan instead)."""
+    if mask.chan_fill is not None:
+        return mask.chan_fill
+    return np.zeros(mask.cell_mask.shape[1], np.float32)
+
+
 def apply_mask_chan(data: torch.Tensor, cell_mask, fill,
                     block_len: int) -> torch.Tensor:
     """Replace masked cells of channel-major (nchan, T) data with the
@@ -166,4 +195,32 @@ def apply_mask_chan(data: torch.Tensor, cell_mask, fill,
                       cells).reshape(nchan, usable)
     if usable < T:
         out = torch.cat([out, data[:, usable:]], dim=1)
+    return out
+
+
+def apply_mask(data, cell_mask, block_len: int, chunk: int = 64,
+               device=None) -> torch.Tensor:
+    """Row-major (T, nchan) masking, on `device`, that derives the fill
+    level from the data itself (the mean of each channel's unmasked
+    block means, the block means taken `chunk` blocks at a time in
+    float32).  Small-array convenience; whole-beam callers use
+    apply_mask_chan with the mask's precomputed fill."""
+    data = as_device_tensor(data, device)
+    cell_mask = torch.as_tensor(np.asarray(cell_mask), device=data.device)
+    T, nchan = data.shape
+    nblocks = cell_mask.shape[0]
+    usable = nblocks * block_len
+    cells = data[:usable].reshape(nblocks, block_len, nchan)
+    cmeans = torch.cat([cells[b0: b0 + chunk].to(torch.float32).mean(dim=1)
+                        for b0 in range(0, nblocks, chunk)])
+    good = ~cell_mask
+    denom = torch.clamp(good.sum(dim=0), min=1)
+    fill = torch.where(good, cmeans, 0.0).sum(dim=0) / denom   # (nchan,)
+    if not data.dtype.is_floating_point:
+        fill = torch.round(fill)
+    fill = fill.to(data.dtype)
+    out = torch.where(cell_mask[:, None, :], fill[None, None, :],
+                      cells).reshape(usable, nchan)
+    if usable < T:
+        out = torch.cat([out, data[usable:]], dim=0)
     return out

@@ -1,6 +1,6 @@
 """Named per-module loggers writing to per-daemon log files —
-counterpart of tpulsar/obs/log.py (a copy of get_logger; loggers are
-named ``tpulsar_torch.<module>``).
+counterpart of tpulsar/obs/log.py (a copy of get_logger and
+OutStream; loggers are named ``tpulsar_torch.<module>``).
 
 Capability parity with the reference's OutStream (lib/python/
 OutStream.py:11-35): each subsystem gets a named logger that writes to
@@ -55,3 +55,14 @@ def get_logger(module: str, logfile: str | None = None,
         logger.addHandler(h)
     return logger
 
+
+class OutStream:
+    """Thin compatibility shim over get_logger with the reference's
+    .outs(msg) call shape."""
+
+    def __init__(self, module: str, logfn: str | None = None,
+                 screen: bool = True):
+        self.logger = get_logger(module, logfn, screen)
+
+    def outs(self, msg: str, level: int = logging.INFO) -> None:
+        self.logger.log(level, msg)
