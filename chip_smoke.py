@@ -35,6 +35,16 @@ phases:
      the bf16 plane against the f32 plane on the card, the card against
      the CPU's plain f32 on one row, the time a DM row (correlation and
      harmonic sums split) against its bound, and peak memory;
+  config 3 (cfg3_phase, after the ladder): BASELINE config 3 as
+     bench.py runs it, on phase 1's block: dedisperse_pass of 32 DM
+     trials (0-62, subdm 140, nsub 96, ds 1; both kernels also exact
+     against their plain versions at these shapes), a drifting train
+     at z 150 added, the whitened spectrum, accel_search_batch at zmax
+     200 (nz 201), 16 harmonics, topk 64: bf16 against f32, the train
+     stage 1's top cell in every row, the default zmax-50 search
+     weaker near it, the card against the CPU on 2^18 bins of a row, no
+     refusal on the ladder; the batch rows, peak memory and the time a
+     DM row against its bound;
   ladder: the hi stage's degradation ladder on that chunk
      (ladder_phase): (a) forced per-DM (TPULSAR_ACCEL_BATCH=0) against
      the batched run; (b) a ballast tensor that leaves room for one row
@@ -69,7 +79,13 @@ phases:
      went through the hi stage, and that every kernel was launched as
      often as the plan and the outcome require, and reports what the
      checkpoint cost (artifacts, bytes, seconds in store.save,
-     manifest size);
+     manifest size); then config 3 through search_beam on the same
+     beam files (cfg3_search_phase: SearchParams.from_config of a
+     SearchingConfig with hi_accel_zmax 200 and hi_accel_numharm 16,
+     plots off, one DDplan step of its 32 trials): the pulsar
+     recovered and folded, all 32 trials through the hi stage, the
+     kernels' launches as the plan and outcome require, peak memory
+     under 80 GiB, the .report's stages;
   5. resume (run after phase 7, on phase 7's shorter beam, which keeps
      the smoke inside its time limit): phase 7's solo search's
      checkpoint cut back to the state a kill after
@@ -258,6 +274,9 @@ Phases 4-7, 9 and 11-13 search with the zaplist the job picks
 under the default configuration (the packaged default.zaplist), as
 the server does.
 
+A plain version's time is that of the one call its exact comparison
+makes (no warm-up, no repeats): it is reported, not a yardstick.
+
 Output: progress lines, then the card's name and power limit, one JSON
 line {"aot": ...} (the gate's and the verify's seconds, the verify's
 hits and misses, each library's path, build seconds and fingerprint,
@@ -306,6 +325,7 @@ from tpulsar_torch import checkpoint as ckpt  # noqa: E402
 from tpulsar_torch import native  # noqa: E402
 from tpulsar_torch.aot import warmstart  # noqa: E402
 from tpulsar_torch.cli import search_job  # noqa: E402
+from tpulsar_torch.config import core as config_core  # noqa: E402
 from tpulsar_torch.io import accelcands, psrfits, synth  # noqa: E402
 from tpulsar_torch.kernels import accel  # noqa: E402
 from tpulsar_torch.kernels import accel_batch  # noqa: E402
@@ -381,6 +401,20 @@ def time_ms(fn, runs: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def once_ms(fn) -> tuple:
+    """fn's result and the milliseconds of that ONE call between CUDA
+    events, with no warm-up: the time of a plain version, taken on the
+    call that the exact comparison makes anyway (it is reported, not a
+    yardstick, so it pays for no runs of its own)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -558,15 +592,18 @@ def plan_shapes(plan, nsamp: int, params,
     return s1, s2
 
 
-def _check_stage2(subb, rows_sh, what: str) -> tuple[torch.Tensor, float]:
+def _check_stage2(subb, rows_sh, what: str
+                  ) -> tuple[torch.Tensor, float, float]:
+    """The stage-2 kernel against its plain version, exact: the
+    kernel's output, the max |err| and the plain call's ms."""
     got = cuda_dd.dedisperse_subbands(subb, rows_sh)
-    want = cuda_dd.dedisperse_subbands_plain(subb, rows_sh)
-    torch.cuda.synchronize()
+    want, plain_ms = once_ms(
+        lambda: cuda_dd.dedisperse_subbands_plain(subb, rows_sh))
     err = float((got - want).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"stage-2 kernel differs from its plain "
                              f"version at {what}: max |err| {err}")
-    return got, err
+    return got, err, plain_ms
 
 
 def _stage2_entry(subb, rows_sh, regs, ds: int, launches: int | None,
@@ -576,11 +613,10 @@ def _stage2_entry(subb, rows_sh, regs, ds: int, launches: int | None,
     launch = cuda_dd.stage2_launch(rows_sh)
     occ, smem = cuda_dd.stage2_occupancy(rows_sh)
     nreg = regs[f"dedisperse_subbands<{launch.rows} rows>"]
-    got2, err = _check_stage2(subb, rows_sh, f"{nrows} rows, ds={ds}")
+    got2, err, plain = _check_stage2(subb, rows_sh,
+                                     f"{nrows} rows, ds={ds}")
     del got2
     ms = time_ms(lambda: cuda_dd.dedisperse_subbands(subb, rows_sh))
-    plain = time_ms(lambda: cuda_dd.dedisperse_subbands_plain(
-        subb, rows_sh), runs=3)
     T = subb.shape[1]
     nbytes = (96 + nrows) * T * 4 + rows_sh.size * 4
     b, by = bound_ms(nbytes, nrows * 96 * T)
@@ -606,8 +642,8 @@ def _stage2_beams_entry(sub3, rows_sh, regs, ds: int,
     nrows, T = rows_sh.shape[0], sub3.shape[2]
     launch = cuda_dd.stage2_launch(rows_sh)
     got = cuda_dd.dedisperse_subbands_beams(sub3, rows_sh)
-    want = cuda_dd.dedisperse_subbands_beams_plain(sub3, rows_sh)
-    torch.cuda.synchronize()
+    want, plain = once_ms(
+        lambda: cuda_dd.dedisperse_subbands_beams_plain(sub3, rows_sh))
     err = float((got - want).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"stage-2 beam axis differs from its plain "
@@ -622,8 +658,6 @@ def _stage2_beams_entry(sub3, rows_sh, regs, ds: int,
                                  f"ds={ds})")
     del got
     ms = time_ms(lambda: cuda_dd.dedisperse_subbands_beams(sub3, rows_sh))
-    plain = time_ms(lambda: cuda_dd.dedisperse_subbands_beams_plain(
-        sub3, rows_sh), runs=3)
     nbytes = 2 * (96 + nrows) * T * 4 + rows_sh.size * 4
     b, by = bound_ms(nbytes, 2 * nrows * 96 * T)
     nreg = regs[f"dedisperse_subbands<{launch.rows} rows>"]
@@ -750,16 +784,14 @@ def kernel_phase(data, freqs: np.ndarray, regs: dict):
         ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, ppass.subdm, dms,
                                             TSAMP, ds)
         got = cuda_dd.form_subbands(data, ch_sh, 96, ds)
-        want = cuda_dd.form_subbands_plain(data, ch_sh, 96, ds)
-        torch.cuda.synchronize()
+        want, plain = once_ms(
+            lambda: cuda_dd.form_subbands_plain(data, ch_sh, 96, ds))
         err = float((got - want).abs().max())
         if not torch.equal(got, want):
             raise AssertionError(f"stage-1 kernel differs from its plain "
                                  f"version at ds={ds}: max |err| {err}")
         del want
         ms = time_ms(lambda: cuda_dd.form_subbands(data, ch_sh, 96, ds))
-        plain = time_ms(lambda: cuda_dd.form_subbands_plain(
-            data, ch_sh, 96, ds), runs=3)
         nbytes = NCHAN * NSAMP + 96 * (NSAMP // ds) * 4 + NCHAN * 4
         b, by = bound_ms(nbytes, NCHAN * NSAMP)
         occ, smem = cuda_dd.stage1_occupancy(NCHAN, 96, ds, torch.uint8)
@@ -1248,6 +1280,288 @@ def hi_beam_bound_ms(plan, nsamp: int) -> float:
     return total
 
 
+#: BASELINE config 3, "accelsearch zmax=200 numharm=16", as bench.py
+#: runs it: 32 DM trials from 0 at step 2 (subdm 140, nsub 96, ds 1)
+#: at full length and width, the hi stage at zmax 200 (nz 201) with 16
+#: harmonics and the top 64 cells a stage
+CFG3_DMS = np.arange(32) * 2.0
+CFG3_SUBDM, CFG3_ZMAX, CFG3_NUMHARM, CFG3_TOPK = 140.0, 200.0, 16, 64
+#: the drifting train injected into config 3's series: spectrum bin
+#: 40000 at z 150, which zmax 50 cannot reach
+CFG3_TRAIN = (40000, 150.0)
+#: the card-vs-CPU row of config 3: its first 2^18 bins (the train
+#: among them).  A whole row (1,966,081 bins, nz 201) took the H100
+#: machine's host 8.1 and 10.0 s on the CPU, more than the smoke can
+#: spend on it (PERF.md, config 3's finding).
+CFG3_CPU_BINS = 1 << 18
+#: config 3's search through search_beam: one DDplan step with its
+#: trials (DedispStep(lodm, dmstep, dms_per_pass, numpasses, numsub,
+#: downsamp)) and the operator's SearchingConfig fields
+CFG3_PLAN = [ddplan.DedispStep(0.0, 2.0, 32, 1, 96, 1)]
+CFG3_SEARCHING = dict(hi_accel_zmax=200, hi_accel_numharm=16)
+
+
+def _near_train(res: dict, h: int, row: int, r0: int,
+                span: float = 200.0) -> float:
+    """The best power of stage h's top-k cells of one row within span
+    bins of spectrum bin r0 (0 when none is that close)."""
+    v, r, _z = res[h]
+    return max((float(x) for x, y in zip(v[row], r[row])
+                if abs(0.5 * float(y) - r0) <= span), default=0.0)
+
+
+def cfg3_kernel_entries(data, ch_sh, sub_sh, regs: dict) -> list[dict]:
+    """Both kernels at config 3's shapes (stage 1 on the whole block at
+    ds 1 and subdm 140's shifts, stage 2 at 32 rows), exact against
+    their plain versions (each timed by its one comparison call), the
+    kernels timed, with their bounds."""
+    got, plain1 = once_ms(lambda: cuda_dd.form_subbands_plain(
+        data, ch_sh, 96, 1))
+    subb = cuda_dd.form_subbands(data, ch_sh, 96, 1)
+    if not torch.equal(subb, got):
+        raise AssertionError(f"config 3: stage-1 kernel differs from its "
+                             f"plain version: max |err| "
+                             f"{float((subb - got).abs().max())}")
+    del got
+    ms1 = time_ms(lambda: cuda_dd.form_subbands(data, ch_sh, 96, 1))
+    b1, by1 = bound_ms(NCHAN * NSAMP + 96 * NSAMP * 4 + NCHAN * 4,
+                       NCHAN * NSAMP)
+    series, err2, plain2 = _check_stage2(subb, sub_sh, "config 3's 32 rows")
+    del series
+    nrows = sub_sh.shape[0]
+    ms2 = time_ms(lambda: cuda_dd.dedisperse_subbands(subb, sub_sh))
+    b2, by2 = bound_ms((96 + nrows) * NSAMP * 4 + sub_sh.size * 4,
+                       nrows * 96 * NSAMP)
+    del subb
+    launch = cuda_dd.stage2_launch(sub_sh)
+    log(f"config 3 kernels: form_subbands ds=1 (subdm {CFG3_SUBDM}, max "
+        f"shift {int(ch_sh.max())}) exact, {ms1:.4f} ms, plain "
+        f"{plain1:.4f} ms (one call), bound {b1:.4f} ms ({by1}), share "
+        f"{b1 / ms1:.3f}; dedisperse_subbands {nrows} rows exact (max|err| "
+        f"{err2}), span {launch.span}, {ms2:.4f} ms, plain {plain2:.4f} ms "
+        f"(one call), bound {b2:.4f} ms ({by2}), share {b2 / ms2:.3f}, "
+        f"{regs[f'dedisperse_subbands<{launch.rows} rows>']} registers")
+    return [dict(name="form_subbands", ds=1, max_abs_err=0.0, ms=ms1,
+                 plain_ms=plain1, bound_ms=b1, bound_by=by1),
+            dict(name="dedisperse_subbands", rows=nrows, ds=1,
+                 max_abs_err=err2, ms=ms2, plain_ms=plain2, bound_ms=b2,
+                 bound_by=by2, span=launch.span)]
+
+
+def cfg3_phase(data, freqs: np.ndarray, regs: dict) -> dict:
+    """BASELINE config 3 on the card at the size bench.py gives it, on
+    phase 1's block: dedisperse_pass (both kernels, one launch each) of
+    its 32 trials at full length, a drifting train at z 150 added to
+    the series, the whitened spectrum (complex_spectrum ->
+    whitened_powers -> scale_spectrum, bench.py's composition), and
+    accel_search_batch at zmax 200, 16 harmonics, topk 64.  Checks:
+    the kernels exact at config 3's shapes; the bf16 plane against the
+    f32 plane (BF16_RULE) in every stage and row; the train stage 1's
+    top cell in every row (z 150, r within 0.5 bin); the default
+    configuration's search (zmax 50, 8 harmonics) on the same spectra
+    weaker within 200 bins of the train at stage 1; the card's f32
+    against the CPU's plain f32 on row 0's first CFG3_CPU_BINS bins,
+    the same cells, powers within 2e-4; no ladder counter of a refusal
+    moved and no degraded flag.  Reports the batch rows
+    plane_dm_chunk chose, peak memory, ms a DM row and its halves
+    against hi_row_bound_ms."""
+    t_phase = time.time()
+    ch_sh, sub_sh = dd.plan_pass_shifts(freqs, 96, CFG3_SUBDM, CFG3_DMS,
+                                        TSAMP, 1)
+    kernels = cfg3_kernel_entries(data, ch_sh, sub_sh, regs)
+    before = dict(cuda_dd.LAUNCHES)
+    series = dd.dedisperse_pass(data, freqs, 96, CFG3_SUBDM, CFG3_DMS,
+                                TSAMP, 1, device=DEV)
+    launched = {k: cuda_dd.LAUNCHES[k] - before[k] for k in SOLO_KERNELS}
+    if launched != {k: 1 for k in SOLO_KERNELS}:
+        raise AssertionError(f"config 3: dedisperse_pass launched "
+                             f"{launched}, not one of each kernel")
+    nrows = series.shape[0]
+    noise = float(series[0].std())
+    r0, z0 = CFG3_TRAIN
+    # ~300 in whitened power: A^2 T / (4 sigma^2)
+    _inject_drifting_train(series, NSAMP, r0, z0,
+                           noise * math.sqrt(1200.0 / NSAMP), nharm=1)
+    spec = fr.complex_spectrum(series)
+    del series
+    powers, wpow = fr.whitened_powers(spec)
+    wspec = fr.scale_spectrum(spec, powers, wpow)
+    del spec, powers, wpow
+    nbins = wspec.shape[1]
+    bank = accel.build_template_bank(CFG3_ZMAX)
+    nz = len(bank.zs)
+
+    def search(specs, b=bank, mh=CFG3_NUMHARM, topk=CFG3_TOPK):
+        return accel.accel_search_batch(specs, b, max_numharm=mh,
+                                        topk=topk)
+
+    accel._reset_batch_state()
+    degraded.reset()
+    c0 = _ladder_counts()
+    rows_bf = accel.plane_dm_chunk(nbins, nz, device=DEV)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res_bf, t_bf = once_ms(lambda: search(wspec))
+    peak = torch.cuda.max_memory_allocated()
+    os.environ["TPULSAR_ACCEL_PLANE_DTYPE"] = "f32"
+    try:
+        rows_f32 = accel.plane_dm_chunk(nbins, nz, device=DEV)
+        res_f32, t_f32 = once_ms(lambda: search(wspec))
+        row = wspec[:1, :CFG3_CPU_BINS].contiguous()
+        res_row = search(row)
+        t0 = time.perf_counter()
+        res_cpu = search(row.cpu())
+        cpu_s = time.perf_counter() - t0
+    finally:
+        del os.environ["TPULSAR_ACCEL_PLANE_DTYPE"]
+    bank50 = executor._get_bank(PARAMS.hi_accel_zmax)
+    res_50 = search(wspec, bank50, PARAMS.hi_accel_numharm,
+                    PARAMS.topk_per_stage)
+    moved = _delta(c0)
+    snap = (degraded.snapshot(), degraded.provenance_snapshot())
+
+    rows = range(nrows)
+    bf_worst = _rule_worst(res_bf, res_f32, rows, "config 3 bf16 vs f32")
+    tops = _top_cells(res_f32, rows)
+    for d in rows:
+        r, z, _v = tops[1, d]
+        if abs(0.5 * r - r0) > 0.5 or z != z0:
+            raise AssertionError(f"config 3: row {d}'s stage-1 top cell "
+                                 f"({0.5 * r}, {z}) is not the train "
+                                 f"({r0}, {z0})")
+    ratio = 0.0
+    for d in rows:
+        near50 = _near_train(res_50, 1, d, r0)
+        if near50 >= tops[1, d][2]:
+            raise AssertionError(f"config 3: the zmax-50 search holds "
+                                 f"{near50} within 200 bins of the train "
+                                 f"in row {d}, config 3 {tops[1, d][2]}")
+        ratio = max(ratio, near50 / tops[1, d][2])
+    near_stages = {h: round(_near_train(res_50, h, 0, r0), 3)
+                   for h in res_50}
+    cpu_worst = 0.0
+    for h in res_cpu:
+        a = sorted(zip(res_row[h][1][0], res_row[h][2][0],
+                       res_row[h][0][0]))
+        b = sorted(zip(res_cpu[h][1][0], res_cpu[h][2][0],
+                       res_cpu[h][0][0]))
+        for (ra, za, va), (rb, zb, vb) in zip(a, b):
+            if (ra, za) != (rb, zb):
+                raise AssertionError(f"config 3 card vs CPU: stage {h} "
+                                     f"cells differ: {(ra, za)} vs "
+                                     f"{(rb, zb)}")
+            cpu_worst = max(cpu_worst, abs(float(va) / float(vb) - 1.0))
+    if cpu_worst > 2e-4:
+        raise AssertionError(f"config 3 card vs CPU: powers off by "
+                             f"{cpu_worst}")
+    refused = {k: v for k, v in moved.items() if k != "trials_batched"}
+    if any(refused.values()) or snap != ({}, {}):
+        raise AssertionError(f"config 3: the ladder moved {moved}, "
+                             f"degraded {snap}")
+
+    # the two halves of a DM row, on one batch of rows_bf rows
+    bank_fft = torch.from_numpy(bank.bank_fft).to(DEV)
+    block = wspec[:rows_bf]
+
+    def corr():
+        return accel._correlate_block(block, bank_fft, bank.seg,
+                                      bank.step, bank.width, nz)
+
+    plane = corr()
+    stages = tuple(fr.harmonic_stages(CFG3_NUMHARM))
+    t_corr = time_ms(corr, runs=3)
+    t_harm = time_ms(lambda: accel._stage_topk(
+        accel._harmonic_stage_maxes(plane, stages, nz), stages,
+        CFG3_TOPK), runs=3)
+    del plane, block, bank_fft, wspec
+    row_ms = t_bf / nrows
+    bnd, by = hi_row_bound_ms(nbins, nz, bank)
+    log(f"config 3 ({nrows} trials x {nbins} bins, nz {nz}, template "
+        f"width {bank.width}, stages {list(stages)}, topk {CFG3_TOPK}): "
+        f"dedisperse_pass launches {launched}; the train (bin {r0}, z "
+        f"{z0}) is stage 1's top cell in every row; bf16 vs f32 the same "
+        f"top cells, top powers within {bf_worst:.5f} (limit "
+        f"{BF16_RULE}); the zmax-50 / {PARAMS.hi_accel_numharm}-harmonic "
+        f"search's best stage-1 power within 200 bins of the train at "
+        f"most {ratio:.4f} of config 3's (row 0, each stage: "
+        f"{near_stages}; config 3's row-0 tops "
+        f"{ {h: round(tops[h, 0][2], 3) for h in stages} })")
+    log(f"config 3 card f32 vs CPU plain f32 (row 0's first "
+        f"{CFG3_CPU_BINS} bins, a cut of the {nbins}): the same "
+        f"{CFG3_TOPK} cells in every stage, powers within "
+        f"{cpu_worst:.2e} (limit 2e-4); the CPU's cut row {cpu_s:.3f} s")
+    log(f"config 3 time: bf16 {t_bf:.3f} ms for {nrows} rows (the "
+        f"checked call), {row_ms:.4f} ms a DM row; f32 {t_f32:.3f} ms; "
+        f"plane_dm_chunk {rows_bf} row(s) a batch (bf16), {rows_f32} "
+        f"(f32); one batch: correlation {t_corr / rows_bf:.4f} ms a row, "
+        f"harmonic sums + top-k {t_harm / rows_bf:.4f} ms a row; bound "
+        f"{bnd:.4f} ms a row ({by}), share {bnd / row_ms:.4f}; peak "
+        f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+        f"above the {base / 2**30:.3f} GiB held before); ladder "
+        f"{moved}, no refusal; {card_line()}; phase "
+        f"{time.time() - t_phase:.1f} s")
+    return dict(row_ms=row_ms, corr_row_ms=t_corr / rows_bf,
+                harm_row_ms=t_harm / rows_bf, f32_ms=t_f32, bf16_ms=t_bf,
+                bound_row_ms=bnd, bound_by=by, batch_rows=rows_bf,
+                batch_rows_f32=rows_f32, peak_bytes=peak,
+                peak_above_bytes=peak - base, bf16_worst=bf_worst,
+                cpu_worst=cpu_worst, cpu_row_s=cpu_s,
+                zmax50_ratio=ratio, launches=launched, kernels=kernels,
+                wall_s=time.time() - t_phase)
+
+
+def cfg3_search_phase(fns: list[str], tmp: str, nsamp: int) -> dict:
+    """Config 3 through search_beam, the entry point a user calls, on
+    phase 4's beam files: SearchParams.from_config of a SearchingConfig
+    with hi_accel_zmax 200 and hi_accel_numharm 16 (plots off), one
+    DDplan step of config 3's 32 trials.  Checks the pulsar recovered
+    and folded, every trial through the hi stage with no degraded flag,
+    each kernel launched as often as the plan and the outcome require
+    (at least once), peak memory below 80 GiB; prints the wall and the
+    .report's stages."""
+    params = dataclasses.replace(
+        executor.SearchParams.from_config(
+            config_core.SearchingConfig(**CFG3_SEARCHING)),
+        make_plots=False)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_dd.reset_counts()
+    t0 = time.time()
+    out = executor.search_beam(
+        fns, os.path.join(tmp, "cfg3_work"),
+        os.path.join(tmp, "cfg3_results"), params, zaplist=ZAPLIST,
+        plan=CFG3_PLAN, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: cuda_dd.LAUNCHES[k] for k in SOLO_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    n1, n2 = expected_launches(CFG3_PLAN, nsamp, out, params)
+    want = {"form_subbands": sum(n1.values()),
+            "dedisperse_subbands": sum(n2.values())}
+    if launches != want or min(launches.values()) < 1:
+        raise AssertionError(f"config 3 search: launches {launches}, "
+                             f"expected {want}")
+    chunk = executor.pass_chunk_size(32, ddplan.choose_n(nsamp), params)
+    check_hi_stage(32)
+    check_pulsar(out.resultsdir, out.basenm, "config 3 search")
+    if peak >= 80 * 2**30:
+        raise AssertionError(f"config 3 search: peak device memory "
+                             f"{peak / 2**30:.3f} GiB")
+    stages = report_stages(os.path.join(out.resultsdir,
+                                        f"{out.basenm}.report"))
+    log(f"config 3 search: search_beam (SearchingConfig "
+        f"{CFG3_SEARCHING}, plots off; plan {CFG3_PLAN[0]}) wall "
+        f"{wall:.3f} s on {nsamp} samples; {out.num_dm_trials} trials in "
+        f"chunks of {chunk}; launches {launches} (expected: stage 1 "
+        f"{dict(n1)}, stage 2 {dict(n2)}); peak device memory "
+        f"{peak / 2**30:.3f} GiB; {len(out.candidates)} candidates, "
+        f"{len(out.folded)} folded, {len(out.refined_dms)} DM groups "
+        f"refined")
+    log("config 3 search .report stages: " + json.dumps(stages))
+    return dict(wall_s=wall, launches=launches, n1=n1, n2=n2,
+                peak_bytes=peak, stages=stages, chunk=chunk,
+                nsamp=nsamp)
+
+
 #: the tree phase's level budgets: the default (TPULSAR_TREE_BUDGET
 #: unset) and one that lets the full-width tree keep its levels
 TREE_BUDGETS = (None, 16 << 30)
@@ -1420,7 +1734,7 @@ def small_parity_phase() -> None:
         f"vs {len(c[1])} folds")
 
 
-def expected_launches(plan, nsamp: int, out,
+def expected_launches(plan, nsamp: int, out, params=None,
                       first_pass: int = 0) -> tuple[dict, dict]:
     """Stage-1 launches by downsample and stage-2 launches by shape
     that a search computing the passes from first_pass on must make:
@@ -1428,7 +1742,7 @@ def expected_launches(plan, nsamp: int, out,
     one row per DM group refined, and one stage 1 per originating pass
     of the folded candidates (folded[k] is the fold of
     candidates[k])."""
-    n1, n2 = plan_shapes(plan, nsamp, PARAMS, first_pass)
+    n1, n2 = plan_shapes(plan, nsamp, params or PARAMS, first_pass)
     n1 = dict(n1)
     nref = len(out.refined_dms)
     n1[1] = n1.get(1, 0) + nref
@@ -1699,7 +2013,7 @@ def resume_phase(fns: list[str], tmp: str, nsamp: int, plan,
     if metrics["tpulsar_dm_trials_total"]["series"][""] != trials:
         raise AssertionError("phase 5 searched another trial count")
     check_hi_stage(trials)
-    n1, n2 = expected_launches(plan, nsamp, out, K_RESUME)
+    n1, n2 = expected_launches(plan, nsamp, out, first_pass=K_RESUME)
     exp1, exp2 = sum(n1.values()), sum(n2.values())
     s1, s2 = (sum(n.values())
               for n in plan_shapes(plan, nsamp, PARAMS, K_RESUME))
@@ -3052,7 +3366,7 @@ def pipeline_phase(tmp: str, plan, p7: dict) -> dict:
         refined_dms=a2["refined_dms"],
         candidates=[types.SimpleNamespace(dm=d) for d in a2["fold_dms"]],
         folded=a2["fold_dms"])
-    n1, n2 = expected_launches(plan, nsamp, outcome, first)
+    n1, n2 = expected_launches(plan, nsamp, outcome, first_pass=first)
     want = {"form_subbands": sum(n1.values()),
             "dedisperse_subbands": sum(n2.values())}
     got = {k: a2["launches"].get(k, 0) for k in want}
@@ -3532,15 +3846,14 @@ def stream_phase() -> dict:
     window[:, :need] = data[:, :need]
     win = torch.from_numpy(window).to(DEV)
     out = dd.dedisperse_stream_step(win, sd2.shifts, cl)
-    ref = cuda_dd.dedisperse_subbands_plain(win, sd2.shifts)[:, :cl]
+    ref, plain_ms = once_ms(lambda: cuda_dd.dedisperse_subbands_plain(
+        win, sd2.shifts)[:, :cl])
     err = float((out - ref).abs().max())
     if not torch.equal(out, ref):
         raise AssertionError(f"phase 8: an emission differs from its "
                              f"plain version by {err}")
     del ref
     ms = time_ms(lambda: dd.dedisperse_stream_step(win, sd2.shifts, cl))
-    plain_ms = time_ms(lambda: cuda_dd.dedisperse_subbands_plain(
-        win, sd2.shifts)[:, :cl], runs=1)
     # the emission's function: chunk_len columns of ndms sums over
     # nchan channels (the kernel computes all W columns, twice that)
     nops = float(ndms) * nchan * cl
@@ -4089,10 +4402,11 @@ def dd_local_entries(data, freqs, dt: float, nsub: int, plan,
     (mesh_chunks), each chunk's table split over the shards.  Every
     launch is torch.equal to the plain version and to the solo launch
     of the padded table at the same rows; the pass's launches are
-    timed as one sequence against their plain versions, one solo
-    launch of the pass's table and the bound (the subbands read once,
-    every launched row written once).  Each entry carries the launches
-    of its step on the beam (its passes' chunks times the shards)."""
+    timed as one sequence against one solo launch of the pass's table
+    and the bound (the subbands read once, every launched row written
+    once), their plain versions by the comparison's own calls.  Each
+    entry carries the launches of its step on the beam (its passes'
+    chunks times the shards)."""
     from tpulsar_torch.parallel import mesh as pmesh
 
     entries = []
@@ -4121,17 +4435,17 @@ def dd_local_entries(data, freqs, dt: float, nsub: int, plan,
             raise AssertionError(f"phase 13 (c): ds {step.downsamp}: "
                                  f"{n_c} launches for {len(tables)} "
                                  f"shard tables")
-        for k, (out, t, f) in enumerate(zip(got, tables, firsts)):
+        plains, plain_ms = once_ms(lambda: [
+            cuda_dd.dedisperse_subbands_plain(subb, t) for t in tables])
+        for k, (out, want, f) in enumerate(zip(got, plains, firsts)):
             if not torch.equal(out, solo[f:f + rows]) or not torch.equal(
-                    out, cuda_dd.dedisperse_subbands_plain(subb, t)):
+                    out, want):
                 raise AssertionError(
                     f"phase 13 (c): ds {step.downsamp} launch {k} (rows "
                     f"{f}..{f + rows - 1}) differs from the solo launch "
                     f"or the plain version")
-        del got, solo
+        del got, solo, plains
         ms = time_ms(lambda: [pmesh._dd_local(subb, t) for t in tables])
-        plain_ms = time_ms(lambda: [cuda_dd.dedisperse_subbands_plain(
-            subb, t) for t in tables], runs=2)
         solo_ms = time_ms(lambda: cuda_dd.dedisperse_subbands(subb,
                                                               sub_shifts))
         nrows = len(tables) * rows
@@ -4444,6 +4758,8 @@ def slice_phase(nsamp: int) -> dict:
         plan = ddplan.survey_plan("pdev")
         mark("phase 4: the full beam")
         p4.update(main_path_phase(fns, tmp, nsamp, plan))
+        mark("phase 4: config 3 search (phase 4's beam)")
+        p4["cfg3"] = cfg3_search_phase(fns, tmp, nsamp)
         mark("phase 7: batch")
         p4["batch"] = p7 = batch_phase(tmp, plan)
         mark("read (phase 7's beam)")
@@ -4548,6 +4864,10 @@ def main() -> None:
     ladder = ladder_phase(hi)
     del hi
     log("ladder: " + json.dumps(ladder))
+    mark("phase 2: config 3")
+    cfg3 = cfg3_phase(data, freqs, regs)
+    log("config 3: " + json.dumps(
+        {k: v for k, v in cfg3.items() if k != "kernels"}))
     mark("tree")
     tree_phase(data, freqs)
     del data
@@ -4591,7 +4911,20 @@ def main() -> None:
         r["launches_cli"] = res["ops"]["launches"].get(name, 0)
         solo_paths = ("launches", "launches_resumed", "launches_served",
                       "launches_batch", "launches_pipeline",
-                      "launches_chaos", "launches_cli", "launches_mesh")
+                      "launches_chaos", "launches_cli", "launches_mesh",
+                      "launches_cfg3", "launches_cfg3_focused")
+        if name in SOLO_KERNELS:
+            # config 3: search_beam on phase 4's beam (phase 4's config
+            # 3 search) and phase 2's dedisperse_pass of its 32 trials;
+            # the kernel at config 3's shape with its launches there
+            s3 = res["cfg3"]
+            r["launches_cfg3"] = s3["launches"][name]
+            r["launches_cfg3_focused"] = cfg3["launches"][name]
+            entry, = [dict(k) for k in cfg3["kernels"] if k["name"] == name]
+            entry["launches"] = (s3["n1"].get(1, 0)
+                                 if name == "form_subbands" else
+                                 s3["n2"].get((entry["rows"], 1), 0))
+            r["cfg3"] = entry
         if name == "dedisperse_subbands":
             r["launches"] = res["launches"][name]
             paths = solo_paths + ("launches_stream",)

@@ -48,7 +48,7 @@ def _bank(zmax=8.0, seg=1 << 11):
 
 
 @pytest.mark.parametrize("zmax, seg", [(8.0, 1 << 11), (16.0, 1 << 11),
-                                       (50.0, 1 << 13)])
+                                       (50.0, 1 << 13), (200.0, 1 << 13)])
 def test_template_bank_is_equal(zmax, seg):
     jb, tb = _bank(zmax, seg)
     assert tb.zs == jb.zs and tb.width == jb.width
