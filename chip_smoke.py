@@ -65,8 +65,9 @@ phases:
   3. small parity: the zero-accel configuration and the default
      configuration (with an accelerated pulsar) on a small block, on
      the card and on the CPU;
-  read (run after phase 7, on phase 7's shorter beam, which keeps the
-     smoke inside its time limit): the beam read by read_all_uint8
+  read (run beside phase 7's server, on phase 7's shorter beam, which
+     keeps the smoke inside its time limit): the beam read by
+     read_all_uint8
      through the native unpack and through the NumPy unpack,
      byte-identical, with the read times;
   4. the main path: one full-geometry PALFA Mock beam (960 channels,
@@ -86,8 +87,9 @@ phases:
      recovered and folded, all 32 trials through the hi stage, the
      kernels' launches as the plan and outcome require, peak memory
      under 80 GiB, the .report's stages;
-  5. resume (run after phase 7, on phase 7's shorter beam, which keeps
-     the smoke inside its time limit): phase 7's solo search's
+  5. resume (run beside phase 7's server, on phase 7's shorter beam,
+     which keeps the smoke inside its time limit): phase 7's solo
+     search's
      checkpoint cut back to the state a kill after
      pass K_RESUME - 1 leaves (pass artifacts >= K_RESUME, the sifted
      list and the folds dropped) in a new output directory, and the
@@ -127,14 +129,15 @@ phases:
      plan), searched solo by search_beam with a checkpoint directory,
      then two tickets for it into two output directories, answered by
      `python -m tpulsar_torch serve --once --batch 2` in a subprocess
-     on the card (the same wrapper).  It checks that both are done on
+     on the card (the same wrapper), while the read and phase 5 run in
+     this process beside it.  It checks that both are done on
      the batched path in one batch_dispatch event, warm, that both
      results directories and both checkpoints' artifacts equal the
      solo search's, the pulsar in both, and that stage 1 launched once
      a pass for the group and stage 2's beam axis once a chunk.
   8. stream: the streaming plane (tpulsar_torch/stream/) on a Mock
      real-time session (960 channels, 65.476 us, 1024 DMs over 0-1000,
-     12 chunks of 16384 samples, spans of 4 chunks; seeded noise and
+     8 chunks of 16384 samples, spans of 4 chunks; seeded noise and
      one dispersed pulse at DM 300).  In process: the chunks through
      StreamDedisp on the card, the concatenated series torch.equal to
      dedisperse_stream_batch and to the plain stage 2 over the block,
@@ -155,9 +158,9 @@ phases:
      cleaned, the triggers read back through
      `GET /v1/stream/<s>/triggers` with the control's digest.
 
-  9. pipeline (run after phase 11, on phase 7's shorter beam, which
-     keeps the smoke inside its time limit; held against its solo
-     search): the
+  9. pipeline (run after phase 11, beside phase 12's `search`, on
+     phase 7's shorter beam, which keeps the smoke inside its time
+     limit; held against its solo search): the
      orchestration daemons, each a `python -m tpulsar_torch`
      subprocess under one configuration file (TPULSAR_CONFIG: the
      tracker DB, download.datadir, the results directory and DB, the
@@ -193,10 +196,10 @@ phases:
      ChaosRunner in this process runs a FleetController with two
      `python -m tpulsar_torch serve` workers on the card (the runner's
      own command line through the smoke's wrapper) behind the gateway
-     on a sqlite queue in the spool, two tickets for the beam under
-     a tenant cap, a spool.io fault window on w1 (t = 2-40 s), a
-     gateway restart (8 s), w0 SIGKILLed (20 s) and a janitor pause
-     (30 s).  w1 is held after its boot until w0 has claimed a ticket.
+     on a sqlite queue in the spool, one ticket for the beam under a
+     tenant cap, a spool.io fault window on w1 (t = 2-40 s), a gateway
+     restart (8 s), w0 SIGKILLed (20 s) and a janitor pause (30 s).
+     w1 is held after its boot until w0 has claimed the ticket.
      It checks that the storm quiesced, the port's invariant verifier
      (no violation) in process and as `chaos verify` (exit 0), `chaos
      report`'s MTTR of the kill, each ticket done once, a takeover of
@@ -213,18 +216,24 @@ phases:
      the doctor's alert_fired for takeover_rate and alerts.json, GET
      /v1/alerts through a token'd gateway, `doctor --queue` (exit 1,
      naming the rule), `fleet --status` and the node probe `doctor`'s
-     device probe; every results directory's checkpoint cleaned.  Then
+     device probe (run beside the storm: it reads nothing of it);
+     every results directory's checkpoint cleaned.  Then
      the packaged ci_smoke scenario (stub workers) through `chaos run`
      and `chaos verify` as subprocesses.
 
-  12. operator surface (run after phase 9, on phase 7's beam, held
+  12. operator surface (its `search` started after phase 11 and run
+     beside phase 9, the rest after phase 9; on phase 7's beam, held
      against its solo search): `python -m tpulsar_torch search <beam>
      --outdir D` in a subprocess on the card with TPULSAR_TRACE=1 and
      TPULSAR_PROFILE=<tmp>/ops_profile (through the same wrapper: plots
      off, the cleaned checkpoint kept, launches counted from the
-     process start): exit 0, the results equal to phase 7's solo
+     process start), D holding phase 7's solo search's checkpoint cut
+     back to pass K_RESUME as phase 5 cuts it (the job resumes there,
+     and the profile records the passes it computes): exit 0, passes
+     K_RESUME..56 computed, the results equal to phase 7's solo
      search's with the trace file set aside, the pulsar folded, both
-     kernels launched as often as there; one torch profiler trace in
+     kernels launched as expected_launches gives; one torch profiler
+     trace in
      the profile directory, holding the search_block range and as many
      dedisperse_kernel and form_subbands_kernel events as the wrappers
      counted (check_profile).  Then
@@ -251,10 +260,11 @@ phases:
      set and trial count, the pulsar folded, no degraded flag (the hi
      stage ran sharded), each kernel launched as often as the plan
      gives (mesh_launches), peak memory within 10% of the solo's;
-     (b) search_block over the plan's first step (ds 1) with
-     seq_shard "on" (time shards, ring halo, all_to_all) and a
-     checkpoint directory, its 28 pass artifacts equal by that rule to
-     (a)'s, which are DM-sharded ("auto" shards no pass of this beam by
+     (b) search_block over the first MESH_SEQ_PASSES (8) passes of the
+     plan's first step (ds 1) with seq_shard "on" (time shards, ring
+     halo, all_to_all) and a checkpoint directory, their artifacts
+     equal by that rule to (a)'s, which are DM-sharded ("auto" shards
+     no pass of this beam by
      time), every chunk through the seq route (seq_dedisperse, no
      _dd_local, no fallback warning), and seq_dedisperse of pass 0
      torch.equal to one solo stage-2 launch; (c) _dd_local, the
@@ -289,6 +299,7 @@ it imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gzip
@@ -2118,13 +2129,12 @@ finally:
 """
 
 
-def run_server(tmp: str, name: str, tickets: dict, args=()) -> dict:
+def start_server(tmp: str, name: str, tickets: dict, args=()) -> dict:
     """Write the tickets ({tid: (files, outdir)}, in order) to a spool
-    and answer them with `python -m tpulsar_torch serve --once ARGS`
-    in a subprocess on the card, through SERVE_WRAPPER, with the
-    default configuration and every path under tmp.  Returns the
-    spool, the result records, the wrapper's counts, the server
-    process's wall time and its log."""
+    and start `python -m tpulsar_torch serve --once ARGS` on them in a
+    subprocess on the card, through SERVE_WRAPPER, with the default
+    configuration and every path under tmp; finish_server waits for
+    it."""
     from tpulsar_torch.serve import protocol
 
     srv = server_setup(tmp, name)
@@ -2132,18 +2142,34 @@ def run_server(tmp: str, name: str, tickets: dict, args=()) -> dict:
         protocol.write_ticket(srv["spool"], tid, files, outdir)
         time.sleep(0.01)                  # FIFO by submission time
     torch.cuda.empty_cache()
-    t0 = time.time()
-    with open(srv["log"], "w") as logf:
-        rc = subprocess.run(srv["cmd"] + list(args), env=srv["env"],
-                            stdout=logf, stderr=subprocess.STDOUT,
-                            timeout=900).returncode
-    wall = time.time() - t0
+    logf = open(srv["log"], "w")
+    proc = subprocess.Popen(srv["cmd"] + list(args), env=srv["env"],
+                            stdout=logf, stderr=subprocess.STDOUT)
+    return dict(srv=srv, proc=proc, logf=logf, t0=time.time(),
+                tickets=list(tickets))
+
+
+def finish_server(run: dict) -> dict:
+    """Wait for start_server's server (900 s at most from its start).
+    Returns the spool, the result records, the wrapper's counts, the
+    server process's wall time and its log."""
+    from tpulsar_torch.serve import protocol
+
+    srv, proc = run["srv"], run["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, run["t0"] + 900 - time.time()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        run["logf"].close()
+    wall = time.time() - run["t0"]
     counts = server_counts(srv, rc)
     with open(srv["hb"]) as fh:
         beat = json.load(fh)
     return dict(spool=srv["spool"], wall_s=wall, counts=counts, beat=beat,
                 recs={t: protocol.read_result(srv["spool"], t)
-                      for t in tickets})
+                      for t in run["tickets"]})
 
 
 def server_setup(tmp: str, name: str) -> dict:
@@ -2507,13 +2533,12 @@ def write_beam(outdir: str, nsamp: int) -> list[str]:
     return fns
 
 
-def batch_phase(tmp: str, plan) -> dict:
-    """Phase 7: `serve --once --batch 2` answers two tickets for a
-    beam of BATCH_NSAMP samples as one coalesced group in a subprocess
-    on the card, held against a solo search_beam of the same beam
-    (with a checkpoint directory) searched in this phase."""
-    from tpulsar_torch.obs import journal
-
+def batch_start(tmp: str, plan) -> dict:
+    """Phase 7's start: a beam of BATCH_NSAMP samples, its solo
+    search_beam (with a checkpoint directory), then `serve --once
+    --batch 2` started on two tickets for it (start_server);
+    batch_finish waits for the server and holds its group against the
+    solo search."""
     nsamp = BATCH_NSAMP
     qtmp = os.path.join(tmp, "batch")
     log(f"phase 7: a beam of {nsamp} samples (NSAMP / 4; channels, "
@@ -2521,9 +2546,21 @@ def batch_phase(tmp: str, plan) -> dict:
     fns = write_beam(os.path.join(qtmp, "beam"), nsamp)
     solo = main_path_phase(fns, qtmp, nsamp, plan, what="phase 7 solo")
     outs = {t: os.path.join(qtmp, f"batch_{t}") for t in ("b0", "b1")}
-    run = run_server(qtmp, "batch",
-                     {t: (fns, o) for t, o in outs.items()},
-                     args=("--batch", "2"))
+    server = start_server(qtmp, "batch",
+                          {t: (fns, o) for t, o in outs.items()},
+                          args=("--batch", "2"))
+    return dict(nsamp=nsamp, fns=fns, solo=solo, outs=outs,
+                server=server)
+
+
+def batch_finish(p7: dict, plan) -> dict:
+    """Phase 7: `serve --once --batch 2` (batch_start's server) answers
+    the two tickets as one coalesced group in a subprocess on the
+    card, held against the solo search_beam of the same beam."""
+    from tpulsar_torch.obs import journal
+
+    nsamp, fns, solo, outs = p7["nsamp"], p7["fns"], p7["solo"], p7["outs"]
+    run = finish_server(p7["server"])
     spool, recs, counts = run["spool"], run["recs"], run["counts"]
     for t, r in recs.items():
         if r is None or r["status"] != "done":
@@ -2636,16 +2673,17 @@ class DeviceMemoryPeak:
 
 #: phase 11's storm: the JAX package's serve worker kind, two workers
 #: on a sqlite queue in the spool behind the gateway, a tenant cap,
-#: two quarter beams (cut from three to keep the smoke inside its time
-#: limit), and the timeline's four failures (its datafiles are phase 7's beam).
-#: duration_s and quiesce_timeout_s leave room for the beams on two
+#: one beam (phase 7's; cut from three, then two, to keep the smoke
+#: inside its time limit: w0 claims it and is killed mid-beam, so it is
+#: the takeover's victim), and the timeline's four failures.
+#: duration_s and quiesce_timeout_s leave room for the beam on two
 #: workers and w0's restart
 CHAOS_SCENARIO = {
     "name": "serve-storm", "seed": 11, "duration_s": 600.0,
     "workers": 2, "worker_kind": "serve", "gateway": True,
     "queue_url": "sqlite", "max_attempts": 3,
     "tenants": {"survey": {"max_inflight": 3}},
-    "workload": {"beams": 2, "via": "gateway", "tenant": "survey",
+    "workload": {"beams": 1, "via": "gateway", "tenant": "survey",
                  "interval_s": 0.25},
     "timeline": [
         {"t": 2.0, "action": "set_faults", "worker": "w1", "until": 40.0,
@@ -2668,8 +2706,20 @@ def _pass_launches(plan, nsamp: int, passes) -> dict:
     return out
 
 
+def fleet_cli(srv: dict, *args) -> tuple[subprocess.CompletedProcess,
+                                          float]:
+    """`python -m tpulsar_torch --config <phase 11's> ARGS` in a
+    subprocess, and its seconds."""
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "tpulsar_torch", "--config", srv["cfg"],
+         *args], env=srv["env"], capture_output=True, text=True,
+        timeout=300)
+    return res, time.time() - t0
+
+
 def fleet_checks(srv: dict, spool: str, queue_url: str, t_kill: float,
-                 beams: int) -> dict:
+                 beams: int, probe) -> dict:
     """The fleet's own records and its hosted health doctor after phase
     11's storm (these were phase 10's checks, folded into the storm):
     fleet.json (stopped, every beam done, w0 restarted after its
@@ -2678,8 +2728,9 @@ def fleet_checks(srv: dict, spool: str, queue_url: str, t_kill: float,
     alert_fired event and alerts.json, GET /v1/alerts through a
     token'd gateway, `doctor --queue` (exit 1, naming the rule),
     `fleet --status` and the node probe `doctor` (its device probe
-    ok).  Returns the alert's latency after the kill and the CLI
-    calls' seconds."""
+    ok; `probe` is the future of its fleet_cli call, which reads
+    nothing of the storm and runs beside it).  Returns the alert's
+    latency after the kill and the CLI calls' seconds."""
     from tpulsar_torch.fleet import controller as fleet_ctl
     from tpulsar_torch.obs import health, journal
 
@@ -2725,27 +2776,19 @@ def fleet_checks(srv: dict, spool: str, queue_url: str, t_kill: float,
             {a["rule"] for a in body.get("alerts", [])}:
         raise AssertionError(f"phase 11: GET /v1/alerts {code} {body}")
 
-    def cli(*args):
-        t0 = time.time()
-        res = subprocess.run(
-            [sys.executable, "-m", "tpulsar_torch", "--config", srv["cfg"],
-             *args], env=srv["env"], capture_output=True, text=True,
-            timeout=300)
-        return res, time.time() - t0
-
-    res, doctor_s = cli("doctor", "--queue", queue_url)
+    res, doctor_s = fleet_cli(srv, "doctor", "--queue", queue_url)
     if res.returncode != 1 or "takeover_rate" not in res.stdout:
         raise AssertionError(f"phase 11: doctor --queue exited "
                              f"{res.returncode}: {res.stdout[-2000:]}"
                              f"{res.stderr[-2000:]}")
-    res, status_s = cli("fleet", "--status", "--spool", spool, "--queue",
-                        queue_url)
+    res, status_s = fleet_cli(srv, "fleet", "--status", "--spool", spool,
+                              "--queue", queue_url)
     if res.returncode != 0 or " stopped (fleet.json" not in res.stdout:
         raise AssertionError(f"phase 11: fleet --status exited "
                              f"{res.returncode}: {res.stdout[-2000:]}")
     for line in res.stdout.strip().splitlines():
         log(f"  fleet --status: {line}")
-    res, probe_s = cli("doctor")
+    res, probe_s = probe.result()
     probe = next((ln for ln in res.stdout.splitlines()
                   if "device probe" in ln), "")
     if "[ok] device probe" not in probe:
@@ -2843,6 +2886,11 @@ def chaos_phase(tmp: str, plan, p7: dict) -> dict:
     t_phase = time.time()
     releaser = threading.Thread(target=release_w1, daemon=True)
     releaser.start()
+    # the node probe `doctor` reads nothing of the storm: it runs beside
+    # it, and fleet_checks reads its result
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    probe = pool.submit(fleet_cli, srv, "doctor")
+    pool.shutdown(wait=False)
     try:
         with DeviceMemoryPeak() as mem:
             manifest = r.run()
@@ -2914,7 +2962,8 @@ def chaos_phase(tmp: str, plan, p7: dict) -> dict:
               and e.get("from_worker") == "w0"]
     if not steals:
         raise AssertionError("phase 11: no takeover of a claim of w0's")
-    fleet = fleet_checks(srv, spool, queue_url, t_kill, len(tickets))
+    fleet = fleet_checks(srv, spool, queue_url, t_kill, len(tickets),
+                         probe)
     for t in tickets:
         rec = q.read_result(t)
         chain = [e for e in evs if e.get("ticket") == t]
@@ -3498,7 +3547,7 @@ def results_db_rows(path: str) -> dict:
 STREAM_GEOM = {"nchan": NCHAN, "dt": TSAMP, "f_lo_mhz": 1214.36,
                "f_hi_mhz": 1536.64, "ndms": 1024, "dm_max": 1000.0,
                "chunk_len": 16384, "span_chunks": 4}
-STREAM_CHUNKS = 12
+STREAM_CHUNKS = 8
 #: the dispersed pulse of phase 8's chunks (sample of its arrival at
 #: the top of the band, DM, amplitude a channel in noise units), and
 #: the seq the served sessions leave out as a gap
@@ -4114,15 +4163,43 @@ def finish_profile_check(proc, what: str) -> dict:
     return json.loads(out.strip().splitlines()[-1])
 
 
-def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
-    """Phase 12: the operator surface.  `python -m tpulsar_torch search`
-    in a subprocess on the card over phase 7's beam, with TPULSAR_TRACE=1
-    (and no TPULSAR_TRACE_SYNC), through SERVE_WRAPPER: exit 0, results
+def ops_search_start(tmp: str, p7: dict) -> dict:
+    """Phase 12's `python -m tpulsar_torch search`, started in a
+    subprocess on the card over phase 7's beam, with TPULSAR_TRACE=1
+    (and no TPULSAR_TRACE_SYNC) and TPULSAR_PROFILE set to a directory
+    outside the outdir, through SERVE_WRAPPER, into an output
+    directory holding phase 7's solo search's checkpoint cut back to
+    pass K_RESUME (truncate_checkpoint), so that the job resumes there
+    and the profile records the passes it computes.  It reads the beam
+    and that checkpoint only; ops_phase waits for it."""
+    solo = p7["solo"]
+    srv = server_setup(tmp, "ops")
+    out = os.path.join(tmp, "ops_search")
+    shutil.copytree(solo["ckdir"], ckpt.default_root(out))
+    truncate_checkpoint(ckpt.default_root(out), K_RESUME)
+    # the profile goes outside the results directory
+    prof_dir = os.path.join(tmp, "ops_profile")
+    env = dict(srv["env"], TPULSAR_TRACE="1", TPULSAR_PROFILE=prof_dir)
+    env.pop("TPULSAR_TRACE_SYNC", None)
+    cmd = [sys.executable, "-c", SERVE_WRAPPER, "--config", srv["cfg"],
+           "search", *p7["fns"], "--outdir", out]
+    torch.cuda.empty_cache()
+    logs = [open(os.path.join(tmp, f"ops_search.{k}"), "w+")
+            for k in ("out", "err")]
+    proc = subprocess.Popen(cmd, env=env, stdout=logs[0], stderr=logs[1])
+    return dict(srv=srv, out=out, prof_dir=prof_dir, proc=proc,
+                logs=logs, t0=time.time())
+
+
+def ops_phase(tmp: str, plan, p7: dict, chaos: dict, started: dict
+              ) -> dict:
+    """Phase 12: the operator surface.  The `search` ops_search_start
+    started: exit 0, passes K_RESUME.. computed (metrics.json), results
     equal to phase 7's solo search's (the trace file set aside), the
-    pulsar folded, both kernels launched as often as phase 7's solo
-    search; with TPULSAR_PROFILE set to a directory outside the outdir,
-    whose trace the returned profile_check (start_profile_check)
-    checks beside phase 13.  Then, in this process: `trace` and
+    pulsar folded, both kernels launched as expected_launches gives for
+    those passes; its profile directory's trace is checked by the
+    returned profile_check (start_profile_check) beside phase 13.
+    Then, in this process: `trace` and
     tools/torch_trace_summarize.py --compare-report over its output,
     `plan` of the beam (the 57-pass Mock survey plan), `checkpoint
     [--verify]` of the checkpoint the job cleaned (and of a copy with
@@ -4133,32 +4210,28 @@ def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
     from tpulsar_torch.obs import trace as trace_lib
 
     fns, solo = p7["fns"], p7["solo"]
-    t_phase = time.time()
-    srv = server_setup(tmp, "ops")
-    out = os.path.join(tmp, "ops_search")
-    # the profile goes outside the results directory
-    prof_dir = os.path.join(tmp, "ops_profile")
-    env = dict(srv["env"], TPULSAR_TRACE="1", TPULSAR_PROFILE=prof_dir)
-    env.pop("TPULSAR_TRACE_SYNC", None)
-    cmd = [sys.executable, "-c", SERVE_WRAPPER, "--config", srv["cfg"],
-           "search", *fns, "--outdir", out]
-    torch.cuda.empty_cache()
-    t0 = time.time()
+    srv, out, proc = started["srv"], started["out"], started["proc"]
     try:
-        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                             timeout=OPS_SEARCH_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        raise AssertionError(
-            f"phase 12: `search` did not end within "
-            f"{OPS_SEARCH_TIMEOUT_S} s:\n{(e.stdout or '')[-3000:]}"
-            f"\n{(e.stderr or '')[-3000:]}") from None
-    wall = time.time() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"phase 12: `search` exited "
-                             f"{res.returncode}:\n{res.stdout[-3000:]}\n"
-                             f"{res.stderr[-3000:]}")
+        rc = proc.wait(timeout=max(1.0, started["t0"]
+                                   + OPS_SEARCH_TIMEOUT_S - time.time()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    t_phase = time.time()
+    text = []
+    for fh in started["logs"]:
+        fh.seek(0)
+        text.append(fh.read()[-3000:])
+        fh.close()
+    if rc != 0:
+        raise AssertionError(f"phase 12: `search` exited {rc} (None: not "
+                             f"within {OPS_SEARCH_TIMEOUT_S} s):\n"
+                             + "\n".join(text))
     with open(srv["counts"]) as fh:
         counts = json.load(fh)
+    # the command's wall, from its start to the wrapper's exit record
+    wall = counts["t_end"] - started["t0"]
     launches = counts["served"]
     base = solo["basenm"]
     trace_name = f"{base}_trace.json"
@@ -4176,18 +4249,27 @@ def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
                              "differ from phase 7's solo search's: "
                              + "; ".join(problems[:10]))
     check_pulsar(out, base, "phase 12")
-    want = {k: solo["launches"][k] for k in SOLO_KERNELS}
+    npass = sum(s.numpasses for s in plan)
+    with open(os.path.join(out, "metrics.json")) as fh:
+        passes = json.load(fh)["tpulsar_passes_total"]["series"][""]
+    if passes != npass - K_RESUME:
+        raise AssertionError(f"phase 12: `search` computed {passes} "
+                             f"passes, expected {npass - K_RESUME}")
+    n1, n2 = expected_launches(plan, p7["nsamp"], solo["outcome"],
+                               first_pass=K_RESUME)
+    want = {"form_subbands": sum(n1.values()),
+            "dedisperse_subbands": sum(n2.values())}
     got = {k: launches.get(k, 0) for k in SOLO_KERNELS}
     if got != want or launches.get("dedisperse_subbands_beams"):
         raise AssertionError(f"phase 12: the search command's launches "
-                             f"{launches} != phase 7's solo search's "
-                             f"{want}")
+                             f"{launches} != expected {want}")
     stages = report_stages(os.path.join(out, f"{base}.report"))
     log(f"phase 12: `search` exited 0 in {wall:.3f} s (process "
         f"{counts['t_end'] - counts['t_start']:.3f} s from its first "
-        f"line); {len(names) - 1} results files equal phase 7's solo "
-        f"search's (the trace file set aside); launches {got} (phase 7's "
-        f"solo search's); .report stages: "
+        f"line), resumed at pass {K_RESUME}: {passes} passes computed; "
+        f"{len(names) - 1} results files equal phase 7's solo "
+        f"search's (the trace file set aside); launches {got} "
+        f"(expected_launches from pass {K_RESUME}); .report stages: "
         + json.dumps({k: round(v, 3) for k, v in stages.items()}))
 
     # (b) the trace: `trace`, and the summarize tool against the .report
@@ -4264,7 +4346,8 @@ def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
     if len([ln for ln in text.splitlines() if ln.startswith("{")]) != 5:
         raise AssertionError(f"phase 12: `obs tail --lines 5`:\n{text}")
     cmds_s = time.time() - t_cmds
-    phase_s = time.time() - t_phase
+    # the command's wall, then this process's part after it
+    phase_s = wall + time.time() - t_phase
     log(f"phase 12: `trace`, the summarize tool, `plan` ({npass} passes), "
         f"`checkpoint` of {len(entries)} artifacts, `--verify` (clean, "
         f"then {victim} flagged), `obs timeline|top|tail` in "
@@ -4274,12 +4357,15 @@ def ops_phase(tmp: str, p7: dict, chaos: dict) -> dict:
                 phase_s=phase_s, top_spans={n: roll[n]["seconds"]
                                             for n in top},
                 # the profile's parse runs beside phase 13
-                profile_check=start_profile_check(prof_dir, launches,
-                                                  "phase 12"))
+                profile_check=start_profile_check(started["prof_dir"],
+                                                  launches, "phase 12"))
 
 
 #: phase 13's mesh: four logical shards of the one card
 MESH_SHARDS = 4
+#: phase 13 (b) searches this many passes of the plan's first step
+#: (ds 1, 28 passes) on the seq route: each is held to (a)'s artifact
+MESH_SEQ_PASSES = 8
 
 
 def _cand_key(c) -> tuple:
@@ -4559,34 +4645,36 @@ def mesh_phase(tmp: str, plan, p7: dict) -> dict:
         StageTimers(), DEV)
 
     # (b) the sequence-parallel route against the DM-sharded one: the
-    # plan's first step searched with seq_shard "on", each pass's
-    # artifact against (a)'s pass (the same passes, DM-sharded).  Every
+    # first MESH_SEQ_PASSES passes of the plan's first step searched
+    # with seq_shard "on", each pass's artifact against (a)'s pass (the
+    # same passes, DM-sharded).  Every
     # chunk must take the seq route: a fallback to replication (only a
     # warning in the executor) is an error here, and seq_dedisperse is
     # called once a chunk while no shard calls _dd_local
     t0 = time.time()
     ck_seq = os.path.join(tmp, "mesh_seq_ck")
+    seq_plan = [dataclasses.replace(plan[0], numpasses=MESH_SEQ_PASSES)]
     calls: dict = {}
     with warnings.catch_warnings(), \
             _counting(pseq, "seq_dedisperse", calls), \
             _counting(pmesh, "_dd_local", calls):
         warnings.filterwarnings("error", message=".*cannot be honoured")
         _c, _f, _ev, n = executor.search_block(
-            data, si.freqs, si.dt, plan[:1], dataclasses.replace(
+            data, si.freqs, si.dt, seq_plan, dataclasses.replace(
                 PARAMS, refine_cands=False, max_cands_to_fold=0,
                 seq_shard="on"), zaplist=ZAPLIST, baryv=baryv, nsub=nsub,
             checkpoint_dir=ck_seq, mesh=mesh, device="cuda")
     want_seq = sum(len(st) for _s, _p, _c, st
-                   in mesh_chunks(plan[:1], nsamp, MESH_SHARDS))
+                   in mesh_chunks(seq_plan, nsamp, MESH_SHARDS))
     if calls != {"seq_dedisperse": want_seq, "_dd_local": 0}:
         raise AssertionError(f"phase 13 (b): calls {calls}: every one of "
                              f"the {want_seq} chunks must take the seq "
                              f"route")
-    npass0 = plan[0].numpasses
+    npass0 = MESH_SEQ_PASSES
     same_bytes = same_passes(
         ck_seq, ck_mesh, npass0, f"phase 13 (b) seq_shard on vs "
         f"DM-sharded (a), passes 0-{npass0 - 1} (ds 1)")
-    if n != plan[0].numdms:
+    if n != seq_plan[0].numdms:
         raise AssertionError(f"phase 13 (b): {n} trials")
     log(f"phase 13 (b): passes 0-{npass0 - 1} ({n} trials) with "
         f"seq_shard on: every one of the {want_seq} chunks through "
@@ -4749,8 +4837,9 @@ def _passes(plan) -> list:
 
 def slice_phase(nsamp: int) -> dict:
     """Phase 4 on one synthesized beam, then phase 7 on a shorter one
-    of its own, and the read phase and phases 5, 6, 11 (which holds
-    the fleet's checks), 9, 12 and 13 on that shorter beam."""
+    of its own, and the read phase and phases 5 (both beside phase 7's
+    server), 6, 11 (which holds the fleet's checks), 9, 12 and 13 on
+    that shorter beam."""
     tmp = tempfile.mkdtemp(prefix="tpulsar_torch_smoke_")
     p4: dict = {}
     try:
@@ -4761,20 +4850,39 @@ def slice_phase(nsamp: int) -> dict:
         mark("phase 4: config 3 search (phase 4's beam)")
         p4["cfg3"] = cfg3_search_phase(fns, tmp, nsamp)
         mark("phase 7: batch")
-        p4["batch"] = p7 = batch_phase(tmp, plan)
-        mark("read (phase 7's beam)")
-        p4["read"] = read_phase(p7["fns"])
-        mark("phase 5: resume (phase 7's beam)")
-        p4["resume"] = resume_phase(p7["fns"], tmp, p7["nsamp"], plan,
-                                    p7["solo"])
+        p7 = batch_start(tmp, plan)
+        try:
+            # the read and phase 5 run in this process beside phase 7's
+            # server: they read the beam and the solo's checkpoint only
+            mark("read (phase 7's beam, beside phase 7's server)")
+            p4["read"] = read_phase(p7["fns"])
+            mark("phase 5: resume (phase 7's beam, beside phase 7's "
+                 "server)")
+            p4["resume"] = resume_phase(p7["fns"], tmp, p7["nsamp"],
+                                        plan, p7["solo"])
+        except BaseException:
+            p7["server"]["proc"].kill()
+            p7["server"]["proc"].wait()
+            raise
+        mark("phase 7: the batch's server and checks")
+        p4["batch"] = p7 = batch_finish(p7, plan)
         mark("phase 6: serve through the front door")
         p4["serve"] = serve_phase(p7["fns"], tmp, p7["solo"])
         mark("phase 11: chaos (and the fleet's checks)")
         p4["chaos"] = chaos_phase(tmp, plan, p7)
-        mark("phase 9: pipeline")
-        p4["pipeline"] = pipeline_phase(tmp, plan, p7)
+        # phase 12's `search` reads phase 7's beam and solo checkpoint
+        # only: it runs beside phase 9
+        mark("phase 12: `search` started")
+        ops = ops_search_start(tmp, p7)
+        try:
+            mark("phase 9: pipeline (beside phase 12's `search`)")
+            p4["pipeline"] = pipeline_phase(tmp, plan, p7)
+        except BaseException:
+            ops["proc"].kill()
+            ops["proc"].wait()
+            raise
         mark("phase 12: operator surface")
-        p4["ops"] = ops_phase(tmp, p7, p4["chaos"])
+        p4["ops"] = ops_phase(tmp, plan, p7, p4["chaos"], ops)
         mark("phase 13: mesh")
         p4["mesh"] = mesh_phase(tmp, plan, p7)
         ops = p4["ops"]

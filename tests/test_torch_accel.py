@@ -4,9 +4,10 @@ JAX package's tpulsar.kernels.accel, on the same NumPy-seeded inputs.
 Tolerances: the correlation runs through pocketfft (torch) and XLA's
 FFT (JAX), which differ in float order: planes at rtol 1e-4, top-k
 powers at rtol 2e-4 (tests/test_accel.py's batched-vs-per-DM
-tolerance), r bins and z exactly.  The harmonic stage sums add float32
-terms in the same order, so on the same f32 plane they are
-bit-identical."""
+tolerance), r bins and z exactly at a rank whose power stands clear of
+its neighbours and as a set within a tie (assert_topk_match).  The
+harmonic stage sums add float32 terms in the same order, so on the
+same f32 plane they are bit-identical."""
 
 from dataclasses import astuple
 
@@ -26,6 +27,51 @@ from test_torch_slice import one_torch_thread  # noqa: E402, F401 (autouse)
 
 PLANE_RTOL = 1e-4
 POWER_RTOL = 2e-4
+
+
+def _tied(a: float, b: float, rtol: float) -> bool:
+    return abs(a - b) <= rtol * max(abs(a), abs(b))
+
+
+def assert_topk_match(got, want, rtol: float = PLANE_RTOL) -> None:
+    """Two packages' top-k lists, (powers, r bins, z) each of shape
+    (..., k) sorted by power (descending), computed through different
+    FFTs: each rank's power within rtol; a rank whose power stands
+    clear of both neighbours by more than rtol keeps its exact r and
+    z; within a run of ranks whose powers lie within rtol of one
+    another the (r, z) cells agree as a set, each cell's power within
+    rtol; and in the k-th rank's run a cell may leave the list only if
+    its power is within rtol of the k-th power (its rival may be the
+    unseen (k+1)-th)."""
+    gp, gr, gz = (np.asarray(a) for a in got)
+    wp, wr, wz = (np.asarray(a) for a in want)
+    assert gp.shape == gr.shape == gz.shape == wp.shape == wr.shape \
+        == wz.shape
+    np.testing.assert_allclose(gp, wp, rtol=rtol)
+    k = wp.shape[-1]
+    for row in np.ndindex(wp.shape[:-1]):
+        p, q = wp[row].tolist(), gp[row].tolist()
+        wcell = list(zip(wr[row].tolist(), wz[row].tolist()))
+        gcell = list(zip(gr[row].tolist(), gz[row].tolist()))
+        start = 0
+        for i in range(k):
+            if i + 1 < k and (_tied(p[i], p[i + 1], rtol)
+                              or _tied(q[i], q[i + 1], rtol)):
+                continue            # rank i + 1 is in the same run
+            w = dict(zip(wcell[start:i + 1], p[start:i + 1]))
+            g = dict(zip(gcell[start:i + 1], q[start:i + 1]))
+            where = f"row {row} ranks {start}..{i}"
+            if i + 1 < k:
+                gband, wband = gcell[start:i + 1], wcell[start:i + 1]
+                assert sorted(gband) == sorted(wband), \
+                    f"{where}: {gband} != {wband}"
+            else:
+                for c in set(w) ^ set(g):
+                    assert _tied(w.get(c, g.get(c)), p[k - 1], rtol), \
+                        f"{where}: {c} left the list clear of the k-th"
+            for c in set(w) & set(g):
+                assert _tied(g[c], w[c], rtol), f"{where}: {c}'s power"
+            start = i + 1
 
 
 def _specs(nd=3, nbins=6000, seed=7, tones=((1500.0, 6.0),)):
@@ -114,10 +160,39 @@ def test_accel_search_batch_matches_jax():
                                 max_numharm=4, topk=8)
     assert set(got) == set(want) == {1, 2, 4}
     for h in want:
-        np.testing.assert_array_equal(got[h][1], np.asarray(want[h][1]))
-        np.testing.assert_array_equal(got[h][2], np.asarray(want[h][2]))
-        np.testing.assert_allclose(got[h][0], np.asarray(want[h][0]),
-                                   rtol=POWER_RTOL)
+        assert_topk_match(got[h], want[h], rtol=POWER_RTOL)
+
+
+@pytest.mark.parametrize("case, agrees", [
+    ("swap inside a tie band", True),
+    ("the k-th rank's cell replaced by its tie", True),
+    ("swap of two cells 10 PLANE_RTOL apart", False),
+    ("wrong z at a clear rank", False),
+    ("a cell missing outside the k-th tie band", False),
+])
+def test_assert_topk_match_holds_ties_as_sets(case, agrees):
+    """The comparator itself: row 0 of two equal, row 1 changed."""
+    p = np.array([40.0, 30.0, 20.0, 0.0, 10.0, 5.0], np.float32)
+    p[3] = p[2] * (1 - (10 if "10 PLANE_RTOL" in case else 0.3)
+                   * PLANE_RTOL)
+    r = np.arange(6, dtype=np.int32) * 120 + 100
+    z = np.array([0, 2, -4, 6, -8, 10], np.int32)
+    gr, gz = r.copy(), z.copy()
+    if case.startswith("swap"):
+        gr[[2, 3]], gz[[2, 3]] = r[[3, 2]], z[[3, 2]]
+    elif case.startswith("the k-th"):
+        gr[5], gz[5] = 9999, 12
+    elif case.startswith("wrong z"):
+        gz[1] += 2
+    else:
+        gr[4] = 9999
+    got = (np.stack([p, p]), np.stack([r, gr]), np.stack([z, gz]))
+    want = (np.stack([p, p]), np.stack([r, r]), np.stack([z, z]))
+    if agrees:
+        assert_topk_match(got, want)
+    else:
+        with pytest.raises(AssertionError):
+            assert_topk_match(got, want)
 
 
 def test_batched_equals_per_dm_and_any_batch_size():
@@ -214,9 +289,7 @@ def test_drifting_tone_found_at_its_z_like_jax():
     jb, tb = _bank(24.0)
     want = ja.accel_search_one(jspec, jb, max_numharm=1, topk=8)[1]
     got = ta.accel_search_one(tspec, tb, max_numharm=1, topk=8)[1]
-    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
-    np.testing.assert_array_equal(got[2], np.asarray(want[2]))
-    np.testing.assert_allclose(got[0], np.asarray(want[0]), rtol=POWER_RTOL)
+    assert_topk_match(got, want, rtol=POWER_RTOL)
     best = int(np.argmax(got[0]))
     assert abs(got[2][best] - 12.0) <= ta.DZ
     assert abs(0.5 * got[1][best] - (40.0 * T_s + 6.0)) <= 2

@@ -211,6 +211,39 @@ def test_controller_imports_no_torch():
     assert res.stdout.strip().splitlines()[-1] == "BAD:"
 
 
+def test_requeue_journals_the_takeover_before_a_racing_claim(tmp_path,
+                                                            monkeypatch):
+    """A live worker may claim a requeued ticket the moment it lands in
+    incoming/; however long the janitor stalls before its journal
+    append, the victim's chain reads claim, takeover, claim (the race
+    the JAX package's _requeue_claims still has under load, ROADMAP
+    Queue 3).  The stall is played deterministically: the claim is
+    made inside the janitor, just before its takeover append."""
+    spool = str(tmp_path / "spool")
+    tprotocol.write_ticket(spool, "t0", ["/x"], "/o", job_id=0)
+    crashed = subprocess.run(
+        PORT_STUB + ["--spool", spool, "--worker-id", "w0", "--once",
+                     "--crash-after", "1"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
+    assert crashed.returncode == 70
+    record = tjournal.record
+
+    def claim_then_record(sp, event, *a, **kw):
+        if event == "takeover":
+            assert tprotocol.claim_next_ticket(sp, "w1")["ticket"] == "t0"
+        return record(sp, event, *a, **kw)
+
+    monkeypatch.setattr(tjournal, "record", claim_then_record)
+    assert tprotocol.requeue_stale_claims(spool, 3) == ["t0"]
+    evs = tjournal.read_events(spool, ticket="t0")
+    assert [(e["event"], e.get("attempt")) for e in evs] == [
+        ("submitted", 0), ("claimed", 0), ("takeover", 1),
+        ("claimed", 1)]
+    tprotocol.write_result(spool, "t0", "done", worker="w1", attempts=1)
+    assert tjournal.validate_chain(
+        tjournal.read_events(spool, ticket="t0")) == []
+
+
 # ------------------------------------- the port's real serve workers
 
 #: w1's command: wait until the journal records the janitor's takeover

@@ -21,7 +21,12 @@ equal.  With --rtol (for two packages' results, whose float32 sums
 round in another order), a floating-point .npz array may differ by at
 most rtol * max|b| over the array, and a decimal number in a text file
 by at most rtol * |b| plus one unit of its last printed digit (a value
-within tolerance can round either way);
+within tolerance can round either way); a .bestprof's profile block
+(the "bin value" lines after its "#" header) is held like an array, at
+rtol * max|b| over the profile plus one unit of the last printed
+digit, because a mean-subtracted profile crosses zero and its small
+bins carry no more precision than the float32 sum of the whole;
+its header lines keep the per-token rule;
 integers, names and every other token must still be equal.  Prints one
 line per difference and exits 1 if there is any.  Imports numpy only.
 """
@@ -82,13 +87,23 @@ def _decimal(token: str):
         return None
 
 
-def _text_equal(a: bytes, b: bytes, rtol: float) -> bool:
-    """Text equal token by token: decimals within rtol, the rest
-    exactly."""
+def _number(token: str):
+    """(value, one unit of the last printed digit) of a finite number
+    printed like 17.31, -1.746887, 3.2e-05 or 12, or None."""
+    mant, _, exp = token.lower().partition("e")
     try:
-        la, lb = a.decode().splitlines(), b.decode().splitlines()
-    except UnicodeDecodeError:
-        return False
+        value, power = float(token), int(exp or 0)
+    except ValueError:
+        return None
+    if not np.isfinite(value):
+        return None
+    digits = len(mant.split(".")[1]) if "." in mant else 0
+    return value, 10.0 ** (power - digits)
+
+
+def _lines_equal(la: list[str], lb: list[str], rtol: float) -> bool:
+    """Lines equal token by token: decimals within rtol, the rest
+    exactly."""
     if len(la) != len(lb):
         return False
     for ra, rb in zip(la, lb):
@@ -106,6 +121,53 @@ def _text_equal(a: bytes, b: bytes, rtol: float) -> bool:
     return True
 
 
+def _decoded_lines(a: bytes, b: bytes):
+    try:
+        return a.decode().splitlines(), b.decode().splitlines()
+    except UnicodeDecodeError:
+        return None
+
+
+def _text_equal(a: bytes, b: bytes, rtol: float) -> bool:
+    """Text equal token by token: decimals within rtol, the rest
+    exactly."""
+    lines = _decoded_lines(a, b)
+    return lines is not None and _lines_equal(*lines, rtol)
+
+
+def _split_header(lines: list[str]):
+    n = next((i for i, ln in enumerate(lines) if not ln.startswith("#")),
+             len(lines))
+    return lines[:n], lines[n:]
+
+
+def _bestprof_equal(a: bytes, b: bytes, rtol: float) -> bool:
+    """A .bestprof: its "#" header lines by _text_equal's rule, its
+    profile block ("bin value" lines) bin for bin, each bin within
+    rtol * max|b| over the profile plus one unit of the last printed
+    digit (_values_equal's rule for an array)."""
+    lines = _decoded_lines(a, b)
+    if lines is None:
+        return False
+    (ha, pa), (hb, pb) = map(_split_header, lines)
+    if len(pa) != len(pb) or not _lines_equal(ha, hb, rtol):
+        return False
+    bins = []
+    for ra, rb in zip(pa, pb):
+        ta, tb = ra.split(), rb.split()
+        if len(ta) != 2 or len(tb) != 2 or ta[0] != tb[0]:
+            return False
+        x, y = _number(ta[1]), _number(tb[1])
+        if x is None or y is None:
+            if ta[1] != tb[1]:
+                return False
+            continue
+        bins.append((x, y))
+    scale = max((abs(y[0]) for _x, y in bins), default=0.0)
+    return all(abs(x[0] - y[0]) <= rtol * scale + max(x[1], y[1])
+               for x, y in bins)
+
+
 def _content_diff(name: str, a: bytes, b: bytes, what: str,
                   rtol: float = 0.0) -> list[str]:
     if name.endswith(TIMED_SUFFIXES):
@@ -114,7 +176,8 @@ def _content_diff(name: str, a: bytes, b: bytes, what: str,
         return _npz_diff(a, b, what, rtol)
     if name.endswith(".tgz"):
         return _tar_diff(a, b, what, rtol)
-    if a == b or (rtol and _text_equal(a, b, rtol)):
+    same = _bestprof_equal if name.endswith(".bestprof") else _text_equal
+    if a == b or (rtol and same(a, b, rtol)):
         return []
     return [f"{what}: bytes differ"]
 

@@ -996,6 +996,11 @@ def _requeue_claims(spool: str, verdict_fn,
                 except OSError:
                     pass
                 continue
+        # the requeue's journal time is taken BEFORE the record lands
+        # in incoming/: a live worker may claim it at once, and the
+        # journal (read in time order) must show this event before
+        # that claim however long this process stalls in between
+        t_requeue = time.time()
         _atomic_write_json(ticket_path(spool, tid, "incoming"), rec)
         _invalidate_capacity(spool)
         try:
@@ -1008,7 +1013,7 @@ def _requeue_claims(spool: str, verdict_fn,
                 attempt=int(rec.get("attempts", 0)),
                 trace_id=rec.get("trace_id", ""),
                 from_worker=owner_worker, from_pid=owner_pid,
-                by_pid=os.getpid(),
+                by_pid=os.getpid(), t=t_requeue,
                 # the fairness evidence: checkpoint artifacts the dead
                 # owner left, and whether they reset the crash-loop
                 # budget (progress != crash loop)
@@ -1020,7 +1025,7 @@ def _requeue_claims(spool: str, verdict_fn,
                 worker=owner_worker,
                 attempt=int(rec.get("attempts", 0)),
                 trace_id=rec.get("trace_id", ""),
-                reason=reason)
+                reason=reason, t=t_requeue)
         requeued.append(tid)
     return requeued
 
