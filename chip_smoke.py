@@ -4166,7 +4166,7 @@ def finish_profile_check(proc, what: str) -> dict:
 def ops_search_start(tmp: str, p7: dict) -> dict:
     """Phase 12's `python -m tpulsar_torch search`, started in a
     subprocess on the card over phase 7's beam, with TPULSAR_TRACE=1
-    (and no TPULSAR_TRACE_SYNC) and TPULSAR_PROFILE set to a directory
+    and TPULSAR_PROFILE set to a directory
     outside the outdir, through SERVE_WRAPPER, into an output
     directory holding phase 7's solo search's checkpoint cut back to
     pass K_RESUME (truncate_checkpoint), so that the job resumes there
@@ -4180,7 +4180,6 @@ def ops_search_start(tmp: str, p7: dict) -> dict:
     # the profile goes outside the results directory
     prof_dir = os.path.join(tmp, "ops_profile")
     env = dict(srv["env"], TPULSAR_TRACE="1", TPULSAR_PROFILE=prof_dir)
-    env.pop("TPULSAR_TRACE_SYNC", None)
     cmd = [sys.executable, "-c", SERVE_WRAPPER, "--config", srv["cfg"],
            "search", *p7["fns"], "--outdir", out]
     torch.cuda.empty_cache()

@@ -71,7 +71,7 @@ def _port_reads() -> dict[str, str]:
 def test_registry_is_exactly_what_the_port_reads():
     reads = _port_reads()
     assert sorted(reads) == sorted(tknobs.KNOBS)
-    assert len(tknobs.KNOBS) == 42
+    assert len(tknobs.KNOBS) == 41
     for name in ("TPULSAR_ACCEL_SYNC_WINDOW",
                  "TPULSAR_ACCEL_BREAKER_THRESHOLD",
                  "TPULSAR_ACCEL_BATCH_BREAKER"):

@@ -3,7 +3,7 @@ traced search_beam on the same synthesized beam in both packages
 (TPULSAR_TRACE=1), then metrics.json (names, labels, pass and trial
 counts) and the trace file (span names; the JAX package's own
 summarize_file reproduces the port's .report stage totals within its
-5% contract); and the port's fence, a no-op on the CPU.
+5% contract).
 
 Both packages' metrics.json may hold the compile-cache families and
 their traces backend_compile spans: the JAX package's runtime monitor
@@ -275,29 +275,6 @@ def test_stage_timer_is_one_span_and_one_observation():
     assert len(spans) == 2
     assert delta["tpulsar_stage_seconds"]["series"]["sifting"][
         "count"] == 2
-
-
-def test_fence_is_a_noop_on_the_cpu(monkeypatch):
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize", calls.append)
-    monkeypatch.setenv("TPULSAR_TRACE_SYNC", "1")
-    ttrace.start(clear=True)
-    try:
-        ttrace.fence(torch.zeros(3), {"a": (torch.ones(2), [1.0])})
-        assert calls == [] and ttrace.events() == []
-
-        class _OnCard:             # what the fence reads of a tensor
-            is_cuda = True
-            device = "cuda:0"
-
-        ttrace.fence((torch.zeros(1), {"x": _OnCard()}))
-        assert calls == ["cuda:0"]
-        assert [e["name"] for e in ttrace.events()] == ["device_fence"]
-        monkeypatch.delenv("TPULSAR_TRACE_SYNC")
-        ttrace.fence(_OnCard())                  # opt-in only
-        assert calls == ["cuda:0"]
-    finally:
-        ttrace.reset()
 
 
 def test_outstream_writes_what_the_jax_package_writes(tmp_path):

@@ -553,4 +553,10 @@ PORT_DIFFERENCES = (
         "the choice between two Pallas formulations of stage 2",
         "none: one CUDA kernel computes the function of both "
         "(ROADMAP Queue 2)"),
+    PortDifference(
+        "env-knobs", "TPULSAR_TRACE_SYNC",
+        "the JAX package's opt-in fence of the traced chunk scopes; "
+        "the port's device time per stage comes from CUDA events "
+        "(search/report.py), which need no fence",
+        "none: left out on purpose"),
 )

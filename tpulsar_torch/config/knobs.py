@@ -198,9 +198,6 @@ KNOBS: dict[str, Knob] = {k.name: k for k in (
     _k("TPULSAR_TRACE", "enum(1)", "off",
        "1 enables the per-beam span tracer (writes "
        "<basenm>_trace.json Chrome-trace output)"),
-    _k("TPULSAR_TRACE_SYNC", "enum(1)", "off",
-       "1 fences chunk scopes with block_until_ready for device "
-       "attribution (serializes the pipeline it measures)"),
     _k("TPULSAR_TREE_BUDGET", "int (bytes)", "2147483648 (2 GiB)",
        "tree-dedispersion level working-set budget; the governor "
        "cuts the merge tree shallower when level tensors would "

@@ -73,6 +73,7 @@ from tpulsar_torch.resilience import faults
 from tpulsar_torch.resilience import policy as rpolicy
 from tpulsar_torch.resilience import rescue as rescue_mod
 from tpulsar_torch.search import degraded
+from tpulsar_torch.search import report
 from tpulsar_torch.search.report import progress_beat
 
 DZ = 2.0  # z-plane step in bins (PRESTO's accelsearch grid spacing)
@@ -667,9 +668,12 @@ def _release_cached(dev) -> None:
 
 def _device_get(entries):
     """[(s0, nrows, device tuple)] -> the same with NumPy arrays: the
-    one blocking host transfer of a drain (jax.device_get's place)."""
-    return [(s0, nr, tuple(t.cpu().numpy() for t in tup))
-            for s0, nr, tup in entries]
+    one blocking host transfer of a drain (jax.device_get's place),
+    counted as host-wait:accel."""
+    dev = entries[0][2][0].device if entries else None
+    with report.host_wait("accel", dev):
+        return [(s0, nr, tuple(t.cpu().numpy() for t in tup))
+                for s0, nr, tup in entries]
 
 
 def accel_search_batch(spectra: torch.Tensor, bank: TemplateBank,
@@ -757,6 +761,8 @@ def accel_search_batch(spectra: torch.Tensor, bank: TemplateBank,
         fetched = rpolicy.run_with_deadline(
             lambda: _device_get(pending), deadline_s,
             label="accel window sync")
+        # the device is idle: the window's scopes can be read
+        report.drained()
         for s0, nrows, tup in fetched:
             vals[s0:s0 + nrows] = tup[0]
             rbins[s0:s0 + nrows] = tup[1]

@@ -10,18 +10,22 @@ structure of a search is a timeline instead of a percentage table.
 
 Wall time vs device time: CUDA kernels launch asynchronously, so a
 span around an enqueue measures launch cost, not compute.  Spans are
-wall-clock (cheap, safe to leave on), and DEVICE attribution is
-opt-in via ``fence(...)`` — a synchronisation of the given tensors'
-CUDA devices at scope exit, marked by a ``device_fence`` instant so a
-trace always says which spans are device-attributed.  Fencing
-serializes the pipeline it measures; it is enabled only when
-``TPULSAR_TRACE_SYNC=1`` (the executor calls ``fence`` at its stage
-boundaries unconditionally — this module makes it a no-op unless the
-operator opted in), and tensors on the CPU need no fence.
+wall-clock (cheap, safe to leave on); the device's own time comes
+from CUDA events (search/report.py's StageTimers), written here as
+complete events on a device track (``device_interval``: ``pid``
+"cuda:N", ``cat`` "device"), placed on this module's clock and left
+out of the rollup.
+
+One clock: the export states its time base as the torch profiler's
+traces do (``baseTimeNanoseconds``, unix nanoseconds, with every
+``ts`` in microseconds after it), and while a torch profiler runs
+each span also opens a ``torch.profiler.record_function`` range of
+its name, so this file and a profiler's line up without conversion.
 
 Enabling: ``TPULSAR_TRACE=1`` in the environment, or ``start()``
-programmatically (tests).  Disabled spans cost two attribute reads —
-cheap enough for per-chunk loops.  Thread safety: events append under
+programmatically (tests).  Disabled spans cost two attribute reads
+and the profiler's is-enabled test — cheap enough for per-chunk
+loops.  Thread safety: events append under
 a lock; span nesting state is thread-local, and each thread's spans
 carry its tid, which is exactly how Perfetto reconstructs nesting
 (same-track time containment).
@@ -32,6 +36,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import sys
 import threading
 import time
 
@@ -52,11 +57,6 @@ def enabled() -> bool:
     if _ENABLED is not None:
         return _ENABLED
     return os.environ.get("TPULSAR_TRACE", "") == "1"
-
-
-def sync_enabled() -> bool:
-    """Opt-in device fencing (see module docstring)."""
-    return enabled() and os.environ.get("TPULSAR_TRACE_SYNC", "") == "1"
 
 
 def start(clear: bool = True) -> None:
@@ -135,13 +135,36 @@ def _append(event: dict) -> None:
         _EVENTS.append(event)
 
 
+def _profiler_range(name: str):
+    """A torch.profiler.record_function range of ``name`` while a torch
+    profiler runs (TPULSAR_PROFILE's, or any outer one), else None.
+    The profiler's own is-enabled test, read without importing torch:
+    a process that never imported it runs no profiler."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    return torch.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def span(name: str, **attrs):
-    """Record a nested Chrome-trace complete event around the scope.
+    """Record a nested Chrome-trace complete event around the scope,
+    and open a profiler range of the same name while a torch profiler
+    runs (_profiler_range).
 
     Exception-safe: the span closes (and records ``error``) when the
     body raises.  Nesting is per-thread; the parent span's name and
     depth ride in args so a flat event list still states the tree."""
+    rng = _profiler_range(name)
+    if rng is None and not enabled():
+        yield
+        return
+    with rng or contextlib.nullcontext(), _span(name, attrs):
+        yield
+
+
+@contextlib.contextmanager
+def _span(name: str, attrs: dict):
     if not enabled():
         yield
         return
@@ -198,6 +221,22 @@ def complete(name: str, dur_s: float, **attrs) -> None:
     })
 
 
+def device_interval(name: str, device: str, t_begin: float,
+                    dur_s: float) -> None:
+    """A complete event on the device track ``device`` ("cuda:0"):
+    device work between two CUDA events, placed on this module's clock
+    (t_begin in unix seconds).  Its ``cat`` is "device", so the rollup
+    of host spans leaves it out."""
+    if not enabled():
+        return
+    _append({
+        "name": name, "cat": "device", "ph": "X",
+        "ts": round((t_begin - _T0) * 1e6, 1),
+        "dur": round(dur_s * 1e6, 1),
+        "pid": device, "tid": "stream", "args": _ctx_args({}),
+    })
+
+
 def instant(name: str, **attrs) -> None:
     """Zero-duration marker (circuit transitions, rescue decisions):
     shows as a tick on the Perfetto track."""
@@ -215,35 +254,6 @@ def instant(name: str, **attrs) -> None:
     })
 
 
-def fence(*tensors) -> None:
-    """Opt-in device fence: wait for the CUDA devices that hold the
-    given tensors (nested in tuples, lists or dicts, as the executor's
-    stage outputs are), attributing their compute time to the
-    ENCLOSING span (the span's exit records the post-fence clock).
-    No-op unless TPULSAR_TRACE_SYNC=1 — fencing serializes the async
-    pipeline it measures, so it must never be the default — and a
-    no-op for tensors on the CPU, whose work is done when it
-    returns."""
-    if not sync_enabled() or not tensors:
-        return
-    devices = set()
-    stack = list(tensors)
-    while stack:
-        x = stack.pop()
-        if isinstance(x, dict):
-            stack.extend(x.values())
-        elif isinstance(x, (list, tuple)):
-            stack.extend(x)
-        elif getattr(x, "is_cuda", False):
-            devices.add(x.device)
-    if not devices:
-        return
-    import torch
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-    instant("device_fence", span=current_span())
-
-
 def events() -> list[dict]:
     """Copy of the recorded events (tests / exporters)."""
     with _LOCK:
@@ -255,7 +265,9 @@ def export() -> dict:
     with _LOCK:
         evs = [dict(e, args=dict(e["args"])) for e in _EVENTS]
         dropped = _DROPPED
+    # the torch profiler's convention: unix ns, each ts us after it
     obj = {"traceEvents": evs, "displayTimeUnit": "ms",
+           "baseTimeNanoseconds": round(_T0 * 1e9),
            "otherData": {"producer": "tpulsar",
                          "trace_epoch_unix_s": _T0}}
     if dropped:
@@ -336,7 +348,8 @@ def render_summary(summary: dict) -> str:
 
 def rollup(trace_events: list[dict] | None = None
            ) -> dict[str, dict]:
-    """Per-name {seconds, count} totals over complete ('X') events.
+    """Per-name {seconds, count} totals over the host's complete ('X')
+    events (the device track's are left out).
 
     Over the events StageTimers emits this reproduces the .report
     stage totals: one span per timing scope, same begin/end clocks
@@ -344,7 +357,7 @@ def rollup(trace_events: list[dict] | None = None
     evs = trace_events if trace_events is not None else events()
     out: dict[str, dict] = {}
     for e in evs:
-        if e.get("ph") != "X":
+        if e.get("ph") != "X" or e.get("cat") == "device":
             continue
         rec = out.setdefault(e["name"], {"seconds": 0.0, "count": 0})
         rec["seconds"] += e.get("dur", 0.0) / 1e6

@@ -87,6 +87,7 @@ from tpulsar_torch.obs import telemetry
 from tpulsar_torch.obs import trace as trace_mod
 from tpulsar_torch.plan import ddplan
 from tpulsar_torch.search import degraded, sifting
+from tpulsar_torch.search import report
 from tpulsar_torch.search.report import StageTimers
 
 
@@ -252,6 +253,7 @@ def search_beam(fns: list[str], workdir: str, resultsdir: str,
     obj, si, basenm, plan, nsub, baryv, data_id = _beam_geometry(
         fns, params, plan, baryv)
     timers = StageTimers()
+    timers.bind_if_traced(dev)
     store = None
     if checkpoint_dir:
         # opened here (not in search_block) so the RFI mask and the
@@ -477,6 +479,7 @@ def _search_group(specs: list[BeamSpec], pres: list[tuple],
         trace_mod.start(clear=True)
     metrics_base = telemetry.metrics.REGISTRY.snapshot()
     timers = StageTimers()
+    timers.bind_if_traced(dev)
 
     stores, datas, masks = [], [], []
     for spec, (obj, si, basenm, _plan, _nsub, baryv, data_id) in zip(
@@ -502,10 +505,11 @@ def _search_group(specs: list[BeamSpec], pres: list[tuple],
     telemetry.beam_batch_occupancy().set(B)
     with trace_mod.span("search_beam_batch", nbeams=B,
                         npasses=sum(s.numpasses for s in plan)):
-        per = _group_plan_loop(stacked, freqs, dt, plan, params,
-                               [s.zaplist for s in specs],
-                               [p[5] for p in pres], nsub, timers,
-                               stores, progress_cb, dev)
+        with timers.attached(dev):
+            per = _group_plan_loop(stacked, freqs, dt, plan, params,
+                                   [s.zaplist for s in specs],
+                                   [p[5] for p in pres], nsub, timers,
+                                   stores, progress_cb, dev)
         # per-beam attribution past this point: the plan loop's delta
         # is SHARED (one dispatch stream served the whole group, so
         # every member's metrics.json carries it), but each beam's
@@ -563,7 +567,7 @@ def _group_plan_loop(stacked, freqs, dt, plan, params, zaplists,
                     freqs, nsub, ppass.subdm, dms, dt, step.downsamp)
                 subb_all = bb.form_subbands_beams(
                     stacked, chan_shifts, B, nsub, step.downsamp)
-                _fence(dev, subb_all)                # (B*nsub, T')
+                _fence(dev)
             T_ds = int(subb_all.shape[1])
             dt_ds = dt * step.downsamp
             chunk_sz = pass_chunk_size(len(dms), ddplan.choose_n(T_ds),
@@ -603,7 +607,7 @@ def _group_plan_loop(stacked, freqs, dt, plan, params, zaplists,
                             pairs = [(series[b * n:(b + 1) * n], None)
                                      for b in range(B)]
                             del series
-                        _fence(dev, pairs)
+                        _fence(dev)
                     # the stages after dedispersion run per beam, at the
                     # solo shapes: torch's CUDA reductions pick their
                     # launch shape from the row count, so a row's sums
@@ -634,17 +638,20 @@ def _group_plan_loop(stacked, freqs, dt, plan, params, zaplists,
                     continue
                 c0, s0, t0 = starts[b]
                 ntr_pass = per[b]["ntr"] - t0
-                durable = store.save(
-                    f"pass_{pass_idx:04d}",
-                    _encode_pass(
-                        per[b]["cands"][c0:],
-                        (np.concatenate(per[b]["sp"][s0:])
-                         if len(per[b]["sp"]) > s0 else _EMPTY_SP),
-                        ntr_pass),
-                    kind="pass", ext=".npz", pass_idx=pass_idx)
-                if durable:
-                    store.journal("pass_complete", pass_idx=pass_idx,
-                                  npasses=npasses, ntrials=ntr_pass)
+                with report.checkpoint_save():
+                    durable = store.save(
+                        f"pass_{pass_idx:04d}",
+                        _encode_pass(
+                            per[b]["cands"][c0:],
+                            (np.concatenate(per[b]["sp"][s0:])
+                             if len(per[b]["sp"]) > s0 else _EMPTY_SP),
+                            ntr_pass),
+                        kind="pass", ext=".npz", pass_idx=pass_idx)
+                    if durable:
+                        store.journal("pass_complete",
+                                      pass_idx=pass_idx,
+                                      npasses=npasses, ntrials=ntr_pass)
+            timers.resolve()
             if progress_cb is not None:
                 progress_cb({
                     "pass_idx": pass_idx + 1, "npasses": npasses,
@@ -657,14 +664,15 @@ def _group_plan_loop(stacked, freqs, dt, plan, params, zaplists,
     return per
 
 
-def _fence(dev: torch.device, *outputs) -> None:
-    """Wait for the device, so that a stage timer holds the device
-    work its scope enqueued (kernels launch asynchronously); with
-    TPULSAR_TRACE_SYNC=1 the trace also marks the enclosing span as
-    device-attributed (obs/trace.fence)."""
+def _fence(dev: torch.device) -> None:
+    """Wait for the device, so that the wall-clock StageTimers.times
+    of a scope hold the device work it enqueued (kernels launch
+    asynchronously).  Only those wall times need it: the record's
+    device seconds come from CUDA events (search/report.py).  The wait
+    counts as host-wait:fence."""
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    trace_mod.fence(*outputs)
+        with report.host_wait("fence", dev):
+            torch.cuda.synchronize(dev)
 
 
 def _read_and_mask(si, params, basenm, resultsdir, store, timers, dev):
@@ -710,7 +718,7 @@ def _read_and_mask(si, params, basenm, resultsdir, store, timers, dev):
                                ext=".npz")
         data = rfi_k.apply_mask_chan(data, mask.full_mask(),
                                      mask.chan_fill, mask.block_len)
-        _fence(dev, data)
+        _fence(dev)
     return data, mask
 
 
@@ -934,11 +942,11 @@ def _search_block(data, freqs, dt, plan, params, zaplist, baryv, nsub,
     outside that span)."""
     timers = timers or StageTimers()
     degraded.reset()
-    with _block_profiler(dev):
-        # one root name for the profile and the port's own trace
-        with torch.profiler.record_function("search_block"), \
-                trace_mod.span("search_block",
-                               npasses=sum(s.numpasses for s in plan)):
+    with _block_profiler(dev), timers.attached(dev):
+        # one root name for the profile and the port's own trace (the
+        # span opens the profiler's range while a profiler runs)
+        with trace_mod.span("search_block",
+                            npasses=sum(s.numpasses for s in plan)):
             return _search_block_inner(data, freqs, dt, plan, params,
                                        zaplist, baryv, nsub, timers,
                                        store, progress_cb, dev, mesh)
@@ -985,7 +993,7 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
                     dt, step.downsamp)
                 subb = dd.form_subbands(data, chan_shifts, nsub,
                                         step.downsamp)
-                _fence(dev, subb)
+                _fence(dev)
             dt_ds = dt * step.downsamp
             dms = np.asarray(ppass.dms)
             if mesh is not None:
@@ -1006,23 +1014,28 @@ def _search_block_inner(data, freqs, dt, plan, params, zaplist, baryv,
             num_trials += len(dms)
             if store is not None:
                 ntr_pass = num_trials - pass_trials_start
-                durable = store.save(
-                    f"pass_{pass_idx:04d}",
-                    _encode_pass(
-                        all_cands[pass_cands_start:],
-                        (np.concatenate(sp_chunks[pass_sp_start:])
-                         if len(sp_chunks) > pass_sp_start
-                         else _EMPTY_SP),
-                        ntr_pass),
-                    kind="pass", ext=".npz", pass_idx=pass_idx)
-                if durable:
-                    # journaled ONLY once the artifact is durable: a
-                    # consumer reads this event as "never recompute
-                    # pass k again"
-                    store.journal("pass_complete", pass_idx=pass_idx,
-                                  npasses=npasses, ntrials=ntr_pass)
+                with report.checkpoint_save():
+                    durable = store.save(
+                        f"pass_{pass_idx:04d}",
+                        _encode_pass(
+                            all_cands[pass_cands_start:],
+                            (np.concatenate(sp_chunks[pass_sp_start:])
+                             if len(sp_chunks) > pass_sp_start
+                             else _EMPTY_SP),
+                            ntr_pass),
+                        kind="pass", ext=".npz", pass_idx=pass_idx)
+                    if durable:
+                        # journaled ONLY once the artifact is durable:
+                        # a consumer reads this event as "never
+                        # recompute pass k again"
+                        store.journal("pass_complete",
+                                      pass_idx=pass_idx,
+                                      npasses=npasses,
+                                      ntrials=ntr_pass)
             telemetry.passes_total().inc()
             telemetry.dm_trials_total().inc(len(dms))
+            # the pass drained: its scopes' events are read here
+            timers.resolve()
             if progress_cb is not None:
                 progress_cb({
                     "pass_idx": pass_idx + 1, "npasses": npasses,
@@ -1081,7 +1094,7 @@ def _search_pass(subb, sub_shifts, dms, dt_ds, pass_idx, params,
                     series = dd.dedisperse_subbands(
                         subb, sub_shifts[lo: lo + len(dm_chunk)])
                     norm = None
-                _fence(dev, series, norm)
+                _fence(dev)
             pending.append(_chunk_stages(
                 series, norm, dm_chunk, nfft, T_s, keep, params,
                 timers, dev))
@@ -1261,7 +1274,7 @@ def _tree_levels(subb, sub_shifts, T_ds, timers, dev):
         return None, None
     with timers.timing("dedispersing"):
         parts = tree_dd.tree_levels(subb, tree_plan)
-        _fence(dev, parts)
+        _fence(dev)
     telemetry.dedisp_tree_depth().set(tree_plan.depth)
     telemetry.dedisp_residual_fraction().set(
         round(tree_plan.residual_fraction, 4))
@@ -1283,19 +1296,19 @@ def _chunk_stages(series, norm, dm_chunk, nfft, T_s, keep, params,
         else:
             sp_pair = sp_k.device_search(series, tuple(params.sp_widths),
                                          estimator=params.sp_detrend)
-        _fence(dev, sp_pair)
+        _fence(dev)
     with timers.timing("FFT"):
         wspec = (fr.whitened_spectrum_masked(series, keep, nfft=nfft)
                  if keep is not None else
                  fr.whitened_spectrum(series, nfft=nfft))
-        _fence(dev, wspec)
+        _fence(dev)
     with timers.timing("lo-accelsearch"):
         # half-bin detection grid (interbinning): bin indices are
         # half-bin units, hence bin_scale=0.5 in _drain
         res = fr.lo_stage_candidates(
             wspec, tuple(fr.harmonic_stages(params.lo_accel_numharm)),
             params.topk_per_stage)
-        _fence(dev, res)
+        _fence(dev)
     hi_cands: list = []
     if params.run_hi_accel and params.hi_accel_zmax > 0:
         with timers.timing("hi-accelsearch"):
@@ -1310,7 +1323,8 @@ def _drain(pending, dt_ds, T_s, nbins, params, timers) -> tuple:
     transfer waits for all the pass's queued device work), then the
     host halves in chunk order.  Returns (candidates, SP event
     arrays)."""
-    with timers.timing("pipeline-drain"):
+    dev = pending[0][1][0].device if pending else None
+    with timers.timing("pipeline-drain"), report.host_wait("drain", dev):
         sp_host = [(s.cpu().numpy(), i.cpu().numpy())
                    for _c, (s, i), _r, _h in pending]
         lo_host = [{h: (v.cpu().numpy(), b.cpu().numpy())
@@ -1404,9 +1418,10 @@ def _sift_fold_finish(data, freqs, dt, params, zaplist, baryv, nsub,
                         c.power, c.numharm, numindep=nind))
                 final.sort(key=lambda c: -c.sigma)
         if store is not None:
-            store.save("sifted",
-                       _encode_sifted(final, sp_events, num_trials),
-                       kind="stage", ext=".npz")
+            with report.checkpoint_save():
+                store.save("sifted",
+                           _encode_sifted(final, sp_events, num_trials),
+                           kind="stage", ext=".npz")
 
     # fold the top of the (re-ranked) list: final is sigma-descending
     # and the fold set is its >= threshold prefix, so folded[k] is the
@@ -1435,9 +1450,10 @@ def _fold(data, freqs, dt, params, nsub, plan, to_fold, series_for,
 
     def _save_fold(k: int) -> None:
         if store is not None:
-            store.save(f"fold_{k:04d}",
-                       _encode_fold(folded[k], to_fold[k]),
-                       kind="fold", ext=".npz", cand=k)
+            with report.checkpoint_save():
+                store.save(f"fold_{k:04d}",
+                           _encode_fold(folded[k], to_fold[k]),
+                           kind="fold", ext=".npz", cand=k)
 
     missing = [k for k in range(len(to_fold)) if k not in folded]
     if params.fold_by_rules and params.fold_batched:

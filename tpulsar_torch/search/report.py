@@ -10,6 +10,19 @@ results directories from both packages line up.
 Each timed scope is also one span of the tracer and one observation
 of the tpulsar_stage_seconds histogram (obs/), as in the JAX package,
 and one begin and one end beat of the stage heartbeat below.
+
+Beside the wall-clock ``times`` (which the .report prints), a bound
+StageTimers (StageTimers.bind) keeps a per-call ``record``: the device
+seconds of each stage, from a pair of timing-enabled CUDA events a
+scope (wall seconds on the CPU), and two counters — ``host_wait_s``
+(the host blocked on the device: host_wait) and ``checkpoint_s``
+(checkpoint saves and journal lines: checkpoint_save).  Timers are
+bound only where something reads the record: by the caller that
+reads it, or by the search itself while the tracer is on (its device
+track); a search with tracing off records no event.  Events are read
+only where the program already waits for the device (resolve): an
+event not yet complete stays pending, and nothing here synchronizes
+or copies to the host.
 """
 
 from __future__ import annotations
@@ -43,6 +56,11 @@ _HEARTBEAT = os.environ.get("TPULSAR_STAGE_HEARTBEAT", "")
 # StageTimers instance
 _CUR_STAGE: list[tuple[str, float]] = []
 
+# the bound StageTimers a search block runs under (StageTimers.attached):
+# host_wait, checkpoint_save and resolve count into the innermost, so
+# the kernels' waits need no handle on it either
+_ACTIVE: list["StageTimers"] = []
+
 
 def _beat(stage: str = "", event: str = "", info: str = "") -> None:
     if not _HEARTBEAT:
@@ -74,19 +92,151 @@ def progress_beat(info: str = "") -> None:
         _beat(_CUR_STAGE[-1][0], "progress", info)
 
 
+def new_record() -> dict:
+    """An empty per-call record (see the module docstring)."""
+    return {"device_s": {}, "host_wait_s": 0.0, "checkpoint_s": 0.0}
+
+
+class _EventClock:
+    """Timing-enabled CUDA events on one device's current stream: a
+    pool (a scope takes two and resolve hands them back, so the hot
+    path allocates nothing once warm), the scopes whose closing event
+    has not been read yet, and the anchor that places device time on
+    the host clock: an event recorded when the stream was empty, right
+    after a wait, whose device time is therefore its host time.
+    ``event`` and ``stream`` make the events and read the current
+    stream (tests hand in fakes); the stream is read again at each
+    resolve, not at each scope, which would cost a scope more than its
+    two records."""
+
+    def __init__(self, device, event=None, stream=None):
+        import torch
+
+        index = device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        self.track = f"cuda:{index}"
+        self._event = event or (
+            lambda: torch.cuda.Event(enable_timing=True))
+        self._stream = stream or (
+            lambda: torch.cuda.current_stream(device))
+        self.stream = self._stream()
+        self.free: list = []
+        self.pending: list = []      # [stage, seq, e0, e1, seconds|None]
+        self.seq = 0
+        self.anchor = None           # (seq, event, unix seconds)
+
+    def record(self):
+        ev = self.free.pop() if self.free else self._event()
+        ev.record(self.stream)
+        self.seq += 1
+        return self.seq, ev
+
+    def _place(self, seq, ev) -> float | None:
+        """Unix seconds at which the device reached ``ev``, from a
+        complete anchor, else None."""
+        if self.anchor is None:
+            return None
+        a_seq, a_ev, a_t = self.anchor
+        if not a_ev.query():
+            return None
+        if a_seq < seq:
+            return a_t + a_ev.elapsed_time(ev) / 1e3
+        return a_t - ev.elapsed_time(a_ev) / 1e3
+
+    def resolve(self, record: dict, place: bool) -> None:
+        """Add each scope whose closing event has completed to
+        ``record``; with ``place``, also write it on the device track
+        once an anchor is complete.  Then refresh the anchor if the
+        stream is empty.  Only queries: never a wait."""
+        keep = []
+        dev_s = record["device_s"]
+        for item in self.pending:
+            stage, seq, e0, e1, secs = item
+            if secs is None:
+                if not e1.query():
+                    keep.append(item)
+                    continue
+                secs = item[4] = e0.elapsed_time(e1) / 1e3
+                dev_s[stage] = dev_s.get(stage, 0.0) + secs
+            if place:
+                t0 = self._place(seq, e0)
+                if t0 is None:
+                    keep.append(item)
+                    continue
+                trace.device_interval(stage, self.track, t0, secs)
+            self.free += (e0, e1)
+        self.pending = keep
+        self.stream = self._stream()
+        if self.stream.query():
+            ev = self.anchor[1] if self.anchor else self._event()
+            ev.record(self.stream)
+            self.seq += 1
+            self.anchor = (self.seq, ev, time.time())
+
+
 class StageTimers:
     def __init__(self) -> None:
         self.times: dict[str, float] = {s: 0.0 for s in STAGES}
         self._t0 = time.time()
+        self.record = new_record()
+        self.bound = False
+        self._clock: _EventClock | None = None
+
+    def bind(self, device, event=None, stream=None) -> None:
+        """Keep the record from now on: time the device work of later
+        scopes with CUDA events on ``device`` (a torch.device); on any
+        other device a scope's device seconds are its wall seconds.  A
+        device already bound stays.  ``event`` / ``stream``:
+        _EventClock's (tests hand in fakes)."""
+        if self.bound:
+            return
+        self.bound = True
+        if device.type == "cuda":
+            self._clock = _EventClock(device, event, stream)
+
+    def bind_if_traced(self, device) -> None:
+        """bind, while the tracer is on: its device track reads the
+        record.  Otherwise the timers stay as the caller made them."""
+        if trace.enabled():
+            self.bind(device)
+
+    @contextlib.contextmanager
+    def attached(self, device):
+        """The scope of a search block on ``device``: bound if traced
+        (bind_if_traced), and, while bound, the timers that host_wait /
+        checkpoint_save / drained count into, resolved once more at
+        exit.  Unbound timers pass straight through."""
+        self.bind_if_traced(device)
+        if not self.bound:
+            yield self
+            return
+        _ACTIVE.append(self)
+        try:
+            yield self
+        finally:
+            if _ACTIVE and _ACTIVE[-1] is self:
+                _ACTIVE.pop()
+            self.resolve()
+
+    def resolve(self) -> None:
+        """Read every completed scope into the record (see
+        _EventClock.resolve); call it only right after a wait the
+        program makes anyway."""
+        if self._clock is not None:
+            self._clock.resolve(self.record, trace.enabled())
 
     @contextlib.contextmanager
     def timing(self, stage: str):
         """One timed scope = one trace span + one histogram observation
         + the times[] accumulation: a trace-file rollup reproduces the
         .report totals (the JAX package's contract), and the .report
-        text is unchanged."""
+        text is unchanged.  On a bound device, a CUDA event at entry
+        and one at exit (record)."""
         self.times.setdefault(stage, 0.0)
         start = time.time()
+        clock = self._clock
+        seq0, ev0 = clock.record() if clock is not None else (0, None)
         _CUR_STAGE.append((stage, start))
         try:
             with trace.span(stage):
@@ -99,8 +249,14 @@ class StageTimers:
                           flush=True)
                 yield
         finally:
+            if clock is not None:
+                clock.pending.append([stage, seq0, ev0,
+                                      clock.record()[1], None])
             end = time.time()
             self.times[stage] += end - start
+            if clock is None and self.bound:
+                dev_s = self.record["device_s"]
+                dev_s[stage] = dev_s.get(stage, 0.0) + (end - start)
             telemetry.stage_seconds().observe(end - start, stage=stage)
             if _CUR_STAGE and _CUR_STAGE[-1][0] == stage:
                 _CUR_STAGE.pop()
@@ -145,3 +301,41 @@ class StageTimers:
                          "device; science complete):\n")
                 for flag, detail in sorted(rescued.items()):
                     fh.write(f"  {flag}: {detail}\n")
+
+
+@contextlib.contextmanager
+def host_wait(site: str, device):
+    """The host blocked on ``device`` (a synchronize, a device-to-host
+    copy): its seconds go to the active record's host_wait_s and a
+    span ``host-wait:<site>``.  On the CPU nothing waits: a plain
+    scope."""
+    if getattr(device, "type", None) != "cuda":
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        with trace.span("host-wait:" + site):
+            yield
+    finally:
+        if _ACTIVE:
+            _ACTIVE[-1].record["host_wait_s"] += time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def checkpoint_save():
+    """A checkpoint save or journal line of the active search block:
+    its seconds go to checkpoint_s and a span ``checkpoint-save``."""
+    t0 = time.perf_counter()
+    try:
+        with trace.span("checkpoint-save"):
+            yield
+    finally:
+        if _ACTIVE:
+            _ACTIVE[-1].record["checkpoint_s"] += time.perf_counter() - t0
+
+
+def drained() -> None:
+    """The active search block's host just waited for its device (the
+    hi stage's window drains): read its completed scopes."""
+    if _ACTIVE:
+        _ACTIVE[-1].resolve()
