@@ -34,7 +34,10 @@ phases:
      whitened spectra (dedispersed noise with a drifting pulse train):
      the bf16 plane against the f32 plane on the card, the card against
      the CPU's plain f32 on one row, the time a DM row (correlation and
-     harmonic sums split) against its bound, and peak memory;
+     the stage kernel with its top-k split) against its bound, and peak
+     memory; the stage kernel (csrc/accel_stage.cu) on one planned
+     batch's pieces in bf16 and in f32, exactly equal to its plain
+     version, timed against its bound;
   config 3 (cfg3_phase, after the ladder): BASELINE config 3 as
      bench.py runs it, on phase 1's block: dedisperse_pass of 32 DM
      trials (0-62, subdm 140, nsub 96, ds 1; both kernels also exact
@@ -44,14 +47,17 @@ phases:
      stage 1's top cell in every row, the default zmax-50 search
      weaker near it, the card against the CPU on 2^18 bins of a row, no
      refusal on the ladder; the batch rows, peak memory and the time a
-     DM row against its bound;
+     DM row against its bound; the stage kernel at these shapes, bf16
+     and f32, exactly equal to its plain version and timed;
   ladder: the hi stage's degradation ladder on that chunk
      (ladder_phase): (a) forced per-DM (TPULSAR_ACCEL_BATCH=0) against
      the batched run; (b) a ballast tensor that leaves room for one row
      but not for one planned batch, so every batch raises a real
      OutOfMemoryError, is retried once and degrades, its rows searched
-     per-DM on the card equal to (a), the batch breaker pinning the
-     per-DM path; (c) TPULSAR_FAULTS accel.row_dispatch:unimplemented:
+     per-DM on the card (a one-row batch through the stage kernel,
+     which needs less than the planned batch) equal to (a), the batch
+     breaker pinning the per-DM path; (c) TPULSAR_FAULTS
+     accel.row_dispatch:unimplemented:
      count=4, two rows refused twice and the ladder ending on the card
      (no host rescue for spectra on the card): the two rows zero-filled
      and recorded as lost, the rest equal to (a); (d) a poisoned
@@ -86,7 +92,11 @@ phases:
      plots off, one DDplan step of its 32 trials): the pulsar
      recovered and folded, all 32 trials through the hi stage, the
      kernels' launches as the plan and outcome require, peak memory
-     under 80 GiB, the .report's stages;
+     under 80 GiB, the .report's stages.  Both searches record the hi
+     stage's kernel launches by shape (StageShapes; every batched row
+     through the kernel), and after phase 8 the kernel is held to its
+     plain version exactly at each of those shapes, timed there
+     (stage_kernel_shapes), and once at its largest z-row count;
   5. resume (run beside phase 7's server, on phase 7's shorter beam,
      which keeps the smoke inside its time limit): phase 7's solo
      search's
@@ -444,7 +454,8 @@ def mock_spec(nsamp: int) -> synth.BeamSpec:
 def ptxas_report(build_log: str) -> dict:
     """Registers a thread and spill bytes of every kernel, from nvcc's
     -Xptxas -v report, printed one line each; returns name ->
-    registers (form_subbands<u8|f32>, dedisperse_subbands<R rows>)."""
+    registers (form_subbands<u8|f32>, dedisperse_subbands<R rows>,
+    accel_stage<f32|bf16, H harmonics>)."""
     names = {"form_subbands_kernelIhE": "form_subbands<u8>",
              "form_subbands_kernelIfE": "form_subbands<f32>"}
     out, name, spill = {}, None, ""
@@ -452,7 +463,11 @@ def ptxas_report(build_log: str) -> dict:
         m = re.search(r"entry function '([^']+)'", line)
         if m:
             r = re.search(r"dedisperse_kernelILi(\d+)EE", m.group(1))
+            a = re.search(r"accel_stage_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                          m.group(1))
             name = (f"dedisperse_subbands<{r.group(1)} rows>" if r else
+                    f"accel_stage<{'f32' if a.group(1) == 'f' else 'bf16'}"
+                    f", {a.group(2)} harmonics>" if a else
                     next((v for k, v in names.items() if k in m.group(1)),
                          m.group(1)))
         elif "spill" in line:
@@ -977,38 +992,176 @@ def hi_phase(data, freqs: np.ndarray) -> dict:
     log(f"hi stage card f32 vs CPU plain f32 (1 row): the same {topk} "
         f"cells in every stage, powers within {worst:.2e} (limit 2e-4)")
 
-    # time a DM row: the whole stage, then its two halves on one batch
+    # time a DM row: the whole stage, then its two parts on one batch
+    # of each plane dtype, the stage kernel checked exactly there (the
+    # default cell's ds-1 shape in f32, production's in bf16)
     t_chunk = time_ms(lambda: search(wspec), runs=3)
-    b = accel.plane_dm_chunk(nbins, nz, device=DEV)
-    bank_fft = torch.from_numpy(bank.bank_fft).to(DEV)
-    block = wspec[:b]
-
-    def corr():
-        return accel._correlate_block(block, bank_fft, bank.seg,
-                                      bank.step, bank.width, nz)
-
-    plane = corr()
-    stages = tuple(fr.harmonic_stages(mh))
-    t_corr = time_ms(corr, runs=3)
-    t_harm = time_ms(lambda: accel._stage_topk(
-        accel._harmonic_stage_maxes(plane, stages, nz), stages, topk),
-        runs=3)
-    del plane
+    stage = {}
+    for dt in ("bf16", "f32"):
+        os.environ["TPULSAR_ACCEL_PLANE_DTYPE"] = dt
+        try:
+            stage[dt] = stage_kernel_entry(
+                wspec, bank, mh, topk,
+                accel.plane_dm_chunk(nbins, nz, device=DEV),
+                "hi stage (default configuration, ds 1)")
+        finally:
+            del os.environ["TPULSAR_ACCEL_PLANE_DTYPE"]
+    b, e = stage["bf16"]["rows"], stage["bf16"]
     row_ms = t_chunk / nrows
     bnd, by = hi_row_bound_ms(nbins, nz, bank)
     log(f"hi stage time: {t_chunk:.3f} ms a {nrows}-row chunk, "
         f"{row_ms:.4f} ms a DM row (median of 3); batch of {b} rows: "
-        f"correlation {t_corr / b:.4f} ms a row, harmonic sums + top-k "
-        f"{t_harm / b:.4f} ms a row; bound {bnd:.4f} ms a row ({by}), "
-        f"share {bnd / row_ms:.4f}; peak memory {peak / 2**30:.3f} GiB "
-        f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} "
-        f"GiB held before the call)")
-    return dict(row_ms=row_ms, corr_row_ms=t_corr / b,
-                harm_row_ms=t_harm / b, bound_row_ms=bnd, bound_by=by,
+        f"correlation {e['corr_ms']:.4f} ms a row, stage kernel + top-k "
+        f"{e['kernel_topk_ms']:.4f} ms a row; bound {bnd:.4f} ms a row "
+        f"({by}), share {bnd / row_ms:.4f}; peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+        f"the {base / 2**30:.3f} GiB held before the call)")
+    return dict(row_ms=row_ms, corr_row_ms=e["corr_ms"],
+                harm_row_ms=e["kernel_topk_ms"], bound_row_ms=bnd,
+                bound_by=by, stage_kernel=stage,
                 batch_rows=b, peak_bytes=peak, peak_above_bytes=peak - base,
                 wspec=wspec, res_bf=res_bf,
                 dms=[float(d) for d in ppass.dms[:nrows]],
                 T_s=nfft * TSAMP)
+
+
+def stage_kernel_entry(wspec, bank, numharm: int, topk: int, rows: int,
+                       what: str) -> dict:
+    """The hi stage's stage kernel (cuda_dd.accel_stage_blocks) on the
+    correlation's pieces of the first `rows` spectra, in the plane
+    dtype set: one launch, whose block maxima, columns, z indices and
+    column 0's z index equal the plain version's exactly, and so does
+    the top-k the hi stage takes from them.  Times a row: the kernel
+    (median of 5), the kernel with its top-k, the correlation that
+    makes the pieces (median of 3) and the plain version (the exact
+    comparison's one call), against the bound: the pieces read once,
+    or the adds and compares of every column at every z."""
+    nz, nr = len(bank.zs), 2 * wspec.shape[1]
+    bank_fft = torch.from_numpy(bank.bank_fft).to(DEV)
+    block = wspec[:rows]
+    stages = tuple(fr.harmonic_stages(numharm))
+
+    def pieces_of():
+        return accel._corr_piece_list(block, bank_fft, bank.seg,
+                                      bank.step, bank.width, nz)
+
+    def kernel(p):
+        return cuda_dd.accel_stage_blocks(p, bank.width, nr, stages,
+                                          fr.BLOCK_R)
+
+    pieces = pieces_of()
+    before = cuda_dd.LAUNCHES["accel_stage"]
+    got = kernel(pieces)
+    torch.cuda.synchronize()
+    if cuda_dd.LAUNCHES["accel_stage"] != before + 1:
+        raise AssertionError(f"{what}: the stage kernel launched "
+                             f"{cuda_dd.LAUNCHES['accel_stage'] - before} "
+                             f"times, not once")
+    want, plain_ms = once_ms(lambda: accel._stage_blocks_plain(
+        pieces, bank.width, nr, stages, fr.BLOCK_R))
+    dtype = str(pieces[0].dtype).replace("torch.", "")
+    for name, x, y in zip(("bmax", "bcol", "bz", "zarg0"), got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}, {dtype}: the stage kernel's "
+                                 f"{name} differs from the plain "
+                                 f"version's")
+    for x, y in zip(accel._blocks_topk(got, stages, nr, topk),
+                    accel._stage_topk(accel._harmonic_stage_maxes(
+                        accel._assemble_plane(pieces, bank.width, nr),
+                        stages, nz), stages, topk)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}, {dtype}: the top-k of the "
+                                 f"stage kernel differs from the torch "
+                                 f"consumer's")
+    del want
+    k_ms = time_ms(lambda: kernel(pieces))
+    kt_ms = time_ms(lambda: accel._blocks_topk(kernel(pieces), stages, nr,
+                                               topk), runs=3)
+    corr_ms = time_ms(pieces_of, runs=3)
+    nbytes = sum(p.numel() * p.element_size() for p in pieces)
+    # adds and compares: column c takes the harmonics 1 .. top(c)
+    nops = nz * sum((nr // h) * (h - (h // 2 if h > 1 else 0))
+                    for h in stages)
+    bnd, by = bound_ms(nbytes / rows, nops / rows)
+    entry = dict(dtype=dtype, rows=rows, nz=nz, nbins=wspec.shape[1],
+                 stages=list(stages), kernel_ms=k_ms / rows,
+                 kernel_topk_ms=kt_ms / rows, corr_ms=corr_ms / rows,
+                 plain_ms=plain_ms / rows, bound_ms=bnd, bound_by=by,
+                 pieces_bytes=nbytes)
+    log(f"{what}, {dtype} pieces ({rows} row(s) x {nz} z x {nr} columns, "
+        f"stages {list(stages)}): the stage kernel equals the plain "
+        f"version exactly (blocks and top-k); a row: kernel "
+        f"{entry['kernel_ms']:.4f} ms, with its top-k "
+        f"{entry['kernel_topk_ms']:.4f} ms, bound {bnd:.4f} ms ({by}), "
+        f"share {bnd / entry['kernel_ms']:.4f}; correlation "
+        f"{entry['corr_ms']:.4f} ms; plain version {entry['plain_ms']:.4f} "
+        f"ms (one call)")
+    return entry
+
+
+def stage_kernel_shapes(shapes: dict, zmax: float, numharm: int,
+                        topk: int, ds_of: dict, what: str) -> list[dict]:
+    """Phase 1's check for the hi stage's kernel, at every shape a
+    search launched it (StageShapes.counts): at each (spectrum bins,
+    DM rows, plane dtype) the kernel on the correlation's pieces of
+    that many random spectra equals its plain version exactly
+    (stage_kernel_entry); per shape the search's launches there and,
+    per launch, the kernel's time, its plain version's and its
+    bound."""
+    bank = executor._get_bank(zmax)
+    nz, top = len(bank.zs), fr.harmonic_stages(numharm)[-1]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(24)
+    out = []
+    for (nbins, rows, dtype, knz, ktop), n in sorted(shapes.items()):
+        if (knz, ktop) != (nz, top):
+            raise AssertionError(f"{what}: the kernel ran at {knz} z rows "
+                                 f"and top stage {ktop}, not {nz} and "
+                                 f"{top}")
+        specs = torch.randn((rows, nbins), dtype=torch.complex64,
+                            device=DEV, generator=gen)
+        os.environ["TPULSAR_ACCEL_PLANE_DTYPE"] = \
+            {"bfloat16": "bf16", "float32": "f32"}[dtype]
+        try:
+            e = stage_kernel_entry(specs, bank, numharm, topk, rows,
+                                   f"{what}: hi stage at ds "
+                                   f"{ds_of.get(nbins)}")
+        finally:
+            del os.environ["TPULSAR_ACCEL_PLANE_DTYPE"]
+        del specs
+        out.append(dict(
+            ds=ds_of.get(nbins), nbins=nbins, rows=rows, dtype=dtype,
+            nz=nz, stages=e["stages"], launches=n, max_abs_err=0.0,
+            ms=e["kernel_ms"] * rows, plain_ms=e["plain_ms"] * rows,
+            bound_ms=e["bound_ms"] * rows, bound_by=e["bound_by"],
+            kernel_topk_ms=e["kernel_topk_ms"] * rows,
+            corr_ms=e["corr_ms"] * rows))
+    return out
+
+
+def stage_kernel_limit_check() -> None:
+    """The hi stage's kernel at its largest z-row count
+    (cuda_dd.ACCEL_STAGE_MAX_NZ, a shared table past the 48 KB a block
+    has without opting in), f32 and bf16: the launch runs and equals
+    its plain version exactly."""
+    nz, zc, width, nr, stages = cuda_dd.ACCEL_STAGE_MAX_NZ, 1000, 40, \
+        600, (1, 2, 4)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(nz)
+    for dtype in (torch.float32, torch.bfloat16):
+        pieces = [torch.rand((2, 3, min(zc, nz - z0), 200), generator=gen,
+                             device=DEV).to(dtype)
+                  for z0 in range(0, nz, zc)]
+        got = cuda_dd.accel_stage_blocks(pieces, width, nr, stages,
+                                         fr.BLOCK_R)
+        want = accel._stage_blocks_plain(pieces, width, nr, stages,
+                                         fr.BLOCK_R)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"the stage kernel at {nz} z rows "
+                                 f"({dtype}) differs from its plain "
+                                 f"version")
+    log(f"the stage kernel at its limit of {nz} z rows (f32, bf16): "
+        f"equal to its plain version")
 
 
 #: the hi stage's bf16-vs-f32 rule (hi_phase): the same top (r, z)
@@ -1121,33 +1274,48 @@ def ladder_phase(hi: dict) -> dict:
     # ---- (b) a real out-of-memory refusal of every batch
     b = accel.plane_dm_chunk(nbins, nz, device=DEV)
     plan = accel_batch.plan_batches(nrows, b)
-    bank_fft = torch.from_numpy(bank.bank_fft).to(DEV)
-    block = accel._pad_block(wspec, plan.padded_rows)
-    block_bytes = block.numel() * block.element_size()
 
-    def peak_of(fn) -> int:
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() - base
+    def need_of(forced: str | None) -> tuple[int, int]:
+        """A whole search of the chunk from the same allocator state,
+        by the planned batches or (forced "0") by the per-DM row
+        program: the device memory the allocator had to add at its
+        peak (the cached free blocks that live tensors keep in their
+        segments serve first, so they are counted as they are used),
+        and the bytes allocated above the start."""
+        if forced:
+            os.environ["TPULSAR_ACCEL_BATCH"] = forced
+        accel._reset_batch_state()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            res0 = torch.cuda.memory_reserved()
+            alloc0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            search(wspec)
+            return (torch.cuda.max_memory_reserved() - res0,
+                    torch.cuda.max_memory_allocated() - alloc0)
+        finally:
+            if forced:
+                del os.environ["TPULSAR_ACCEL_BATCH"]
+            accel._reset_batch_state()
 
-    kw = dict(seg=bank.seg, step=bank.step, width=bank.width, nz=nz,
-              max_numharm=mh, topk=topk)
-    batch_peak = peak_of(lambda: accel.accel_chunk_topk(
-        block, bank_fft, 0, nrows=plan.b, **kw))
-    row_peak = peak_of(lambda: accel.accel_row_topk(block, bank_fft, 0,
-                                                    **kw))
-    del block, bank_fft
-    if not row_peak < batch_peak:
-        raise AssertionError(f"ladder (b): a row ({row_peak} B) does not "
-                             f"need less than a batch ({batch_peak} B)")
+    batch_need, batch_peak = need_of(None)
+    row_need, row_peak = need_of("0")
+    slack = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    log(f"ladder (b): a search of the chunk by planned batches of "
+        f"{plan.b} rows adds {batch_need} B to the device memory held "
+        f"({batch_peak} B allocated at its peak), by per-DM rows "
+        f"{row_need} B ({row_peak} B); {slack} B cached and free in "
+        f"segments that live tensors hold")
+    if not (row_peak < batch_peak and row_need < batch_need):
+        raise AssertionError(f"ladder (b): a row ({row_need} B, "
+                             f"{row_peak} B) does not need less than a "
+                             f"batch ({batch_need} B, {batch_peak} B)")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
-    # room for the padded block the call makes and one row, not a batch
-    room = block_bytes + (row_peak + batch_peak) // 2
+    # room for the per-DM rows, not for a planned batch
+    room = (row_need + batch_need) // 2
     ballast = torch.empty(free0 - room, dtype=torch.uint8, device=DEV)
     accel._reset_batch_state()
     degraded.reset()
@@ -1179,10 +1347,11 @@ def ladder_phase(hi: dict) -> dict:
     if not _rows_equal(res_oom, res_a, rows):
         raise AssertionError("ladder (b): the degraded rows differ from "
                              "the forced per-DM run (a)")
-    log(f"ladder (b): peaks above the allocation: a batch of {plan.b} "
-        f"rows {batch_peak / 2**30:.3f} GiB, a row {row_peak / 2**30:.3f} "
-        f"GiB; ballast {(free0 - room) / 2**30:.3f} GiB left "
-        f"{room / 2**30:.3f} GiB free; {d_b['ooms']} OutOfMemoryErrors "
+    log(f"ladder (b): a search's peaks above the allocation: by batches "
+        f"of {plan.b} rows {batch_peak / 2**30:.3f} GiB, by per-DM rows "
+        f"{row_peak / 2**30:.3f} GiB; ballast "
+        f"{(free0 - room) / 2**30:.3f} GiB left {room / 2**30:.3f} GiB "
+        f"free; {d_b['ooms']} OutOfMemoryErrors "
         f"({refused} batches each refused on dispatch and on its "
         f"retry), the batched path "
         f"{'pinned' if pinned else 'not pinned'} (breaker {thresh}, "
@@ -1470,21 +1639,19 @@ def cfg3_phase(data, freqs: np.ndarray, regs: dict) -> dict:
         raise AssertionError(f"config 3: the ladder moved {moved}, "
                              f"degraded {snap}")
 
-    # the two halves of a DM row, on one batch of rows_bf rows
-    bank_fft = torch.from_numpy(bank.bank_fft).to(DEV)
-    block = wspec[:rows_bf]
-
-    def corr():
-        return accel._correlate_block(block, bank_fft, bank.seg,
-                                      bank.step, bank.width, nz)
-
-    plane = corr()
+    # the two parts of a DM row, on one batch of each plane dtype, the
+    # stage kernel checked exactly there
+    stage = {}
+    for dt in ("bf16", "f32"):
+        os.environ["TPULSAR_ACCEL_PLANE_DTYPE"] = dt
+        try:
+            stage[dt] = stage_kernel_entry(
+                wspec, bank, CFG3_NUMHARM, CFG3_TOPK,
+                accel.plane_dm_chunk(nbins, nz, device=DEV), "config 3")
+        finally:
+            del os.environ["TPULSAR_ACCEL_PLANE_DTYPE"]
     stages = tuple(fr.harmonic_stages(CFG3_NUMHARM))
-    t_corr = time_ms(corr, runs=3)
-    t_harm = time_ms(lambda: accel._stage_topk(
-        accel._harmonic_stage_maxes(plane, stages, nz), stages,
-        CFG3_TOPK), runs=3)
-    del plane, block, bank_fft, wspec
+    del wspec
     row_ms = t_bf / nrows
     bnd, by = hi_row_bound_ms(nbins, nz, bank)
     log(f"config 3 ({nrows} trials x {nbins} bins, nz {nz}, template "
@@ -1504,15 +1671,17 @@ def cfg3_phase(data, freqs: np.ndarray, regs: dict) -> dict:
     log(f"config 3 time: bf16 {t_bf:.3f} ms for {nrows} rows (the "
         f"checked call), {row_ms:.4f} ms a DM row; f32 {t_f32:.3f} ms; "
         f"plane_dm_chunk {rows_bf} row(s) a batch (bf16), {rows_f32} "
-        f"(f32); one batch: correlation {t_corr / rows_bf:.4f} ms a row, "
-        f"harmonic sums + top-k {t_harm / rows_bf:.4f} ms a row; bound "
+        f"(f32); one batch: correlation {stage['bf16']['corr_ms']:.4f} "
+        f"ms a row, stage kernel + top-k "
+        f"{stage['bf16']['kernel_topk_ms']:.4f} ms a row; bound "
         f"{bnd:.4f} ms a row ({by}), share {bnd / row_ms:.4f}; peak "
         f"memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
         f"above the {base / 2**30:.3f} GiB held before); ladder "
         f"{moved}, no refusal; {card_line()}; phase "
         f"{time.time() - t_phase:.1f} s")
-    return dict(row_ms=row_ms, corr_row_ms=t_corr / rows_bf,
-                harm_row_ms=t_harm / rows_bf, f32_ms=t_f32, bf16_ms=t_bf,
+    return dict(row_ms=row_ms, corr_row_ms=stage["bf16"]["corr_ms"],
+                harm_row_ms=stage["bf16"]["kernel_topk_ms"],
+                stage_kernel=stage, f32_ms=t_f32, bf16_ms=t_bf,
                 bound_row_ms=bnd, bound_by=by, batch_rows=rows_bf,
                 batch_rows_f32=rows_f32, peak_bytes=peak,
                 peak_above_bytes=peak - base, bf16_worst=bf_worst,
@@ -1536,21 +1705,27 @@ def cfg3_search_phase(fns: list[str], tmp: str, nsamp: int) -> dict:
         make_plots=False)
     torch.cuda.reset_peak_memory_stats()
     cuda_dd.reset_counts()
+    rows0 = _kernel_rows()
     t0 = time.time()
-    out = executor.search_beam(
-        fns, os.path.join(tmp, "cfg3_work"),
-        os.path.join(tmp, "cfg3_results"), params, zaplist=ZAPLIST,
-        plan=CFG3_PLAN, device="cuda")
-    torch.cuda.synchronize()
+    with StageShapes() as shapes:
+        out = executor.search_beam(
+            fns, os.path.join(tmp, "cfg3_work"),
+            os.path.join(tmp, "cfg3_results"), params, zaplist=ZAPLIST,
+            plan=CFG3_PLAN, device="cuda")
+        torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k: cuda_dd.LAUNCHES[k] for k in SOLO_KERNELS}
+    launches = {k: cuda_dd.LAUNCHES[k]
+                for k in SOLO_KERNELS + ("accel_stage",)}
     peak = torch.cuda.max_memory_allocated()
     n1, n2 = expected_launches(CFG3_PLAN, nsamp, out, params)
     want = {"form_subbands": sum(n1.values()),
             "dedisperse_subbands": sum(n2.values())}
-    if launches != want or min(launches.values()) < 1:
+    solo = {k: launches[k] for k in SOLO_KERNELS}
+    if solo != want or min(solo.values()) < 1:
         raise AssertionError(f"config 3 search: launches {launches}, "
                              f"expected {want}")
+    check_stage_launches(launches["accel_stage"], shapes.counts, rows0,
+                         "config 3 search")
     chunk = executor.pass_chunk_size(32, ddplan.choose_n(nsamp), params)
     check_hi_stage(32)
     check_pulsar(out.resultsdir, out.basenm, "config 3 search")
@@ -1570,7 +1745,7 @@ def cfg3_search_phase(fns: list[str], tmp: str, nsamp: int) -> dict:
     log("config 3 search .report stages: " + json.dumps(stages))
     return dict(wall_s=wall, launches=launches, n1=n1, n2=n2,
                 peak_bytes=peak, stages=stages, chunk=chunk,
-                nsamp=nsamp)
+                nsamp=nsamp, accel_shapes=shapes.counts)
 
 
 #: the tree phase's level budgets: the default (TPULSAR_TREE_BUDGET
@@ -1837,6 +2012,31 @@ class CallClock:
         return False
 
 
+class StageShapes:
+    """The hi stage's kernel launches by shape while active: (spectrum
+    bins, DM rows, plane dtype, z rows, top stage) -> launches, counted
+    by a wrapper of cuda_dd.accel_stage_blocks (kernels/accel.py calls
+    it through the module, so every batch and per-DM row is seen)."""
+
+    def __enter__(self):
+        self.counts: dict = {}
+        self._orig = orig = cuda_dd.accel_stage_blocks
+
+        def counted(pieces, width, nr, stages, block_r):
+            key = (nr // 2, pieces[0].shape[0],
+                   str(pieces[0].dtype).replace("torch.", ""),
+                   sum(p.shape[2] for p in pieces), int(stages[-1]))
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return orig(pieces, width, nr, stages, block_r)
+
+        cuda_dd.accel_stage_blocks = counted
+        return self
+
+    def __exit__(self, *exc):
+        cuda_dd.accel_stage_blocks = self._orig
+        return False
+
+
 def checkpoint_cost(ckdir: str, clock: CallClock,
                     what: str = "phase 4") -> dict:
     """Artifacts and bytes the manifest records, by kind, and the
@@ -1867,8 +2067,10 @@ def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan,
     ck4 = os.path.join(tmp, "ck4")
     torch.cuda.reset_peak_memory_stats()
     cuda_dd.reset_counts()
+    rows0 = _kernel_rows()
     t0 = time.time()
-    with CallClock(ckpt.CheckpointStore, "save") as clock:
+    with CallClock(ckpt.CheckpointStore, "save") as clock, \
+            StageShapes() as shapes:
         out = executor.search_beam(
             fns, os.path.join(tmp, "work"), os.path.join(tmp, "results"),
             PARAMS, zaplist=ZAPLIST, checkpoint_dir=ck4, device="cuda")
@@ -1904,6 +2106,8 @@ def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan,
             launches["dedisperse_subbands"] != exp2:
         raise AssertionError(f"launch counts {launches} != expected "
                              f"({exp1}, {exp2})")
+    check_stage_launches(launches["accel_stage"], shapes.counts, rows0,
+                         what)
     if not 0.0 <= out.masked_fraction < 0.2:
         raise AssertionError(f"masked fraction {out.masked_fraction} "
                              f"on a beam of clean noise")
@@ -1932,7 +2136,32 @@ def main_path_phase(fns: list[str], tmp: str, nsamp: int, plan,
     return dict(launches=launches, n1=n1, n2=n2, wall_s=wall,
                 peak_bytes=peak, stages=stages, checkpoint=cost,
                 resultsdir=out.resultsdir, ckdir=ck4, basenm=out.basenm,
-                outcome=out)
+                outcome=out, accel_shapes=shapes.counts)
+
+
+def _kernel_rows() -> tuple[float, float]:
+    """(DM rows the hi stage's kernel summed, trials the batched hi
+    stage delivered) so far in this process."""
+    return (telemetry.accel_kernel_rows_total().value(),
+            telemetry.accel_batch_trials_total().value(path="batched"))
+
+
+def check_stage_launches(launched: int, shapes: dict, rows0,
+                         what: str) -> None:
+    """A search on the card launched the hi stage's kernel at least
+    once, each launch seen by its StageShapes, and every batched DM row
+    went through it (kernel rows over batched rows 1.0, counted from
+    rows0 = _kernel_rows() before the search)."""
+    krows, brows = (b - a for a, b in zip(rows0, _kernel_rows()))
+    if launched < 1 or sum(shapes.values()) != launched or \
+            krows != brows:
+        raise AssertionError(f"{what}: the hi stage's kernel launched "
+                             f"{launched} times ({shapes} by shape) over "
+                             f"{krows} DM rows of {brows} batched")
+    by_shape = {str(k): v for k, v in sorted(shapes.items())}
+    log(f"{what}: the hi stage's kernel launched {launched} times, by "
+        f"(bins, rows, dtype, nz, top stage) {by_shape}; kernel rows "
+        f"over batched rows {krows}/{brows} = {krows / brows:.4f}")
 
 
 def check_hi_stage(ntrials: int) -> None:
@@ -2605,14 +2834,17 @@ def batch_finish(p7: dict, plan) -> dict:
     per_beam1 = sum(solo["n1"].values()) - s1       # refinement + folds
     want = {"form_subbands": s1 + 2 * per_beam1,
             "dedisperse_subbands": 2 * nref,
-            "dedisperse_subbands_beams": s2}
+            "dedisperse_subbands_beams": s2,
+            "accel_stage": 2 * solo["launches"]["accel_stage"]}
     served = counts["served"]
     log(f"phase 7 launches: {served} (expected form_subbands "
         f"{want['form_subbands']} = {s1} coalesced passes ({npass} in the "
         f"plan) + 2 x {per_beam1} refinement and fold passes; "
         f"dedisperse_subbands {want['dedisperse_subbands']} = 2 x {nref} "
         f"refinement rows; dedisperse_subbands_beams "
-        f"{want['dedisperse_subbands_beams']} = {s2} search chunks)")
+        f"{want['dedisperse_subbands_beams']} = {s2} search chunks; "
+        f"accel_stage {want['accel_stage']} = each beam's hi stage as "
+        f"in its solo search)")
     if served != want:
         raise AssertionError(f"phase 7: launch counts {served} != "
                              f"expected {want}")
@@ -4352,7 +4584,9 @@ def ops_phase(tmp: str, plan, p7: dict, chaos: dict, started: dict
         f"then {victim} flagged), `obs timeline|top|tail` in "
         f"{cmds_s:.3f} s; the timeline of {ct}: {chaos_chain}; the "
         f"phase {phase_s:.1f} s")
-    return dict(launches=got, wall_s=wall, stages=stages, cmds_s=cmds_s,
+    return dict(launches=dict(got, accel_stage=launches.get("accel_stage",
+                                                            0)),
+                wall_s=wall, stages=stages, cmds_s=cmds_s,
                 phase_s=phase_s, top_spans={n: roll[n]["seconds"]
                                             for n in top},
                 # the profile's parse runs beside phase 13
@@ -4606,6 +4840,7 @@ def mesh_phase(tmp: str, plan, p7: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {k: cuda_dd.LAUNCHES[k] for k in SOLO_KERNELS}
+    stage_launches = cuda_dd.LAUNCHES["accel_stage"]
     peak = torch.cuda.max_memory_allocated()
     snap, prov = degraded.snapshot(), degraded.provenance_snapshot()
     if snap or prov:
@@ -4632,8 +4867,8 @@ def mesh_phase(tmp: str, plan, p7: dict) -> dict:
     log(f"phase 13 (a) wall {wall:.3f} s (search_beam; phase 7's solo "
         f"{solo['wall_s']:.3f} s); stage seconds "
         + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    res.update(launches=launches, want=want, wall_a=wall, peak_bytes=peak,
-               stages=stages)
+    res.update(launches=dict(launches, accel_stage=stage_launches),
+               want=want, wall_a=wall, peak_bytes=peak, stages=stages)
 
     # the quarter beam's masked block, as search_beam reads it
     _obj, si, basenm, _plan, nsub, baryv, _id = executor._beam_geometry(
@@ -4901,11 +5136,14 @@ def slice_phase(nsamp: int) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def kernel_rows(s1, s2, s2b, n1: dict, n2: dict) -> list[dict]:
+def kernel_rows(s1, s2, s2b, n1: dict, n2: dict,
+                sk: list[dict]) -> list[dict]:
     """The kernels line: per shape the main path's launches at that
     shape, per beam the sums over those launches of each time (for
     the beam axis, per group of two BATCH_NSAMP beams at phase 7's
-    shapes: its launches there are set by _batch_shapes_entries)."""
+    shapes: its launches there are set by _batch_shapes_entries; for
+    the hi stage's kernel, sk, the launches phase 4 made at each shape
+    that stage_kernel_shapes checked)."""
     for x in s1:
         x["launches"] = n1.get(x["ds"], 0)
     for x in s2:
@@ -4921,7 +5159,13 @@ def kernel_rows(s1, s2, s2b, n1: dict, n2: dict) -> list[dict]:
             ("dedisperse_subbands_beams", s2b,
              "tpulsar/kernels/pallas_dd.py:68 (_kernel_roll, pallas_call "
              "at :205), with the beam axis of "
-             "tpulsar/kernels/beam_batch.py:248 (_dd_beams_scan_impl)")):
+             "tpulsar/kernels/beam_batch.py:248 (_dd_beams_scan_impl)"),
+            ("accel_stage", sk,
+             "no Pallas kernel: the hi stage's harmonic sums, z maxima "
+             "and block maxima, XLA in the JAX package "
+             "(tpulsar/kernels/accel.py::_harmonic_stage_maxes, the "
+             "reduction half of tpulsar/kernels/fourier.py::"
+             "blockmax_topk)")):
         tot = {k: sum(x["launches"] * x[k] for x in shapes)
                for k in ("ms", "plain_ms", "bound_ms")}
         by = {x["bound_by"] for x in shapes}
@@ -4931,7 +5175,9 @@ def kernel_rows(s1, s2, s2b, n1: dict, n2: dict) -> list[dict]:
             f"share {tot['bound_ms'] / tot['ms']:.3f}")
         rows.append(dict(
             name=name, route="cuda",
-            source="tpulsar_torch/csrc/dedisperse.cu", replaces=replaces,
+            source=("tpulsar_torch/csrc/accel_stage.cu" if shapes is sk
+                    else "tpulsar_torch/csrc/dedisperse.cu"),
+            replaces=replaces,
             max_abs_err=max(x["max_abs_err"] for x in shapes),
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=tot["bound_ms"],
@@ -4989,23 +5235,35 @@ def main() -> None:
     res = slice_phase(nsamp)
     mark("phase 8: stream")
     stream = stream_phase()
-    rows = kernel_rows(s1, s2, s2b, res["n1"], res["n2"])
+    mark("phase 4: the hi stage's kernel at the searches' shapes")
+    plan = ddplan.survey_plan("pdev")
+    ds_of = {ddplan.choose_n(nsamp // st.downsamp) // 2 + e: st.downsamp
+             for st in plan for e in (0, 1)}
+    sk = stage_kernel_shapes(res["accel_shapes"], PARAMS.hi_accel_zmax,
+                             PARAMS.hi_accel_numharm, PARAMS.topk_per_stage,
+                             ds_of, "phase 4")
+    sk3 = stage_kernel_shapes(res["cfg3"]["accel_shapes"], CFG3_ZMAX,
+                              CFG3_NUMHARM, CFG3_TOPK,
+                              {ddplan.choose_n(nsamp) // 2 + e: 1
+                               for e in (0, 1)}, "config 3 search")
+    stage_kernel_limit_check()
+    rows = kernel_rows(s1, s2, s2b, res["n1"], res["n2"], sk)
     for r in rows:
         # each path counted from 0: the full beam (phase 4), the
         # resumed search (phase 5), the served beam and the served
         # batch (phases 6 and 7, after each server's boot; on phase
         # 7's beam, BATCH_NSAMP long)
         name = r["name"]
-        r["launches_resumed"] = res["resume"]["launches"][name]
-        r["launches_served"] = res["serve"]["launches"][name]
-        r["launches_batch"] = res["batch"]["launches"][name]
+        r["launches_resumed"] = res["resume"]["launches"].get(name, 0)
+        r["launches_served"] = res["serve"]["launches"].get(name, 0)
+        r["launches_batch"] = res["batch"]["launches"].get(name, 0)
         # the pipeline's job (phase 9): the retried attempt, counted
         # from its process start, and the killed first attempt's
         r["launches_pipeline"] = res["pipeline"]["launches"].get(name, 0)
         r["launches_pipeline_killed"] = res["pipeline"][
             "launches_first"].get(name, 0)
         # and the served stream session of phase 8 (after boot)
-        r["launches_stream"] = stream["launches_served"][name]
+        r["launches_stream"] = stream["launches_served"].get(name, 0)
         # the mesh search of phase 13 (a): phase 7's beam on
         # MESH_SHARDS logical shards of the card
         r["launches_mesh"] = res["mesh"]["launches"].get(name, 0)
@@ -5032,7 +5290,26 @@ def main() -> None:
                                  if name == "form_subbands" else
                                  s3["n2"].get((entry["rows"], 1), 0))
             r["cfg3"] = entry
-        if name == "dedisperse_subbands":
+        if name == "accel_stage":
+            # every path that searches the hi stage on the card: not
+            # the stream, which has none, nor the chaos storm's
+            # survivors, whose takeover may find every search pass
+            # done and run only the finishing (its count is reported);
+            # config 3: phase 4's config 3 search, its shapes checked
+            # as phase 4's
+            r["launches"] = res["launches"][name]
+            r["launches_cfg3"] = res["cfg3"]["launches"][name]
+            r["cfg3"] = dict(shapes=sk3, launches=r["launches_cfg3"],
+                             **{k: sum(x["launches"] * x[k] for x in sk3)
+                                for k in ("ms", "plain_ms", "bound_ms")})
+            paths = tuple(k for k in solo_paths if k not in (
+                "launches_chaos", "launches_cfg3_focused"))
+            per_shape = sum(x["launches"] for x in r["shapes"])
+            if per_shape != r["launches"]:
+                raise AssertionError(f"{name}: the checked shapes carry "
+                                     f"{per_shape} launches, phase 4 "
+                                     f"made {r['launches']}")
+        elif name == "dedisperse_subbands":
             r["launches"] = res["launches"][name]
             paths = solo_paths + ("launches_stream",)
             # phase 13 (c): the kernel in its mesh caller, _dd_local,

@@ -314,3 +314,182 @@ def test_bf16_plane_picks_the_same_cell_within_one_percent(monkeypatch):
         assert (f32[h][1][i], f32[h][2][i]) == (bf16[h][1][j],
                                                 bf16[h][2][j])
         assert bf16[h][0][j] == pytest.approx(f32[h][0][i], rel=0.01)
+
+
+# ------------------------------------------- the card's stage kernel
+
+#: template banks of the stage-kernel cases, by zmax (seg 2^11)
+_STAGE_BANKS: dict = {}
+
+#: (zmax, max_numharm, nbins, plane dtype, z chunk): nz 51 and 201 at
+#: each of their stage sets, a ragged spectrum (777 bins), a plane of
+#: fewer blocks than k (300 bins), the card's z chunk of 4, and bf16
+#: pieces; every case's last z chunk is ragged (51 and 201 rows)
+STAGE_CASES = ([(50.0, mh, 3000, "f32", 16) for mh in (1, 2, 4, 8)]
+               + [(200.0, mh, 2500, "f32", 16) for mh in (1, 2, 4, 8, 16)]
+               + [(50.0, 8, 777, "f32", 4), (50.0, 4, 300, "f32", 16),
+                  (50.0, 8, 3000, "bf16", 4),
+                  (200.0, 16, 2500, "bf16", 16)])
+
+
+def _stage_bank(zmax: float):
+    if zmax not in _STAGE_BANKS:
+        _STAGE_BANKS[zmax] = ta.build_template_bank(zmax, seg=1 << 11)
+    return _STAGE_BANKS[zmax]
+
+
+def _assert_same(got, want) -> None:
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("zmax, mh, nbins, dtype, zchunk", STAGE_CASES)
+def test_stage_kernel_plain_version_equals_both_consumers(
+        zmax, mh, nbins, dtype, zchunk, monkeypatch):
+    """The stage kernel's plain version accel._stage_blocks_plain (to
+    which the card's kernel is held exactly), through
+    accel._blocks_topk, equals the torch consumer _accel_block_topk
+    on the same spectra and, on f32 pieces, the native consumer on the
+    same pieces, bit for bit; a stage's blocks past its count hold
+    -inf, 0, 0, and the width pad's blocks of stage 1 read 0 at their
+    first column and z 0."""
+    from tpulsar_torch import native
+    from tpulsar_torch.kernels import fourier as tfr
+
+    monkeypatch.setenv("TPULSAR_ACCEL_PLANE_DTYPE", dtype)
+    monkeypatch.setenv("TPULSAR_ACCEL_Z_CHUNK", str(zchunk))
+    tb = _stage_bank(zmax)
+    nz, width, nr, topk = len(tb.zs), tb.width, 2 * nbins, 16
+    specs = torch.from_numpy(_specs(nd=2, nbins=nbins, seed=nbins,
+                                    tones=((nbins // 4, 6.0),)))
+    bf = torch.from_numpy(tb.bank_fft)
+    args = (tb.seg, tb.step, tb.width, nz)
+    pieces = ta._corr_piece_list(specs, bf, *args)
+    assert pieces[-1].shape[2] == nz % zchunk
+    assert pieces[0].dtype == ta.plane_dtype("cpu")
+    stages = tuple(tfr.harmonic_stages(mh))
+    blocks = ta._stage_blocks_plain(pieces, width, nr, stages,
+                                    tfr.BLOCK_R)
+    got = ta._blocks_topk(blocks, stages, nr, topk)
+    _assert_same(got, ta._accel_block_topk(specs, bf, *args, mh, topk))
+    if dtype == "f32":
+        want = native.accel_stage_topk_zsegs(
+            [p.numpy() for p in pieces], width, nr, stages, tfr.BLOCK_R,
+            topk)
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g.numpy(), w)
+    bmax, bcol, bz, zarg0 = blocks
+    assert bmax.shape == (2, len(stages), -(-nr // tfr.BLOCK_R))
+    for i, h in enumerate(stages):
+        nb = -(-(nr // h) // tfr.BLOCK_R)
+        assert torch.isneginf(bmax[:, i, nb:]).all()
+        assert not bcol[:, i, nb:].any() and not bz[:, i, nb:].any()
+        assert (bmax[:, i, :nb] >= 0).all()
+    pad = width // tfr.BLOCK_R
+    assert pad >= 2 and not bmax[:, 0, :pad].any() and not zarg0.any()
+    assert torch.equal(bcol[:, 0, :pad],
+                       torch.arange(pad, dtype=torch.int32).expand(2, pad)
+                       * tfr.BLOCK_R)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage_kernel_plain_version_keeps_the_tie_rules(dtype):
+    """Pieces of small integers tie in nearly every z maximum and block
+    maximum: the plain version equals the torch consumer on the
+    assembled plane (first z, first column, stable top-k) and, on f32,
+    the native consumer; 6 blocks against k = 8 pad with column 0's z."""
+    from tpulsar_torch import native
+    from tpulsar_torch.kernels import fourier as tfr
+
+    rng = np.random.default_rng(5)
+    nd, nsegs, two_step, width, stages, topk = 2, 3, 96, 40, (1, 2, 4), 8
+    pieces = [torch.from_numpy(rng.integers(
+        0, 3, (nd, nsegs, zc, two_step)).astype(np.float32)).to(dtype)
+        for zc in (4, 4, 4, 1)]
+    nz, nr = 13, width + nsegs * two_step - 5
+    blocks = ta._stage_blocks_plain(pieces, width, nr, stages,
+                                    tfr.BLOCK_R)
+    got = ta._blocks_topk(blocks, stages, nr, topk)
+    plane = ta._assemble_plane(pieces, width, nr)
+    _assert_same(got, ta._stage_topk(
+        ta._harmonic_stage_maxes(plane, stages, nz), stages, topk))
+    if dtype == torch.float32:
+        want = native.accel_stage_topk_zsegs(
+            [p.numpy() for p in pieces], width, nr, stages, tfr.BLOCK_R,
+            topk)
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_stage_kernel_wrapper_refuses_what_the_kernel_does_not_take():
+    """The wrapper checks a call as the kernel takes it, on either
+    device (cuda_dd._accel_stage_args): pieces of one dtype (float32 or
+    bfloat16) and layout with a last chunk of 1..zc rows, at most
+    ACCEL_STAGE_MAX_NZ z rows, the stages 1, 2, 4, ... up to 32, a
+    block of 32, 64, 128 or 256 columns, and a plane that the pieces
+    cover; then it refuses pieces off the card and launches nothing
+    (the plain version is accel._stage_blocks_plain)."""
+    from tpulsar_torch.kernels import cuda_dd
+
+    ok, last = torch.zeros((1, 2, 4, 16)), torch.zeros((1, 2, 3, 16))
+    limit = cuda_dd.ACCEL_STAGE_MAX_NZ
+    assert cuda_dd._accel_stage_args([ok, last], 8, 40, (1, 2), 64) \
+        == (7, 4)
+    assert cuda_dd._accel_stage_args([torch.zeros((1, 1, limit, 16))], 8,
+                                     20, (1,), 64) == (limit, limit)
+    before = cuda_dd.LAUNCHES["accel_stage"]
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_dd.accel_stage_blocks([ok, last], 8, 40, (1, 2), 64)
+    assert cuda_dd.LAUNCHES["accel_stage"] == before
+    big = torch.zeros((1, 1, limit + 1, 16))
+    for pieces, width, nr, stages, block_r in (
+            ([], 8, 40, (1, 2), 64),
+            ([ok, torch.zeros((1, 2, 5, 16))], 8, 40, (1, 2), 64),
+            ([ok, torch.zeros((1, 2, 3, 8))], 8, 40, (1, 2), 64),
+            ([ok, last.to(torch.bfloat16)], 8, 40, (1, 2), 64),
+            ([ok.double()], 8, 40, (1, 2), 64),
+            ([big], 8, 20, (1,), 64),
+            ([ok, last], 8, 40, (1, 3), 64),
+            ([ok, last], 8, 40, (2, 4), 64),
+            ([ok, last], 8, 40, (1, 2, 4, 8, 16, 32, 64), 64),
+            ([ok, last], 8, 40, (1, 2), 48),
+            ([ok, last], 8, 40, (1, 2), 512),
+            ([ok, last], 8, 8, (1, 2), 64),
+            ([ok, last], 8, 8 + 2 * 16 + 1, (1, 2), 64)):
+        with pytest.raises(ValueError):
+            cuda_dd._accel_stage_args(pieces, width, nr, stages, block_r)
+
+
+def test_kernel_rows_counter_counts_the_batched_rows_the_kernel_wrote(
+        monkeypatch):
+    """tpulsar_accel_kernel_rows_total counts the batched DM rows of
+    spectra on the card, where every batch goes through the stage
+    kernel (tests/test_torch_accel_stage.py reads 1.0 of the batched
+    trials there): on the CPU, by the torch consumer (pinned by
+    TPULSAR_ACCEL_BATCH=1) or the native one, it stays at 0 while the
+    batched trials count every row, the clamped tail's once."""
+    from tpulsar_torch.obs import telemetry
+
+    def counts():
+        return (telemetry.accel_kernel_rows_total().value(),
+                telemetry.accel_batch_trials_total().value(path="batched"))
+
+    specs = torch.from_numpy(_specs(nd=5, nbins=2000, seed=9))
+    _jb, tb = _bank()
+    k0, b0 = counts()
+    native_out = ta.accel_search_batch(specs, tb, max_numharm=2, topk=4,
+                                       dm_chunk=2)
+    k1, b1 = counts()
+    monkeypatch.setenv("TPULSAR_ACCEL_BATCH", "1")
+    ta._reset_batch_state()
+    try:
+        out = ta.accel_search_batch(specs, tb, max_numharm=2, topk=4,
+                                    dm_chunk=2)
+        k2, b2 = counts()
+    finally:
+        ta._reset_batch_state()
+    assert (k1 - k0, b1 - b0) == (0, 5)
+    assert (k2 - k1, b2 - b1) == (0, 5)
+    for h in out:
+        for i in range(3):
+            np.testing.assert_array_equal(out[h][i], native_out[h][i])

@@ -282,11 +282,12 @@ def _excused_names(doc) -> list[tuple[str, str]]:
 def test_committed_tree_is_clean(capsys):
     """`python -m tpulsar_torch lint` exits 0 on the repo, 5 of the 6
     checkers run (bench-keys not, and says why), and the findings it
-    excuses are exactly the 8 PORT_DIFFERENCES entries, each once
+    excuses are exactly the 9 PORT_DIFFERENCES entries, each once
     (the compile-cache families and TPULSAR_CACHE_DIR left the list
     with the AOT layer, TPULSAR_PROFILE with the port's profiler;
     TPULSAR_TRACE_SYNC joined it when the port's device time came to
-    CUDA events)."""
+    CUDA events, tpulsar_accel_kernel_rows_total with the hi stage's
+    CUDA stage kernel)."""
     report = tcore.lint(REPO_ROOT)
     assert report.findings == [], "\n".join(
         f.render() for f in report.findings)
@@ -300,7 +301,7 @@ def test_committed_tree_is_clean(capsys):
     assert list(doc["not_run"]) == ["bench-keys"]
     assert _excused_names(doc) == sorted(
         (d.checker, d.name) for d in tcheckers.PORT_DIFFERENCES)
-    assert len(doc["excused"]) == len(tcheckers.PORT_DIFFERENCES) == 8
+    assert len(doc["excused"]) == len(tcheckers.PORT_DIFFERENCES) == 9
 
 
 def test_stale_port_difference_is_a_finding(monkeypatch):

@@ -242,7 +242,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
                                       np.zeros((3, 2), np.int32))
     assert cuda_dd.LAUNCHES == {"form_subbands": 0,
                                 "dedisperse_subbands": 0,
-                                "dedisperse_subbands_beams": 0}
+                                "dedisperse_subbands_beams": 0,
+                                "accel_stage": 0}
 
 
 @pytest.fixture

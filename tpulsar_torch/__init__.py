@@ -20,7 +20,9 @@ reference (stage-1 subband formation and stage-2 shift-and-sum
 dedispersion) are CUDA kernels written for Hopper
 (``tpulsar_torch/csrc/dedisperse.cu``, bound in
 ``tpulsar_torch/kernels/cuda_dd.py``), which the search, refinement,
-folding and the stream's emissions all call.
+folding and the stream's emissions all call; the hi stage's harmonic
+sums, z maxima and block maxima are a third CUDA kernel
+(``tpulsar_torch/csrc/accel_stage.cu``, XLA in the reference).
 
 Every public entry point that computes takes ``device=`` (the job:
 ``--device``) and defaults to ``"cuda"``; the control plane (the

@@ -559,4 +559,10 @@ PORT_DIFFERENCES = (
         "the port's device time per stage comes from CUDA events "
         "(search/report.py), which need no fence",
         "none: left out on purpose"),
+    PortDifference(
+        "metrics", "tpulsar_accel_kernel_rows_total",
+        "the port's own family: the DM rows the hi stage's CUDA stage "
+        "kernel (csrc/accel_stage.cu) consumed; the JAX package, which "
+        "docs/operations.md describes, has no such kernel",
+        "none: the port's own kernel"),
 )

@@ -2,7 +2,7 @@
 tpulsar/aot/cachedir.py.
 
 The port's compiled artifacts are its two shared libraries (the nvcc
-build of csrc/dedisperse.cu, the g++ build of native/*.cpp), their
+build of csrc/*.cu, the g++ build of native/*.cpp), their
 ptxas reports and the AOT manifest.  Every layer that reads or writes
 them routes through :func:`resolve`:
 

@@ -69,8 +69,9 @@ PROGRAMS: tuple[Program, ...] = (
         target="sm_90a", context="_device_tag", load="_load",
         sites=("tpulsar_torch/kernels/cuda_dd.py::_compile",
                "tpulsar_torch/kernels/cuda_dd.py::_load"),
-        doc="stage 1 and stage 2 of the dedispersion "
-            "(csrc/dedisperse.cu), nvcc"),
+        doc="stage 1 and stage 2 of the dedispersion and the hi "
+            "stage's stage kernel (csrc/dedisperse.cu, "
+            "csrc/accel_stage.cu), nvcc"),
 )
 
 

@@ -1,13 +1,19 @@
-"""The stage-1 and stage-2 dedispersion kernels: build, bind, launch.
+"""The port's CUDA kernels: the stage-1 and stage-2 dedispersion
+kernels and the hi stage's stage kernel: build, bind, launch.
 
 Counterpart of tpulsar/kernels/pallas_dd.py.  The CUDA sources are in
-tpulsar_torch/csrc/dedisperse.cu (the design notes are there):
+tpulsar_torch/csrc/ (the design notes are there):
 
   form_subbands        <- pallas_dd._kernel_sb   (via _form_subbands_block)
   dedisperse_subbands  <- pallas_dd._kernel_roll (via _dedisperse_chunk)
   dedisperse_subbands_beams  the same stage-2 kernel with a beam axis
                        (gridDim.y = B), for the batch-of-beams path
                        (the reference's beam_batch._dd_beams_scan)
+  accel_stage_blocks   csrc/accel_stage.cu, no Pallas kernel: the hi
+                       stage's harmonic sums, z maxima and block maxima
+                       read from the correlation's pieces (XLA in the
+                       JAX package; kernels/accel.py calls it for every
+                       batch and per-DM row of the hi stage on the card)
 
 The library is compiled for sm_90a with nvcc at first use, from the
 sources in this checkout only, into the build directory
@@ -41,7 +47,8 @@ import torch
 from tpulsar_torch.aot import cachedir, warmstart
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = [os.path.join(_PKG, "csrc", "dedisperse.cu")]
+SOURCES = [os.path.join(_PKG, "csrc", "dedisperse.cu"),
+           os.path.join(_PKG, "csrc", "accel_stage.cu")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -54,10 +61,14 @@ DD_STAGES = 2
 DD_SUB_PER_STAGE = 8
 #: shared memory one block may use on Hopper (bytes)
 MAX_SMEM = 232_448
+#: z rows the stage kernel takes at most, as in accel_stage.cu (its
+#: shared table of row pointers and strides, 16 B a row, past the
+#: 48 KB a block has without opting in)
+ACCEL_STAGE_MAX_NZ = 3072
 
 #: launches per kernel since the last reset_counts()
 LAUNCHES = {"form_subbands": 0, "dedisperse_subbands": 0,
-            "dedisperse_subbands_beams": 0}
+            "dedisperse_subbands_beams": 0, "accel_stage": 0}
 #: library lookups in this process, of this library and the native
 #: one: "hits" found a library built, "misses" compiled one (the
 #: counterpart of the JAX package's compile-cache hits and misses;
@@ -146,6 +157,14 @@ def _load():
         lib.dd_form_subbands_smem_bytes.restype = L
         lib.dd_blocks_per_sm.argtypes = [I, I, L]
         lib.dd_blocks_per_sm.restype = I
+        lib.accel_stage_blocks.argtypes = [I, P, I, I, I, L, L, L, L, L,
+                                           I, I, P, P, P, P, P]
+        lib.accel_stage_blocks.restype = I
+        lib.accel_stage_max_nz.argtypes = []
+        lib.accel_stage_max_nz.restype = I
+        if lib.accel_stage_max_nz() != ACCEL_STAGE_MAX_NZ:
+            raise RuntimeError("kernel library disagrees with "
+                               "ACCEL_STAGE_MAX_NZ")
         if lib.dd_group_rows() != DD_GROUP_ROWS or any(
                 lib.dd_dedisperse_smem_bytes(nsub, span)
                 != stage2_smem_bytes(nsub, span)
@@ -463,3 +482,92 @@ def dedisperse_subbands_plain(subb: torch.Tensor,
         starts = np.minimum(sh[:, s], pad)
         acc += torch.stack([row[int(x): int(x) + T] for x in starts])
     return acc
+
+
+# ------------------------------------------------------ hi stage
+
+def _accel_stage_args(pieces, width: int, nr: int, stages,
+                      block_r: int) -> tuple[int, int]:
+    """Check a stage-kernel call's inputs, as the kernel takes them on
+    either device; return (nz, zchunk)."""
+    what = "accel_stage_blocks"
+    if not pieces or not all(isinstance(p, torch.Tensor) and p.dim() == 4
+                             for p in pieces):
+        raise ValueError(f"{what}: a list of 4-d piece tensors expected")
+    p0 = pieces[0]
+    if p0.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: dtype {p0.dtype} not taken (float32 "
+                         f"or bfloat16)")
+    nd, nsegs, zchunk, two_step = p0.shape
+    nz = 0
+    for i, p in enumerate(pieces):
+        if p.dtype != p0.dtype or p.device != p0.device \
+                or (p.shape[0], p.shape[1], p.shape[3]) \
+                != (nd, nsegs, two_step) \
+                or (i < len(pieces) - 1 and p.shape[2] != zchunk) \
+                or not 1 <= p.shape[2] <= zchunk:
+            raise ValueError(f"{what}: piece {i} ({p.dtype} {tuple(p.shape)}"
+                             f" on {p.device}) does not follow piece 0")
+        nz += p.shape[2]
+    if nz > ACCEL_STAGE_MAX_NZ:
+        raise ValueError(f"{what}: {nz} z rows (> {ACCEL_STAGE_MAX_NZ})")
+    stages = [int(h) for h in stages]
+    top = stages[-1] if stages else 0
+    if not 1 <= top <= 32 or stages != [1 << i for i in
+                                         range(top.bit_length())]:
+        raise ValueError(f"{what}: stages must be 1, 2, 4, ... up to at "
+                         f"most 32, got {list(stages)}")
+    if block_r < 32 or block_r % 32 or 256 % block_r:
+        raise ValueError(f"{what}: block_r {block_r} not taken (32, 64, "
+                         f"128 or 256)")
+    if not width < nr <= width + nsegs * two_step or nr > 2**31 - 512:
+        raise ValueError(f"{what}: {nr} plane columns do not fit width "
+                         f"{width} and {nsegs} x {two_step} valid bins")
+    return nz, zchunk
+
+
+def accel_stage_blocks(pieces, width: int, nr: int, stages,
+                       block_r: int):
+    """The hi stage's harmonic-stage sums, z maxima and block maxima of
+    a DM batch, read from the correlation's power pieces split by z
+    chunk (kernels/accel.py::_corr_piece_list: every chunk (nd, nsegs,
+    zc, 2*step) but the last, which holds the remaining 1..zc z rows),
+    in one launch; no plane is assembled.  ``stages`` are 1, 2, 4, ...
+    (fourier.harmonic_stages), ``nr`` the plane's 2*nbins columns, the
+    first ``width`` of them the zero pad.  Returns (bmax, bcol, bz,
+    zarg0): per DM row, stage and block of ``block_r`` columns of the
+    stage's nr // h, the largest z maximum of the summed power, its
+    column and that column's z index, (nd, nstages, ceil(nr /
+    block_r)) each, a block past the stage's own count holding -inf,
+    0, 0; and each stage's z index at column 0, (nd, nstages).  Pieces
+    on the card only; the plain version, to which the kernel is held bit
+    for bit, is kernels/accel.py::_stage_blocks_plain."""
+    nz, zchunk = _accel_stage_args(pieces, width, nr, stages, block_r)
+    if not _check_device(pieces[0], "accel_stage_blocks"):
+        raise ValueError("accel_stage_blocks: pieces on a CUDA device "
+                         "expected")
+    if not all(p.is_contiguous() for p in pieces):
+        raise ValueError("accel_stage_blocks: pieces must be contiguous")
+    lib = _load()
+    dev = pieces[0].device
+    nd, nsegs, _zc, two_step = pieces[0].shape
+    ns, nb1 = len(stages), -(-nr // block_r)
+    bmax = torch.empty((nd, ns, nb1), dtype=torch.float32, device=dev)
+    bcol = torch.empty((nd, ns, nb1), dtype=torch.int32, device=dev)
+    bz = torch.empty((nd, ns, nb1), dtype=torch.int32, device=dev)
+    zarg0 = torch.empty((nd, ns), dtype=torch.int32, device=dev)
+    # the chunks' pointer table, copied on the stream from pinned
+    # memory (the host allocator keeps the buffer until the copy ran)
+    table = torch.tensor([p.data_ptr() for p in pieces],
+                         dtype=torch.int64).pin_memory().to(
+                             dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check(lib.accel_stage_blocks(
+            int(pieces[0].dtype == torch.bfloat16), table.data_ptr(),
+            len(pieces), zchunk, nz, nd, nsegs, two_step, width, nr,
+            int(stages[-1]), block_r, bmax.data_ptr(), bcol.data_ptr(),
+            bz.data_ptr(), zarg0.data_ptr(), stream),
+            "accel_stage_blocks")
+    LAUNCHES["accel_stage"] += 1
+    return bmax, bcol, bz, zarg0

@@ -282,13 +282,11 @@ def harmonic_sum(powers: torch.Tensor, numharm: int) -> torch.Tensor:
 BLOCK_R = 64
 
 
-def blockmax_topk(summed: torch.Tensor, topk: int, block_r: int = BLOCK_R):
-    """Hierarchical top-k over the last axis: max-reduce fixed r
-    blocks (keeping the first argmax), then top-k over the block
-    maxima.  Ties rank as jax.lax.top_k ranks them: larger value
-    first, then lower index (a stable descending sort).  Returns
-    (vals, bins) of shape (..., k), zero-padded when fewer than k
-    blocks exist."""
+def block_maxima(summed: torch.Tensor, block_r: int = BLOCK_R):
+    """The reduction half of blockmax_topk: the maximum of each block
+    of block_r entries of the last axis (the ragged last block padded
+    with -inf) and its first argmax within the block.  Returns (bmax,
+    barg) of shape (..., ceil(L / block_r))."""
     L = summed.shape[-1]
     nb = -(-L // block_r)
     pad = nb * block_r - L
@@ -296,12 +294,28 @@ def blockmax_topk(summed: torch.Tensor, topk: int, block_r: int = BLOCK_R):
         summed = torch.nn.functional.pad(summed, (0, pad),
                                          value=float("-inf"))
     resh = summed.reshape(*summed.shape[:-1], nb, block_r)
-    bmax = resh.amax(dim=-1)
-    barg = resh.argmax(dim=-1)
-    k = min(topk, nb)
+    return resh.amax(dim=-1), resh.argmax(dim=-1)
+
+
+def topk_of_blocks(bmax: torch.Tensor, topk: int):
+    """The selection half of blockmax_topk: the min(topk, nb) largest
+    block maxima of the last axis and their block indices, ranked as
+    jax.lax.top_k ranks them (a stable descending sort)."""
+    k = min(topk, bmax.shape[-1])
     order = torch.sort(bmax, dim=-1, descending=True, stable=True)
-    vals = order.values[..., :k]
-    blk = order.indices[..., :k]
+    return order.values[..., :k], order.indices[..., :k]
+
+
+def blockmax_topk(summed: torch.Tensor, topk: int, block_r: int = BLOCK_R):
+    """Hierarchical top-k over the last axis: max-reduce fixed r
+    blocks (keeping the first argmax), then top-k over the block
+    maxima.  Ties rank as jax.lax.top_k ranks them: larger value
+    first, then lower index (a stable descending sort).  Returns
+    (vals, bins) of shape (..., k), zero-padded when fewer than k
+    blocks exist."""
+    bmax, barg = block_maxima(summed, block_r)
+    vals, blk = topk_of_blocks(bmax, topk)
+    k = vals.shape[-1]
     bins = blk * block_r + torch.gather(barg, -1, blk)
     if k < topk:
         vals = torch.nn.functional.pad(vals, (0, topk - k))

@@ -22,8 +22,11 @@
 // index v = c - width, slab s = v / (2*step), offset j = v % (2*step);
 // c < width is the zero pad.  No full plane is ever assembled.
 //
-// The card never calls this: there the same math runs as the torch
-// _accel_block_topk program.  (Replaces the compute PRESTO's
+// On the card the same math runs in the CUDA stage kernel,
+// tpulsar_torch/csrc/accel_stage.cu (kernels/cuda_dd.py::
+// accel_stage_blocks), from the same pieces and bit for bit: every
+// batched hi stage on the card calls it, and only its top-k over the
+// block maxima is torch's.  (Replaces the compute PRESTO's
 // accelsearch C core does per DM on the host without copying it: the
 // z-max/harmonic-stage/top-k structure here mirrors the package's own
 // design, not PRESTO's.)

@@ -143,6 +143,16 @@ def accel_batch_trials_total() -> metrics.Counter:
         labelnames=("path",))
 
 
+def accel_kernel_rows_total() -> metrics.Counter:
+    """The port's own family (the JAX package has no stage kernel)."""
+    return metrics.counter(
+        "tpulsar_accel_kernel_rows_total",
+        "hi-accel DM trials whose batched powers the card's stage "
+        "kernel (csrc/accel_stage.cu) summed and reduced: a subset of "
+        "tpulsar_accel_batch_trials_total{path=batched}, all of them "
+        "on the card and none on the CPU")
+
+
 def accel_stage_seconds() -> metrics.Histogram:
     return metrics.histogram(
         "tpulsar_accel_stage_seconds",
